@@ -113,12 +113,14 @@ def run_steps(case: Case, n_steps=None):
 
     t is carried in f64 and each stage sees it rounded to the working dtype
     once. With the closures: the incremental closure each step (its f64
-    scalars precomputed on the host), then one full closure. Returns
+    scalars precomputed on the host), then one full closure. The steppers
+    and the operator work on the block state S[nfields, E, nd]; this case
+    has one field, and u, c go in and come out as [E, nd]. Returns
     (u, c, injected, t), injected the f64 sum of |mass| the closures
     absorbed (0.0 without closure)."""
     n_steps = case.n_steps if n_steps is None else n_steps
     dt, step = case.dt, case.step
-    u = case.u0.clone()
+    u = case.u0[None].clone()          # the block state S[1, E, nd]
     c = torch.zeros_like(u)
     acc = torch.zeros((), dtype=torch.float64, device=u.device)
     t = 0.0
@@ -128,13 +130,15 @@ def run_steps(case: Case, n_steps=None):
     for i in range(n_steps):
         t_new = t + dt
         if case.closure_inc is not None:
-            u, c, delta = step(u, c, _as_dtype(t, u.dtype), dt)
-            c, deficit = case.closure_inc(u, c, delta,
-                                          tuple(a[i] for a in coefs))
+            u, c, _, delta = step(u, c, _as_dtype(t, u.dtype), dt)
+            c0, deficit = case.closure_inc(u[0], c[0], delta[0],
+                                           tuple(a[i] for a in coefs))
+            c = c0[None]
             acc = acc + deficit.abs()
         else:
-            u, c = step(u, c, _as_dtype(t, u.dtype), dt)
+            u, c, _ = step(u, c, _as_dtype(t, u.dtype), dt)
         t = t_new
+    u, c = u[0], c[0]
     if case.closure is not None:
         c, deficit = case.closure(u, c, t)
         acc = acc + deficit.abs()
@@ -198,11 +202,11 @@ def cross_precision_check(u2, dt, adv64, u0_64):
     modes this guards against sit at 0.3 (bf16 products) and O(1)
     (a degenerate mass solve). Returns the relative 2-norm difference."""
     step64 = st.make_rk_step(adv64.stage_function(), 3)
-    u, t = u0_64, 0.0
+    u, t = u0_64[None], 0.0
     for _ in range(2):
-        u = step64(u, t, dt)
+        u, _ = step64(u, t, dt)
         t = t + dt
-    ref = u.double()
+    ref = u[0].double()
     rel = float(torch.linalg.norm(u2.double() - ref) / torch.linalg.norm(ref))
     if not rel < 1e-2:
         raise AssertionError(
@@ -219,8 +223,9 @@ def run(case: Case) -> dict:
     """Time the step loop, then verify it. One record, verified or raised.
 
     The wall time is one pass of the loop, not bench.py's best of
-    BENCH_REPS passes of a compiled loop (bench.py:512-517). The cross check runs only for a float32 case (it holds f32 against f64);
-    a float64 case records it as skipped."""
+    BENCH_REPS passes of a compiled loop (bench.py:512-517). The cross check
+    runs only for a float32 case (it holds f32 against f64); a float64 case
+    records it as skipped."""
     dev = case.u0.device
     _sync(dev)
     t0 = time.perf_counter()

@@ -37,7 +37,7 @@ def poly_layout(dim, Q, FQ):
                 width=vn + nkn * FQ)
 
 
-def _class_of_dofs(nd, dim):
+def class_of_dofs(nd, dim):
     """cls[nd]: bounds class of each dof, cz*9 + cy*3 + cx, where per axis
     a dof is class 0 (low GLL endpoint), 1 (interior) or 2 (high end)."""
     n1 = round(nd ** (1.0 / dim))
@@ -96,7 +96,7 @@ def stage_ho_tables(disc, dtype, device):
         Bu=F(Bu), w_q=F(disc.w_q),
         bdr=I(bdr),                                  # [nf, fd]
         dof_faces=I(_dof_faces(bdr, nd, dim)),       # [nd, dim]
-        cls=I(_class_of_dofs(nd, dim)),              # [nd]
+        cls=I(class_of_dofs(nd, dim)),              # [nd]
         dim=dim, nd=nd, Q=Q, Qf=Qf, nf=nf, fd=fd)
 
 

@@ -169,3 +169,9 @@ def u0_function(problem: int, x, bb_min, bb_max):
         return 0.25 * (1. + torch.tanh((r + c - a) / b)) * \
             (1. - torch.tanh((r - c - a) / b))
     return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+
+
+def s0_function(x):
+    """Product-field ratio initial condition (remhos.cpp:2357-2361)."""
+    return 2.0 + torch.sin(2 * math.pi * x[..., 0]) * torch.sin(
+        2 * math.pi * x[..., 1])

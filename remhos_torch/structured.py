@@ -120,3 +120,34 @@ def overlap_stencil_T(el_min, el_max, shape, periodic, masks=None):
         Wmin = torch.cat(segs_min, dim=0)
         Wmax = torch.cat(segs_max, dim=0)
     return Wmin, Wmax
+
+
+def overlap_bounds_structured(el_min, el_max, shape, periodic, p,
+                              active_el=None, masks=None, cls=None):
+    """Per-dof overlap bounds (x_min[E, nd], x_max[E, nd]): per axis, a GLL
+    endpoint dof also sees the adjacent element's extremum; interior dofs
+    see only their own element. Equals the CG scatter-min/max of
+    ComputeOverlapBounds (remhos_tools.cpp:432-495) on a structured grid.
+
+    Inactive elements (`active_el` false) contribute nothing but still read
+    bounds back from their neighbours, which is how a new element is
+    activated (remhos_tools.cpp:475-487).
+
+    The JAX function builds the [E, (p+1)^dim] arrays axis by axis; here the
+    class-major stencil `overlap_stencil_T` is expanded by `cls[nd]`, the
+    bounds class of each dof (ops/tables.py): the same minima and maxima of
+    the same values, so the result is bit-identical. `masks` and `cls` are
+    the caller's cached `edge_masks(shape)` and class table on the device;
+    without them they are built here. The JAX function's
+    shard-exchange arguments (`last_axis_exchange`, `last_axis_edges`,
+    `axis_exchanges`) are not ported: the port runs on one device."""
+    if active_el is not None:
+        el_min = torch.where(active_el, el_min, INF)
+        el_max = torch.where(active_el, el_max, -INF)
+    if cls is None:
+        from .ops.tables import class_of_dofs
+        cls = torch.as_tensor(class_of_dofs((p + 1) ** len(shape),
+                                            len(shape)),
+                              dtype=torch.long, device=el_min.device)
+    smin, smax = overlap_stencil_T(el_min, el_max, shape, periodic, masks)
+    return smin[cls].T, smax[cls].T

@@ -132,7 +132,9 @@ def test_bench_run_cross_check_runs_for_f32():
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, remhos_torch, remhos_torch.bench, "
-            "remhos_torch.convert; "
+            "remhos_torch.convert, remhos_torch.driver, "
+            "remhos_torch.config, remhos_torch.ops.stage_ho, "
+            "remhos_torch.ops.wdet, remhos_torch.ops.build; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('remhos_tpu')]; "
             "assert not bad, bad")
@@ -149,7 +151,7 @@ def test_sources_import_no_jax():
                      re.M)
     files = list((ROOT / "remhos_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+    assert len(files) > 20
     for f in files:
         hits = pat.findall(f.read_text())
         assert not hits, (f, hits)
@@ -173,8 +175,9 @@ def test_unported_configurations_raise():
     from remhos_torch.operator import Advection, SolverConfig
     case = bench.build_case(n=2, order=3, device="cpu", n_steps=2)
     for cfg in (SolverConfig(problem=4), SolverConfig(lo=3),
-                SolverConfig(fct=1), SolverConfig(verify_bounds=True),
-                SolverConfig(dt_control=1), SolverConfig(poly_bf16=True),
+                SolverConfig(fct=1), SolverConfig(ho=2),
+                SolverConfig(mono=1), SolverConfig(smth_ind=1),
+                SolverConfig(poly_bf16=True),
                 SolverConfig(bounds_type=1), SolverConfig(pa=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Advection(case.disc, cfg, case.adv.x0_nodes, case.adv.v_nodes,
@@ -194,18 +197,19 @@ def test_rk_steps_match_jax(kind):
         return -(1.0 + t) * x + 0.1 * jnp.sin(x), jnp.asarray(jnp.inf)
 
     def ft(t, dt, x):
-        return -(1.0 + t) * x + 0.1 * torch.sin(x)
+        return -(1.0 + t) * x + 0.1 * torch.sin(x), None
 
     t0, dt = 0.3, 0.05
     pj = jst.make_rk_step(fj, kind)(jnp.asarray(u), t0, dt)[0]
-    pt = steppers.make_rk_step(ft, kind)(torch.tensor(u), t0, dt)
+    pt, aux = steppers.make_rk_step(ft, kind)(torch.tensor(u), t0, dt)
+    assert aux is None          # every stage's aux was None: no combine
     np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=0,
                                atol=1e-14)
     uj, cj, _, dj = jst.make_rk_step(fj, kind, compensated=True,
                                      with_delta=True)(
         jnp.asarray(u), jnp.asarray(c), t0, dt)
-    ut, ct, dtt = steppers.make_rk_step(ft, kind, compensated=True,
-                                        with_delta=True)(
+    ut, ct, _, dtt = steppers.make_rk_step(ft, kind, compensated=True,
+                                           with_delta=True)(
         torch.tensor(u), torch.tensor(c), t0, dt)
     for a, b in ((ut, uj), (ct, cj), (dtt, dj)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
