@@ -9,11 +9,13 @@ It builds the CUDA kernels from the sources on first use, then:
    the build time and each library's ptxas lines;
 3. holds every kernel against its plain PyTorch version on the card, on the
    same inputs from a numpy seed, at N=24, p=3 in 3D and on a 2D 16x16 mesh,
-   in f32 and f64: the mega stage; the HO stage with and without its LO
-   output and once with n_cg == 0; wdet. Limits, relative to the largest
-   entry of the plain result: du 2e-4 (f32) and 1e-10 (f64); wdet 1e-5
-   (f32) and 1e-12 (f64). Each check prints the kernel's ms per launch
-   (CUDA events), the plain version's and the bound;
+   in f32 and f64 (wdet and geom_conv also at the golden rows' shape, in
+   step 8): the mega stage; the HO stage with and without its LO
+   output and once with n_cg == 0; wdet; geom_conv. Limits, relative to
+   the largest entry of the plain result: du 2e-4 (f32) and 1e-10 (f64);
+   wdet, and geom_conv's Ku, 1e-5 (f32) and 1e-12 (f64). Each check prints
+   the kernel's ms per launch (CUDA events), the plain version's and the
+   bound;
 4. drives the main path: bench.build_case(n=24, order=3, f32) and 320 RK3
    steps at dt = 0.2/320 with the mass closures, bench.verify and the 2-step
    f32-vs-f64 cross check; asserts that the mega stage ran on every stage;
@@ -28,8 +30,19 @@ It builds the CUDA kernels from the sources on first use, then:
    which must end without a bounds violation at the reference's 1e-12
    tolerance, with its gates; and holds one limited stage's aux channel
    (dt ratio, violation count) from the kernel against the plain version's;
-7. prints one JSON line per result and a `kernels` line;
-8. ends with {"ok": true, "device": {...}}.
+7. drives path C, the non-fused PA stage at full width: path A's run with
+   -lo 3 (residual distribution), so every stage launches wdet once and
+   geom_conv three times (HO u, LO u, HO us) and solves two global CGs;
+   asserts the launch counts and path A's gates, prints the CG iterations
+   per solve. Then path D in f64: -ho 2 -lo 4 -vb, one field, 20 steps (the
+   Bernstein CG, the subcell weights, the monotonicity check), and one stage
+   of path C split into its parts by CUDA events;
+8. holds wdet and geom_conv against their plain versions on the operator of
+   each cheap remap -pa golden row outside the -lo 5 family (its own mesh,
+   p=2, f64), then runs the row in f64 on the card against
+   goldens/reference_goldens.json (5e-10 relative on mass and max u);
+9. prints one JSON line per result and a `kernels` line;
+10. ends with {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a path and read just after. Any
 failure raises and exits nonzero; without CUDA it exits 2 and prints no
@@ -40,13 +53,16 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from remhos_torch import bench, bounds, driver, structured
+from remhos_torch import bench, bounds, driver, pa, structured
 from remhos_torch.config import RunConfig
+from remhos_torch.operator import Advection, SolverConfig
 from remhos_torch.ops import build
+from remhos_torch.ops import geom_conv as gc
 from remhos_torch.ops import mega_stage as ms
 from remhos_torch.ops import stage_ho as sh
 from remhos_torch.ops import wdet as wd
@@ -62,6 +78,9 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 LIMITS = {torch.float32: 2e-4, torch.float64: 1e-10}
 # wdet, relative to max|wdet|: a few Horner or dot roundings
 WDET_LIMITS = {torch.float32: 1e-5, torch.float64: 1e-12}
+# geom_conv's Ku, relative to max|Ku|: sums of a few hundred products of
+# O(1) terms in another order
+KU_LIMITS = {torch.float32: 1e-5, torch.float64: 1e-12}
 N_MAIN, ORDER, STEPS = 24, 3, 320
 SEED = 20261016
 
@@ -97,6 +116,21 @@ PATH_B = dict(PATH_A, dt_control=0, ode_solver=13, dtype="float64",
 # s0 = 2 + sin sin <= 3, and the product limiter keeps s in its bounds
 B_LIMITS = dict(mass_loss_u_rel=1e-8, mass_loss_us_rel=1e-8,
                 max_s=3.0 + 1e-8, max_u=1.0 + 1e-10)
+# path C: path A with the residual-distribution LO solution, which takes the
+# configuration out of the fused family: per stage one wdet launch, three
+# geom_conv launches (HO u, LO u, HO us) and two global CG solves. Gates as
+# path A's.
+PATH_C = dict(PATH_A, lo=3)
+C_LIMITS = dict(A_LIMITS)
+# path D: -ho 2 -lo 4 in f64, one field, with -vb: the Bernstein CG, the
+# subcell weights, the stage checks at 1e-12 and the driver's global
+# monotonicity check (which raise inside driver.run). Per stage one wdet and
+# two geom_conv launches.
+PATH_D = dict(PATH_A, ho=2, lo=4, product_sync=False, dtype="float64",
+              verify_bounds=True, max_tsteps=20)
+D_LIMITS = dict(mass_loss_u_rel=1e-8, max_u=1.0 + 1e-10, min_steps=20)
+GOLDEN_ROWS = ("remap-cube3d-m3pa", "remap-cube3d-m4pa")
+GOLDEN_TOL = 5e-10       # the baseline prints 10 significant digits
 
 
 def card_line():
@@ -187,6 +221,26 @@ def wdet_cost(xs, tables):
     det = 14 if dim == 3 else 3
     return nbytes, E * (2 * dim * dim * tensor_macs(m1, q1, dim)
                         + (det + 1) * Q)
+
+
+def geom_conv_cost(xs, u, tables):
+    """(bytes, flops) of geom_conv at the least: xs, v, u and the kernel's
+    tables read once, Ku and wdet written once; the dim*dim Jacobian entries
+    and the dim velocity components as sum-factorized contractions from
+    (mesh order + 1)^dim nodes to Q points, the dim reference gradients of u
+    from nd dofs to Q points and Ku back from Q points to nd dofs, then the
+    cofactor algebra at every point."""
+    E, nm, dim = xs.shape
+    nd, Q = u.shape[1], tables["w_q"].shape[0]
+    m1, n1, q1 = (round(k ** (1 / dim)) for k in (nm, nd, Q))
+    assert (m1 ** dim, n1 ** dim, q1 ** dim) == (nm, nd, Q)
+    itemsize = xs.element_size()
+    tb = sum(tables[k].numel() for k in gc.KERNEL_TABLES)
+    nbytes = (2 * xs.numel() + u.numel() + tb + E * nd + E * Q) * itemsize
+    mac = ((dim * dim + dim) * tensor_macs(m1, q1, dim)
+           + (dim + 1) * tensor_macs(n1, q1, dim))
+    pointwise = (55 if dim == 3 else 14) * Q
+    return nbytes, E * (2 * mac + pointwise)
 
 
 def bound(nbytes, flops, dtype):
@@ -292,13 +346,52 @@ def check_wdet(label, adv):
     return res
 
 
+def nonfused_operator(base):
+    """A non-fused operator (-lo 3) on the mesh, nodes and velocity of the
+    fused operator `base`: it makes geom_conv's tables."""
+    return Advection(base.disc, SolverConfig(problem=10, ho=3, lo=3, fct=2,
+                                             pa=True),
+                     base.x0_nodes, base.v_nodes, dtype=base.dtype,
+                     device=base.device)
+
+
+def check_geom_conv(label, adv, rng):
+    """geom_conv kernel vs plain version at the nodes x0 + 0.3 v, the mesh
+    velocity v and a random u: Ku and wdet, with the tables of the non-fused
+    operator `adv`."""
+    dtype = adv.dtype
+    tb, v = adv._gc_tables, adv.v_nodes
+    xs = adv.x0_nodes + 0.3 * v
+    u = torch.as_tensor(rng.random((xs.shape[0], adv.disc.nd)), dtype=dtype,
+                        device=adv.device)
+    got = gc.geom_conv(xs, v, u, tb, 1.0)
+    torch.cuda.synchronize()
+    ref = gc.geom_conv_reference(xs, v, u, tb, 1.0)
+    torch.cuda.synchronize()
+    err, rel = compare(label, "Ku", got[0], ref[0], KU_LIMITS[dtype])
+    _, wrel = compare(label, "wdet", got[1], ref[1], WDET_LIMITS[dtype])
+    res = dict(check=label, kernel="geom_conv", E=xs.shape[0],
+               max_abs_err=err, rel_err=rel, wdet_rel_err=wrel,
+               limit=KU_LIMITS[dtype], wdet_limit=WDET_LIMITS[dtype],
+               ms=time_ms(lambda: gc.geom_conv(xs, v, u, tb, 1.0), 20),
+               plain_ms=time_ms(
+                   lambda: gc.geom_conv_reference(xs, v, u, tb, 1.0), 5))
+    res.update(bound(*geom_conv_cost(xs, u, tb), dtype))
+    print(json.dumps(res), flush=True)
+    return res
+
+
+KERNELS = dict(mega_stage=ms.mega_stage, stage_ho=sh.stage_ho, wdet=wd.wdet,
+               geom_conv=gc.geom_conv)
+
+
 def reset_counts():
-    ms.mega_stage.launches = sh.stage_ho.launches = wd.wdet.launches = 0
+    for fn in KERNELS.values():
+        fn.launches = 0
 
 
 def counts():
-    return dict(mega_stage=ms.mega_stage.launches,
-                stage_ho=sh.stage_ho.launches, wdet=wd.wdet.launches)
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def expect_counts(path, want):
@@ -316,16 +409,33 @@ def gate(path, name, value, limit, least=False):
                            f"{limit:g}")
 
 
-def run_driver_path(path, cfg_kw, limits, device):
+def fused_launches(attempts, fields):
+    """Launches of a non-mega fused run: the HO stage once per field and
+    stage, wdet for the two mass reports."""
+    return dict(mega_stage=0, stage_ho=fields * bench.STAGES * attempts,
+                wdet=2, geom_conv=0)
+
+
+def nonfused_launches(attempts, fields):
+    """Launches of a non-fused run with a residual-distribution LO solution:
+    per stage wdet once and geom_conv once per field for the HO solution
+    plus once for the LO solution of u; wdet twice more for the mass
+    reports."""
+    stages = bench.STAGES * attempts
+    return dict(mega_stage=0, stage_ho=0, wdet=stages + 2,
+                geom_conv=(fields + 1) * stages)
+
+
+def run_driver_path(path, cfg_kw, limits, device, launches=fused_launches):
     """One driver.run with its launch counts and gates; returns the
     record."""
     cfg = RunConfig(device=str(device), **cfg_kw)
+    fields = 2 if cfg.product_sync else 1
     reset_counts()
     res = driver.run(cfg)
-    n = expect_counts(path, dict(
-        mega_stage=0, stage_ho=2 * bench.STAGES * res.steps_total, wdet=2))
+    n = expect_counts(path, launches(res.steps_total, fields))
     mass0_u = res.final_mass_u + res.mass_loss_u
-    mass0_us = res.final_mass_us + res.mass_loss_us
+    mass0_us = res.final_mass_us + res.mass_loss_us if fields == 2 else 1.0
     # mass_loss is |m0 - mT|: m0 is one of mT +- loss; either gives the same
     # relative loss to first order
     rec = dict(path=path, dtype=cfg.dtype, ode_solver=cfg.ode_solver,
@@ -335,13 +445,20 @@ def run_driver_path(path, cfg_kw, limits, device):
                rollbacks=res.steps_total - res.steps,
                wall_s=res.timers["wall_s"],
                ms_per_step=1e3 * res.timers["wall_s"] / res.steps_total,
-               ndofs_per_field=N_MAIN ** 3 * (ORDER + 1) ** 3, fields=2,
+               ndofs_per_field=N_MAIN ** 3 * (ORDER + 1) ** 3,
+               fields=fields,
                mass_loss_u_rel=res.mass_loss_u / abs(mass0_u),
                mass_loss_us_rel=res.mass_loss_us / abs(mass0_us),
                closure_injected_rel=res.mass_closure_injected_rel,
                max_u=res.max_u, max_s=res.max_s, launches=n, limits=limits)
-    # the reference's stage counting, per field: two fields advance in
-    # every stage, so the work per stage is twice the main path's
+    if res.cg_solves:
+        # every iteration reads one comparison back from the device
+        rec.update(cg_solves=res.cg_solves, cg_iterations=res.cg_iterations,
+                   cg_iterations_per_solve=res.cg_iterations / res.cg_solves,
+                   cg_syncs_per_stage=(res.cg_iterations + res.cg_solves)
+                   / (bench.STAGES * res.steps_total))
+    # the reference's stage counting, per field: with -ps two fields advance
+    # in every stage, so the work per stage is twice the main path's
     rec["MDOF_stages_per_s"] = (1e-6 * rec["ndofs_per_field"] * bench.STAGES
                                 * res.steps_total / res.timers["wall_s"])
     print(json.dumps(rec), flush=True)
@@ -353,12 +470,85 @@ def run_driver_path(path, cfg_kw, limits, device):
     return rec
 
 
+def run_golden_rows(device, rng, wdet_checks, gc_checks):
+    """The cheap remap -pa golden rows of the non-fused path, to the end in
+    f64 on the card, against the reference's printed mass and max u. A row
+    gives wdet and geom_conv another shape than paths A-D (its own mesh,
+    p=2), so both are first held against their plain versions on the row's
+    own operator; the checks go into `wdet_checks` and `gc_checks`."""
+    path = Path(__file__).resolve().parent / "goldens" / \
+        "reference_goldens.json"
+    rows = {r["name"]: r for r in json.loads(path.read_text())["runs"]}
+    recs = []
+    for name in GOLDEN_ROWS:
+        row = rows[name]
+        cfg = RunConfig(verbose=False, device=str(device), **row["cfg"])
+        adv, _ = driver.build_operator(cfg)
+        label = f"{name} {cfg.mesh} p={cfg.order} f64"
+        wdet_checks[name] = check_wdet(label, adv)
+        gc_checks[name] = check_geom_conv(label, adv, rng)
+        del adv
+        reset_counts()
+        res = driver.run(cfg)
+        n = expect_counts(name, nonfused_launches(res.steps_total, 1))
+        rec = dict(golden=name, steps=res.steps, mass=res.final_mass_u,
+                   golden_mass=row["mass"], max_u=res.max_u,
+                   golden_max=row["max"], wall_s=res.timers["wall_s"],
+                   cg_iterations_per_solve=res.cg_iterations / res.cg_solves,
+                   launches=n, tol=GOLDEN_TOL)
+        print(json.dumps(rec), flush=True)
+        for what, got, want in (("mass", res.final_mass_u, row["mass"]),
+                                ("max u", res.max_u, row["max"])):
+            if not abs(got - want) <= GOLDEN_TOL * max(abs(got), abs(want)):
+                raise RuntimeError(f"{name}: {what} {got:.12g} is not the "
+                                   f"golden {want:.10g}")
+        recs.append(rec)
+    return recs
+
+
+def split_nonfused_stage(device):
+    """Where one stage of path C goes, by CUDA events around each part (the
+    parts with a CG solve include its reads back to the host): the whole
+    stage of two fields; the stage geometry (one wdet launch inside); per
+    field the HO solution, of which geom_conv and the CG solve; the
+    residual-distribution LO solution of u (one geom_conv inside); and
+    limit_mult given dS (the LO solution, bounds, ClipScale and the product
+    limiter)."""
+    f32 = torch.float32
+    case = bench.build_case(N_MAIN, ORDER, f32, device, n_steps=STEPS)
+    adv = Advection(case.disc, SolverConfig(problem=10, ho=3, lo=3, fct=2,
+                                            pa=True, product_sync=True),
+                    case.adv.x0_nodes, case.adv.v_nodes, dtype=f32,
+                    device=device)
+    u, t, dt = case.u0, 0.1, case.dt
+    S = torch.stack([u, 2.0 * u])
+    geom = adv.geometry(t)
+    stage = adv.stage_function()
+    dS = adv.mult_unlimited(t, dt, S, geom=geom)
+    rhs = pa.mass_action(dS[0], geom["wdet"], adv.Bu)
+    parts = dict(
+        stage=lambda: stage(t, dt, S),
+        geometry=lambda: adv.geometry(t),
+        ho_solution=lambda: adv.ho_solution(geom, u),
+        geom_conv=lambda: adv.conv_volume(geom, u),
+        cg_solve=lambda: pa.mass_solve_gl(rhs, geom["wdet"], adv.Bgl,
+                                          adv.A_gl2b),
+        lo_solution=lambda: adv.lo_solution(geom, u),
+        limit_mult=lambda: adv.limit_mult(t, dt, S, dS, geom=geom))
+    rec = {"check": "path C stage split, 3d N=%d f32, ms" % N_MAIN}
+    rec.update({name: time_ms(fn, 20) for name, fn in parts.items()})
+    stats = {}
+    pa.mass_solve_gl(rhs, geom["wdet"], adv.Bgl, adv.A_gl2b, stats=stats)
+    rec["cg_iterations"] = stats["iterations"]
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
 def check_vb_stage(device):
     """The -vb and dt-control side channel in f64 at full width: one limited
     stage of two fields, aux = [dt ratio, -violations] with du_HO from the
     kernel against the same with du_HO from the plain version: dS to the
     f64 limit, the ratio to 1e-9, the violation count equal."""
-    from remhos_torch.operator import Advection, SolverConfig
     case = bench.build_case(N_MAIN, ORDER, torch.float64, device,
                             n_steps=STEPS)
     scfg = SolverConfig(problem=10, ho=3, lo=5, fct=2, pa=True,
@@ -412,7 +602,7 @@ def main():
 
     # 3. kernels against plain versions, f32 and f64, N=24 3D and a 2D mesh
     rng = np.random.default_rng(SEED)
-    checks, ho_checks, wdet_checks = {}, {}, {}
+    checks, ho_checks, wdet_checks, gc_checks = {}, {}, {}, {}
     for tag, n, dim in (("3d", N_MAIN, 3), ("2d", 16, 2)):
         case = bench.build_case(n, ORDER, torch.float32, dev, n_steps=STEPS,
                                 dim=dim)
@@ -426,6 +616,8 @@ def main():
                     f"{size} {prec} with_lo={with_lo}", adv, case.dt, rng,
                     with_lo)
             wdet_checks[key] = check_wdet(f"{size} {prec}", adv)
+            gc_checks[key] = check_geom_conv(f"{size} {prec}",
+                                             nonfused_operator(adv), rng)
         if dim == 3:
             ho_checks["3d_f32_ku"] = check_stage_ho(
                 f"{size} f32 n_cg=0 with_lo=True", case.adv, case.dt, rng,
@@ -441,7 +633,7 @@ def main():
     # the cross check's 2 f32 and 2 f64 steps; verify's two lumped masses
     main_counts = expect_counts("main path", dict(
         mega_stage=bench.STAGES * (case.n_steps + 2 + 2), stage_ho=0,
-        wdet=2))
+        wdet=2, geom_conv=0))
     u, unbr, smin, smax = stage_inputs(case.adv, rng)
     adv = case.adv
     kernel_ms = time_ms(lambda: ms.mega_stage(
@@ -459,9 +651,15 @@ def main():
     # 6. path B: IDP-RK3 product remap with -vb in f64; the stage's aux
     rec_b = run_driver_path("B", PATH_B, B_LIMITS, dev)
     check_vb_stage(dev)
+    # 7. paths C and D: the non-fused PA stage; 8. its cheap golden rows
+    rec_c = run_driver_path("C", PATH_C, C_LIMITS, dev, nonfused_launches)
+    rec_path_d = run_driver_path("D", PATH_D, D_LIMITS, dev, nonfused_launches)
+    split_nonfused_stage(dev)
+    run_golden_rows(dev, rng, wdet_checks, gc_checks)
 
-    # 7. every ported kernel: `launches` on its own path (mega stage: the
-    # main path; stage_ho and wdet: path A), numbers at 3D N=24 f32
+    # 9. every ported kernel: `launches` on its own path (mega stage: the
+    # main path; stage_ho: path A; wdet and geom_conv: path C), numbers at
+    # 3D N=24 f32
     def row(name, source, replaces, launches, c32, c64, all_checks, **more):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
         return dict(
@@ -487,9 +685,15 @@ def main():
             launches_path_a_dtc=rec_d["launches"]["stage_ho"],
             launches_path_b=rec_b["launches"]["stage_ho"]),
         row("wdet", "remhos_torch/ops/csrc/wdet.cu", pk + ":1130",
-            rec_a["launches"]["wdet"], wdet_checks["3d_f32"],
+            rec_c["launches"]["wdet"], wdet_checks["3d_f32"],
             wdet_checks["3d_f64"], wdet_checks,
-            launches_main_path=main_counts["wdet"]),
+            launches_main_path=main_counts["wdet"],
+            launches_path_a=rec_a["launches"]["wdet"],
+            launches_path_d=rec_path_d["launches"]["wdet"]),
+        row("geom_conv", "remhos_torch/ops/csrc/geom_conv.cu", pk + ":110",
+            rec_c["launches"]["geom_conv"], gc_checks["3d_f32"],
+            gc_checks["3d_f64"], gc_checks,
+            launches_path_d=rec_path_d["launches"]["geom_conv"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -79,4 +79,8 @@ class RunResult:
     # to the initial mass (0 when the closure is off); budgeted against
     # the known drift scale so the closure cannot hide a conservation bug
     mass_closure_injected_rel: float = 0.0
+    # the non-fused stage's global CG mass solves over the whole run, and
+    # their iterations (each reads one comparison back from the device)
+    cg_solves: int = 0
+    cg_iterations: int = 0
     timers: dict | None = None

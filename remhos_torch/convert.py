@@ -20,7 +20,7 @@ import torch
 from .ops.tables import _dof_faces, poly_layout
 
 DISC_FIELDS = ("w_q", "Bu", "Gu", "Bm", "Gm", "w_fq", "Bface", "Bmf", "Gmf",
-               "n_ref", "Bm_at_unodes", "Bgl", "A_gl2b")
+               "n_ref", "ref_nodes_u", "Bm_at_unodes", "Bgl", "A_gl2b")
 
 
 def tensor(a, dtype=torch.float64, device="cpu"):
@@ -30,10 +30,10 @@ def tensor(a, dtype=torch.float64, device="cpu"):
 
 def discretization_tables(disc) -> dict:
     """The host tables of a Discretization (either package's), by name,
-    with the dofmap tables as bdr_dofs and nbr_dof_local."""
+    with the dofmap tables as bdr_dofs, nbr_dof_local and sub2ind."""
     out = {k: np.asarray(getattr(disc, k)) for k in DISC_FIELDS}
-    out["bdr_dofs"] = np.asarray(disc.dofmaps.bdr_dofs)
-    out["nbr_dof_local"] = np.asarray(disc.dofmaps.nbr_dof_local)
+    for k in ("bdr_dofs", "nbr_dof_local", "sub2ind"):
+        out[k] = np.asarray(getattr(disc.dofmaps, k))
     return out
 
 

@@ -32,6 +32,7 @@ class Discretization:
     Bmf: np.ndarray        # [nf, Qf, nm] mesh basis at face quad points
     Gmf: np.ndarray        # [nf, Qf, nm, dim]
     n_ref: np.ndarray      # [nf, dim] outward reference normals
+    ref_nodes_u: np.ndarray   # [nd, dim] solution (closed-uniform) ref nodes
     Bm_at_unodes: np.ndarray  # [nd, nm] mesh basis at the uniform nodes
     Bgl: np.ndarray        # [Q, nd] GL nodal basis at the volume rule
     A_gl2b: np.ndarray     # [nd, nd] GL-nodal -> Bernstein coefficients
@@ -81,6 +82,9 @@ def build_discretization(mesh: StructuredMesh, p: int) -> Discretization:
         nrefs.append(n)
 
     unodes_1d = np.linspace(0.0, 1.0, p + 1)
+    ref_nodes_u = np.stack(
+        [g.ravel(order="F")
+         for g in np.meshgrid(*[unodes_1d] * dim, indexing="ij")], axis=-1)
     Bm_at_unodes = B.tensor_mixed([B.lagrange_vals(gll_m, unodes_1d)] * dim)
     gl_nodes = B.gauss_legendre(p + 1)[0]
     Bgl = B.tensor_mixed([B.lagrange_vals(gl_nodes, q1)] * dim)
@@ -91,5 +95,5 @@ def build_discretization(mesh: StructuredMesh, p: int) -> Discretization:
     return Discretization(
         mesh=mesh, p=p, dofmaps=dofmaps, w_q=w_q, Bu=Bu, Gu=Gu, Bm=Bm, Gm=Gm,
         w_fq=w_fq, Bface=Bface, Bmf=np.stack(Bmf), Gmf=np.stack(Gmf),
-        n_ref=np.stack(nrefs), Bm_at_unodes=Bm_at_unodes, Bgl=Bgl,
+        n_ref=np.stack(nrefs), ref_nodes_u=ref_nodes_u, Bm_at_unodes=Bm_at_unodes, Bgl=Bgl,
         A_gl2b=A_gl2b)

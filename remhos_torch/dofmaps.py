@@ -1,10 +1,11 @@
 """Static dof-topology tables of a structured mesh (host numpy).
 
 The port's copy of the `remhos_tpu.dofmaps` subset the Cartesian remap path
-uses: the element-local dofs on each face (`bdr_dofs`) and the matching dof
-on the face neighbour (`nbr_dof_local`). All elements of a structured grid
-share one orientation, so the neighbour dof is the same tangential position
-on the opposite face.
+uses: the element-local dofs on each face (`bdr_dofs`), the matching dof on
+the face neighbour (`nbr_dof_local`) and the corner dofs of the p^dim
+subcells (`sub2ind`). All elements of a structured grid share one
+orientation, so the neighbour dof is the same tangential position on the
+opposite face.
 """
 
 from __future__ import annotations
@@ -57,10 +58,16 @@ class DofMaps:
     nfaces: int
     bdr_dofs: np.ndarray         # [nfaces, fd] local dof ids on each face
     nbr_dof_local: np.ndarray    # [nfaces, fd] matching dof in the neighbour
+    sub2ind: np.ndarray          # [p^dim, 2^dim] corner dofs of each subcell
 
 
 def build_dofmaps(dim: int, p: int) -> DofMaps:
     n1 = p + 1
     bdr = face_dof_table(p, dim)
+    # subcell corner map (FillSubcell2CellDof, remhos_tools.cpp:678-734):
+    # subcell origins and corner offsets, both lexicographic, x fastest
+    strides = n1 ** np.arange(dim)
+    sub2ind = ((_lex_multi_index(p, dim)[:, None, :]
+                + _lex_multi_index(2, dim)[None, :, :]) * strides).sum(-1)
     return DofMaps(p, dim, n1 ** dim, n1 ** (dim - 1), 2 * dim, bdr,
-                   bdr[opposite_face(dim)])
+                   bdr[opposite_face(dim)], sub2ind.astype(np.int32))

@@ -42,6 +42,32 @@ def volume_detj(x, Gm):
     return sum(Jp[d][0] * k0[d] for d in range(3))
 
 
+def det_adj(J):
+    """(det J[...], adj J[..., dim, dim]) of J[..., dim, dim] in closed
+    form, no linear solves; adj(J) = det(J) J^-1 is the transposed cofactor
+    matrix."""
+    if J.shape[-1] == 2:
+        a, b = J[..., 0, 0], J[..., 0, 1]
+        c, d = J[..., 1, 0], J[..., 1, 1]
+        adj = torch.stack([torch.stack([d, -b], -1),
+                           torch.stack([-c, a], -1)], -2)
+        return a * d - b * c, adj
+    c00 = J[..., 1, 1] * J[..., 2, 2] - J[..., 1, 2] * J[..., 2, 1]
+    c01 = J[..., 1, 2] * J[..., 2, 0] - J[..., 1, 0] * J[..., 2, 2]
+    c02 = J[..., 1, 0] * J[..., 2, 1] - J[..., 1, 1] * J[..., 2, 0]
+    c10 = J[..., 0, 2] * J[..., 2, 1] - J[..., 0, 1] * J[..., 2, 2]
+    c11 = J[..., 0, 0] * J[..., 2, 2] - J[..., 0, 2] * J[..., 2, 0]
+    c12 = J[..., 0, 1] * J[..., 2, 0] - J[..., 0, 0] * J[..., 2, 1]
+    c20 = J[..., 0, 1] * J[..., 1, 2] - J[..., 0, 2] * J[..., 1, 1]
+    c21 = J[..., 0, 2] * J[..., 1, 0] - J[..., 0, 0] * J[..., 1, 2]
+    c22 = J[..., 0, 0] * J[..., 1, 1] - J[..., 0, 1] * J[..., 1, 0]
+    det = J[..., 0, 0] * c00 + J[..., 0, 1] * c01 + J[..., 0, 2] * c02
+    adj = torch.stack([torch.stack([c00, c10, c20], -1),
+                       torch.stack([c01, c11, c21], -1),
+                       torch.stack([c02, c12, c22], -1)], -2)
+    return det, adj
+
+
 def face_tangent_tables(Gmf, n_ref):
     """Tangent-only face-normal tables (host numpy).
 
@@ -64,6 +90,23 @@ def face_tangent_tables(Gmf, n_ref):
         s = s * np.where(k == 0, 1.0, -1.0)
     Gt = np.take_along_axis(Gmf, t_axes[:, None, None, :], axis=3)
     return Gt, s
+
+
+def face_normals_tangent(x, Gmf_tan, sign):
+    """Scaled outward face normals nor[E, nf, Qf, dim] (|nor| = surface
+    Jacobian) from the tangential Jacobian columns alone: Gmf_tan[nf, Qf,
+    nm, dim-1] and sign[nf] of `face_tangent_tables`. The remap stage needs
+    no face points: its face velocity does not depend on time."""
+    A, E, dim = _nodes_matrix(x)
+    nf, Qf, nm, tdim = Gmf_tan.shape
+    G2 = Gmf_tan.permute(2, 0, 1, 3).reshape(nm, nf * Qf * tdim)
+    T = (A @ G2).reshape(E, dim, nf, Qf, tdim).permute(0, 2, 3, 1, 4)
+    if dim == 3:
+        nor = torch.linalg.cross(T[..., 0], T[..., 1], dim=-1)
+    else:
+        t = T[..., 0]
+        nor = torch.stack([t[..., 1], -t[..., 0]], -1)
+    return nor * sign[None, :, None, None]
 
 
 def lumped_mass_poly(x0, v, disc):

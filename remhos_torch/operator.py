@@ -1,14 +1,14 @@
-"""The advection operator of the fused remap family.
+"""The advection operator of the partial-assembly remap paths.
 
 The port of `remhos_tpu.operator.Advection` for remap (problems 10-19) with
-`-ho 3 [-lo 5] [-fct 2] -pa` on a structured 2D/3D mesh: the reference's
-"fused stage" branch, whose stage geometry is polynomial in the pseudo-time
-and lives inside the kernels. Stage functions work on the block state
+`-pa` on a structured 2D/3D mesh. Stage functions work on the block state
 `S[nfields, E, nd]` (field 0 = u, field 1 = us for product remap) and return
 `(dS, aux)` with `aux = [dt_ratio, -violations]`, a 2-element tensor on the
 device that is never fetched inside a step.
 
-Two kernels carry a stage:
+The reference's own gate picks one of two stages. `-ho 3 [-lo 5] [-fct 2]`
+is the "fused stage", whose geometry is polynomial in the pseudo-time and
+lives inside the kernels. Two kernels carry it:
 
 - the mega stage (`ops/mega_stage.py`): the whole limited stage in one
   launch, when nothing outside needs du_HO, du_LO or wdet (single field, no
@@ -22,6 +22,17 @@ Two kernels carry a stage:
 before any HO stage kernel has (the driver's mass reports, a stand-alone
 `limit_mult`).
 
+Everything else in `-ho 2|3 -lo 0|3|4|5 -fct 0|2` is the non-fused stage,
+which re-derives its geometry from the nodes x0 + t v at every stage:
+`geometry(t)` makes the face normals and upwind weights in plain PyTorch and
+launches the wdet kernel once; per field, `ops/geom_conv.py` fuses the
+volume geometry with the convection action (once for the HO solution, once
+more for a residual-distribution LO solution), the face terms are plain
+PyTorch (`pa.py`), and the mass inverse is a global CG (`pa.mass_solve_gl`
+for `-ho 3`, `pa.mass_solve_bern` for `-ho 2`) that reads one comparison
+back from the device per iteration; `cg_stats` counts its solves and
+iterations.
+
 Any other configuration raises NotImplementedError naming the ROADMAP.md
 item that ports it.
 """
@@ -32,17 +43,21 @@ import dataclasses
 
 import torch
 
+from . import assembly as asm
 from . import bounds as bnd
 from . import fct as fctm
+from . import geometry as geo
 from . import lo as lom
 from . import pa as pam
 from . import problems as prob
 from . import resolve_device
 from . import structured as strm
+from . import subcell as subm
 from . import sync as syncm
 from . import verify as vfy
 from .discretization import Discretization
 from .ops import tables as tbl
+from .ops.geom_conv import geom_conv, geom_conv_tables
 from .ops.mega_stage import mega_stage
 from .ops.stage_ho import stage_ho
 from .ops.wdet import wdet as wdet_kernel
@@ -56,8 +71,8 @@ class SolverConfig:
     """Solver selection, mirroring the reference CLI (remhos.cpp:249-334)."""
 
     problem: int = 10
-    ho: int = 3          # 3 LocalInverse
-    lo: int = 5          # 5 MassBasedAvg
+    ho: int = 3          # 2 CG, 3 LocalInverse
+    lo: int = 5          # 0 none, 3 RD, 4 RD-subcell, 5 MassBasedAvg
     fct: int = 2         # 2 ClipScale
     mono: int = 0
     ode_solver: int = 3
@@ -76,13 +91,13 @@ class SolverConfig:
 
 
 def _unported(cfg: SolverConfig, dim: int):
-    """The ROADMAP.md item a configuration needs, or None when the fused
-    remap stage runs it."""
+    """The ROADMAP.md item a configuration needs, or None when one of the
+    two remap PA stages runs it."""
     if cfg.exec_mode != 1:
         return "transport mode (Queue 1, item 9)"
-    if cfg.ho != 3 or cfg.lo not in (0, 5) or cfg.fct not in (0, 2) \
-            or cfg.mono != 0 or cfg.smth_ind != 0:
-        return "solver families other than -ho 3 [-lo 5] [-fct 2] " \
+    if cfg.ho not in (2, 3) or cfg.lo not in (0, 3, 4, 5) \
+            or cfg.fct not in (0, 2) or cfg.mono != 0 or cfg.smth_ind != 0:
+        return "solver families other than -ho 2|3 -lo 0|3|4|5 -fct 0|2 " \
                "(Queue 1, item 10)"
     if not cfg.pa:
         return "the assembled (non -pa) path (Queue 1, item 10)"
@@ -104,7 +119,7 @@ class Advection:
         why = _unported(cfg, disc.dim)
         if why is not None:
             raise NotImplementedError(
-                f"remhos_torch runs the fused remap stage only; {why} is "
+                f"remhos_torch runs the remap PA stages only; {why} is "
                 "not ported yet (ROADMAP.md)")
         self.disc = disc
         self.cfg = cfg
@@ -122,17 +137,56 @@ class Advection:
         self.nbr_dof_local = torch.as_tensor(
             disc.dofmaps.nbr_dof_local, dtype=torch.long, device=self.device)
         self.masks = strm.edge_masks(self.shape, self.device)
-        self._stage_tables = tbl.stage_ho_tables(disc, dtype, self.device)
         self._wdet_tables = wdet_tables(disc, dtype, self.device)
-        self._cls = self._stage_tables["cls"].long()
-        # remap moves the mesh linearly, so va/wdet/vn are polynomials in t
-        # whose coefficients are computed once (the per-stage geometry
-        # compute disappears into Horner evaluations inside the kernels)
-        self._poly = tbl.build_poly_tables(self.x0_nodes, self.v_nodes, disc)
+        self._cls = torch.as_tensor(tbl.class_of_dofs(disc.nd, disc.dim),
+                                    dtype=torch.long, device=self.device)
         # the constant halves of aux, made once: no fill launch per stage
         self._inf = torch.full((), INF, dtype=dtype, device=self.device)
         self._no_viol = torch.zeros((), dtype=torch.int32,
                                     device=self.device)
+        # solves and iterations of the non-fused stage's global CG (the
+        # fused stage solves inside its kernels and leaves them 0)
+        self.cg_stats = dict(solves=0, iterations=0)
+        # the reference's gate (its `_fused_stage`): the canonical family
+        # runs the fused stage kernels, everything else the composition of
+        # geom_conv with plain PyTorch
+        self._fused_stage = (cfg.ho == 3 and cfg.lo in (0, 5)
+                             and cfg.fct in (0, 2))
+        if self._fused_stage:
+            self._stage_tables = tbl.stage_ho_tables(disc, dtype,
+                                                     self.device)
+            # remap moves the mesh linearly, so va/wdet/vn are polynomials
+            # in t whose coefficients are computed once (the per-stage
+            # geometry compute disappears into Horner evaluations inside
+            # the kernels)
+            self._poly = tbl.build_poly_tables(self.x0_nodes, self.v_nodes,
+                                               disc)
+        else:
+            self._init_nonfused(T)
+
+    def _init_nonfused(self, T):
+        """Static tables of the non-fused stage."""
+        disc, dev = self.disc, self.device
+        self._gc_tables = geom_conv_tables(disc, self.dtype, dev)
+        self.Bface, self.w_fq = T(disc.Bface), T(disc.w_fq)
+        self.Bgl, self.A_gl2b = T(disc.Bgl), T(disc.A_gl2b)
+        self.bdr_dofs = torch.as_tensor(disc.dofmaps.bdr_dofs,
+                                        dtype=torch.long, device=dev)
+        Gt, sign = geo.face_tangent_tables(disc.Gmf, disc.n_ref)
+        self._face_tan = (T(Gt), T(sign))
+        # the mesh velocity does not depend on time, so its interpolation to
+        # the face points is made once (the reference reassembles it every
+        # stage, remhos.cpp:1612-1643)
+        nf, Qf, nm = disc.Bmf.shape
+        self._v_fq_static = geo.interp_nodes(
+            self.v_nodes, T(disc.Bmf.reshape(nf * Qf, nm))).reshape(
+                self.v_nodes.shape[0], nf, Qf, -1)
+        self._sub2ind = None
+        if self.cfg.lo == 4:
+            self._sub2ind = torch.as_tensor(disc.dofmaps.sub2ind,
+                                            dtype=torch.long, device=dev)
+            self._q1_grads = T(subm.q1_center_grads(disc.dim))
+            self._subcell_nodes = subm.subcell_node_setup(self)
 
     def gather_nbr(self, u):
         """u_nbr[E, nf, fd], 0 on physical boundaries."""
@@ -145,12 +199,28 @@ class Advection:
 
     def geometry(self, t):
         """The per-stage cache shared by `mult_unlimited` and `limit_mult`.
-        Everything stage-dependent happens inside the stage kernels
-        (polynomial geometry keyed on t); wdet, detJ and ml are filled in as
-        kernel by-products (`_stage_ho_fused`, `_ensure_stage_geom`). The
-        nodes xs = x0 + t v, which the reference puts here, are formed only
-        where the wdet kernel reads them."""
-        return dict(t=t)
+
+        Fused stage: everything stage-dependent happens inside the stage
+        kernels (polynomial geometry keyed on t); wdet, detJ and ml are
+        filled in as kernel by-products (`_stage_ho_fused`,
+        `_ensure_stage_geom`). The nodes xs = x0 + t v, which the reference
+        puts here, are formed only where the wdet kernel reads them.
+
+        Non-fused stage (remhos.cpp:1598-1676): the moved nodes, the face
+        normals from their tangents, the upwind face weights wvn >= 0, one
+        wdet kernel launch with ml and detJ, and for `-lo 4` the subcell
+        weights. J, adj J and va stay inside `geom_conv`, per field."""
+        if self._fused_stage:
+            return dict(t=t)
+        xs = self.x0_nodes + t * self.v_nodes
+        nor = geo.face_normals_tangent(xs, *self._face_tan)
+        vn = torch.einsum("efqd,efqd->efq", self._v_fq_static, nor)
+        wvn = -(self.w_fq[None, None, :] * (-vn.clamp(min=0.0)))
+        geom = dict(t=t, xs=xs, wvn=wvn)
+        self._set_wdet(geom, wdet_kernel(xs, self._wdet_tables))
+        if self.cfg.lo == 4:
+            geom["sub_w"] = subm.subcell_weights(self, t)
+        return geom
 
     def _stage_ho_fused(self, geom, u, n_cg=None):
         """Run the HO stage kernel for one field; fill geom's wdet/detJ/ml
@@ -191,21 +261,56 @@ class Advection:
     # solvers
     # ------------------------------------------------------------------
 
-    def _ho_solution(self, geom, u):
-        return self._stage_ho_fused(geom, u)
+    def conv_volume(self, geom, u):
+        """The volume convection action K u of one field, geometry fused
+        (the kernel's own wdet is not used: geom holds the stage's)."""
+        return geom_conv(geom["xs"], self.v_nodes, u, self._gc_tables,
+                         1.0)[0]
 
-    def _lo_solution(self, geom, u, du_HO=None, dt=None):
-        if self.cfg.lo != 5:
-            raise ValueError("no LO solver selected")
-        if du_HO is not None and "du_LO_fused" in geom:
-            # already computed inside the HO stage kernel (valid: the stage
-            # function guarantees du_HO is the kernel's unmodified output at
-            # the same dt)
-            return geom["du_LO_fused"]
-        if du_HO is None:
-            du_HO = self._ho_solution(geom, u)
-        return lom.mass_based_avg(u, du_HO, dt, geom["detJ"], self.w_q,
-                                  self.Bu)
+    def ho_solution(self, geom, u):
+        """The HO solution du_HO[E, nd] of one field at the stage geometry."""
+        if self._fused_stage:
+            return self._stage_ho_fused(geom, u)
+        u_nbr = self.gather_nbr(u)
+        contrib = pam.face_full_apply(asm.gather_face(u, self.bdr_dofs),
+                                      u_nbr, self.Bface, geom["wvn"])
+        Ku = asm.scatter_face_add(self.conv_volume(geom, u), contrib,
+                                  self.bdr_dofs)
+        if self.cfg.ho == 3:
+            return pam.mass_solve_gl(Ku, geom["wdet"], self.Bgl,
+                                     self.A_gl2b, stats=self.cg_stats)
+        return pam.mass_solve_bern(Ku, geom["wdet"], self.Bu,
+                                   stats=self.cg_stats)
+
+    def lo_solution(self, geom, u, du_HO=None, dt=None):
+        """The LO solution du_LO[E, nd] of one field at the stage geometry."""
+        cfg = self.cfg
+        if cfg.lo == 5:
+            if du_HO is not None and "du_LO_fused" in geom:
+                # already computed inside the HO stage kernel (valid: the
+                # stage function guarantees du_HO is the kernel's
+                # unmodified output at the same dt)
+                return geom["du_LO_fused"]
+            if du_HO is None:
+                du_HO = self.ho_solution(geom, u)
+            return lom.mass_based_avg(u, du_HO, dt, geom["detJ"], self.w_q,
+                                      self.Bu)
+        if cfg.lo in (3, 4):
+            # residual distribution: the same K u once more (IDP recombines
+            # du_HO between the halves, so nothing is kept from the HO
+            # solution), the lumped face terms, then the element-local
+            # redistribution
+            z = self.conv_volume(geom, u)
+            contrib = pam.face_lumped_apply(
+                asm.gather_face(u, self.bdr_dofs), self.gather_nbr(u),
+                self.Bface, geom["wvn"])
+            duf = asm.scatter_face_add(torch.zeros_like(u), contrib,
+                                       self.bdr_dofs)
+            return lom.residual_distribution_core(
+                u, z, duf, geom["ml"], subcell=cfg.lo == 4,
+                subcell_weights=geom.get("sub_w"),
+                sub2ind=self._sub2ind)
+        raise ValueError("no LO solver selected")
 
     def compute_bounds(self, el_min, el_max, active_el=None):
         """Per-dof bounds from the overlap stencil."""
@@ -235,9 +340,9 @@ class Advection:
         outs = []
         for k in range(S.shape[0]):
             if cfg.fct == 0 and cfg.lo != 0:
-                outs.append(self._lo_solution(geom, S[k], dt=dt))
+                outs.append(self.lo_solution(geom, S[k], dt=dt))
             else:
-                outs.append(self._ho_solution(geom, S[k]))
+                outs.append(self.ho_solution(geom, S[k]))
         return torch.stack(outs)
 
     def _aux(self, ratio, viol):
@@ -264,7 +369,7 @@ class Advection:
             geom = self.geometry(t)
         self._ensure_stage_geom(geom)
         u, du_HO = S[0], dS[0]
-        du_LO = self._lo_solution(geom, u, du_HO=du_HO, dt=dt)
+        du_LO = self.lo_solution(geom, u, du_HO=du_HO, dt=dt)
         el_min, el_max = bnd.elements_min_max(u)
         x_min, x_max = self.compute_bounds(el_min, el_max)
         if cfg.verify_bounds:
@@ -350,8 +455,8 @@ class Advection:
         ONE kernel when nothing outside it needs the intermediate
         du_HO/du_LO/wdet (no -vb checks, no dt control, single field)."""
         cfg = self.cfg
-        return (cfg.lo == 5 and cfg.fct == 2 and not cfg.verify_bounds
-                and cfg.dt_control == 0)
+        return (self._fused_stage and cfg.lo == 5 and cfg.fct == 2
+                and not cfg.verify_bounds and cfg.dt_control == 0)
 
     def _mega_stage(self, t, dt, S):
         """The limited stage of a single field: bounds and gather (functions
@@ -374,7 +479,7 @@ class Advection:
             if S.shape[0] == 1 and self._mega_stage_eligible():
                 return self._mega_stage(t, dt, S)
             geom = self.geometry(t)
-            if self.cfg.lo == 5 and self.cfg.fct == 2:
+            if self._fused_stage and self.cfg.lo == 5 and self.cfg.fct == 2:
                 # on this path limit_mult's du_HO is mult_unlimited's
                 # output unchanged, so the kernel can emit du_LO too
                 # (IDP recombines between the calls: no flag there)

@@ -29,6 +29,7 @@ LIBRARIES = {
     "mega_stage": (("mega_stage.cu",), ("stage_core.cuh",)),
     "stage_ho": (("stage_ho.cu",), ("stage_core.cuh",)),
     "wdet": (("wdet.cu",), ()),
+    "geom_conv": (("geom_conv.cu",), ()),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

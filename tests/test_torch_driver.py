@@ -150,7 +150,7 @@ def test_default_mesh_3d_rk6():
     (dict(profile_dir="prof"), "item 14"), (dict(problem=4), "item 9"),
     (dict(problem=7), "item 9"), (dict(mesh="star.mesh"), "item 12"),
     (dict(mesh="periodic-segment"), "item 12"),
-    (dict(lo=3), "item 10"), (dict(fct=4), "item 10"),
+    (dict(lo=1), "item 10"), (dict(fct=4), "item 10"),
     (dict(pa=False), "item 10"), (dict(bounds_type=1), "Queue 2"),
     (dict(problem=18), "item 9")])
 def test_unported_options_raise(kw, item):

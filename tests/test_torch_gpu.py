@@ -7,12 +7,17 @@ This file imports neither jax nor remhos_tpu, so it also runs on a machine
 without them:  python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 """
 
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from remhos_torch import bench, bounds, driver, structured
 from remhos_torch.config import RunConfig
+from remhos_torch.operator import Advection, SolverConfig
+from remhos_torch.ops import geom_conv as gc
 from remhos_torch.ops import mega_stage as ms
 from remhos_torch.ops import stage_ho as sh
 from remhos_torch.ops import wdet as wd
@@ -100,17 +105,45 @@ def test_stage_ho_matches_reference(dim, n, dtype, tol, wtol, with_lo, n_cg):
         assert (g - r).abs().max().item() <= lim * r.abs().max().item()
 
 
+GOLDENS = Path(__file__).resolve().parents[1] / "goldens" / \
+    "reference_goldens.json"
+
+
+def _golden_row(name):
+    return next(r for r in json.loads(GOLDENS.read_text())["runs"]
+                if r["name"] == name)
+
+
+def _nonfused_operator(shape, dtype):
+    """A non-fused operator on the card: p=3 on an n^dim box with the
+    benchmark's mesh motion, or the operator of a named golden row (the
+    `remap-cube3d-*pa` rows: their own mesh, p=2)."""
+    if isinstance(shape, str):
+        name = "float32" if dtype == torch.float32 else "float64"
+        return driver.build_operator(RunConfig(
+            verbose=False, device="cuda", dtype=name,
+            **_golden_row(shape)["cfg"]))[0]
+    dim, n = shape
+    base = bench.build_case(n=n, order=3, dtype=dtype, device="cuda",
+                            n_steps=4, dt=DT, dim=dim).adv
+    return Advection(base.disc, SolverConfig(problem=10, ho=3, lo=3, fct=2,
+                                             pa=True), base.x0_nodes,
+                     base.v_nodes, dtype=dtype, device="cuda")
+
+
+SHAPES = [(3, 5), (2, 9), "remap-cube3d-m3pa"]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dim,n", [(3, 5), (2, 9)])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
-def test_wdet_matches_reference(dim, n, dtype, tol):
+def test_wdet_matches_reference(shape, dtype, tol):
     """The wdet kernel vs its plain version on moved nodes; 125 and 81
-    elements leave a ragged last tile of its 8-element blocks."""
+    elements leave a ragged last tile of its 8-element blocks, and the
+    golden row's mesh gives it p=2."""
     _cuda()
-    case = bench.build_case(n=n, order=3, dtype=dtype, device="cuda",
-                            n_steps=4, dt=DT, dim=dim)
-    adv = case.adv
+    adv = _nonfused_operator(shape, dtype)
     xs = (adv.x0_nodes + 0.3 * adv.v_nodes).contiguous()
     before = wd.wdet.launches
     got = wd.wdet(xs, adv._wdet_tables)
@@ -118,6 +151,34 @@ def test_wdet_matches_reference(dim, n, dtype, tol):
     assert wd.wdet.launches == before + 1
     ref = wd.wdet_reference(xs, adv._wdet_tables)
     assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("dtype,tol,wtol", [(torch.float64, 1e-12, 1e-12),
+                                            (torch.float32, 1e-5, 1e-5)])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_geom_conv_matches_reference(shape, dtype, tol, wtol, sign):
+    """The geom_conv kernel vs its plain version on moved nodes, the mesh
+    velocity and a random u: Ku and wdet; 125 and 81 elements leave a ragged
+    last block, and the golden row's mesh gives it p=2. Tolerances as in
+    chip_smoke.py."""
+    _cuda()
+    adv = _nonfused_operator(shape, dtype)
+    xs = adv.x0_nodes + 0.3 * adv.v_nodes
+    rng = np.random.default_rng(9)
+    u = torch.as_tensor(rng.random((xs.shape[0], adv.disc.nd)), dtype=dtype,
+                        device="cuda")
+    before = gc.geom_conv.launches
+    got = gc.geom_conv(xs, adv.v_nodes, u, adv._gc_tables, sign)
+    torch.cuda.synchronize()
+    assert gc.geom_conv.launches == before + 1
+    ref = gc.geom_conv_reference(xs, adv.v_nodes, u, adv._gc_tables, sign)
+    for g, r, lim in zip(got, ref, (tol, wtol)):
+        assert (g - r).abs().max().item() <= lim * r.abs().max().item()
+    with pytest.raises(ValueError, match="contiguous"):
+        gc.geom_conv(xs, adv.v_nodes, u.T.contiguous().T, adv._gc_tables,
+                     sign)
 
 
 def _counts():
@@ -177,3 +238,37 @@ def test_short_path_b():
     assert (m1 - m0, h1 - h0, w1 - w0) == (0, 2 * 3 * 6, 2)
     assert r.max_s <= 3.0 + 1e-8
     assert r.mass_loss_us < 1e-8 * r.final_mass_us
+
+
+@pytest.mark.gpu
+def test_short_path_c():
+    """Product remap with the residual-distribution LO solution (-lo 3)
+    through driver.run in f32 with the closure: the non-fused stage, per
+    stage one wdet and three geom_conv launches and two CG solves."""
+    _cuda()
+    m0, h0, w0 = _counts()
+    g0 = gc.geom_conv.launches
+    r = driver.run(RunConfig(ode_solver=3, dtype="float32", max_tsteps=8,
+                             **dict(PATH, lo=3)))
+    m1, h1, w1 = _counts()
+    assert (m1 - m0, h1 - h0, w1 - w0) == (0, 0, 3 * 8 + 2)
+    assert gc.geom_conv.launches - g0 == 9 * 8
+    assert r.steps == 8 and r.cg_solves == 6 * 8
+    assert r.mass_closure_injected_rel < 1e-5
+    assert r.mass_loss_u < 1e-6 * r.final_mass_u
+    assert r.mass_loss_us < 1e-5 * r.final_mass_us
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["remap-pacman-m3pa", "remap-pacman-m4pa"])
+def test_pacman_golden_rows(name):
+    """The two 667-step remap -pa golden rows of the non-fused path
+    (-ho 2 -lo 3|4 -fct 2) in f64 on the card, at tools/run_goldens.py's
+    tolerance."""
+    _cuda()
+    row = _golden_row(name)
+    g0 = gc.geom_conv.launches
+    r = driver.run(RunConfig(verbose=False, device="cuda", **row["cfg"]))
+    assert gc.geom_conv.launches - g0 == 6 * r.steps_total
+    for got, want in ((r.final_mass_u, row["mass"]), (r.max_u, row["max"])):
+        assert abs(got - want) <= 5e-10 * max(abs(got), abs(want))

@@ -134,7 +134,9 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, remhos_torch, remhos_torch.bench, "
             "remhos_torch.convert, remhos_torch.driver, "
             "remhos_torch.config, remhos_torch.ops.stage_ho, "
-            "remhos_torch.ops.wdet, remhos_torch.ops.build; "
+            "remhos_torch.ops.wdet, remhos_torch.ops.build, "
+            "remhos_torch.ops.geom_conv, remhos_torch.assembly, "
+            "remhos_torch.subcell, remhos_torch.pa, remhos_torch.lo; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('remhos_tpu')]; "
             "assert not bad, bad")
@@ -174,8 +176,8 @@ def test_entry_points_default_to_cuda():
 def test_unported_configurations_raise():
     from remhos_torch.operator import Advection, SolverConfig
     case = bench.build_case(n=2, order=3, device="cpu", n_steps=2)
-    for cfg in (SolverConfig(problem=4), SolverConfig(lo=3),
-                SolverConfig(fct=1), SolverConfig(ho=2),
+    for cfg in (SolverConfig(problem=4), SolverConfig(lo=1),
+                SolverConfig(fct=1), SolverConfig(ho=1),
                 SolverConfig(mono=1), SolverConfig(smth_ind=1),
                 SolverConfig(poly_bf16=True),
                 SolverConfig(bounds_type=1), SolverConfig(pa=False)):
