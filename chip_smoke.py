@@ -10,12 +10,17 @@ It builds the CUDA kernels from the sources on first use, then:
 3. holds every kernel against its plain PyTorch version on the card, on the
    same inputs from a numpy seed, at N=24, p=3 in 3D and on a 2D 16x16 mesh,
    in f32 and f64 (wdet and geom_conv also at the golden rows' shape, in
-   step 8): the mega stage; the HO stage with and without its LO
-   output and once with n_cg == 0; wdet; geom_conv. Limits, relative to
-   the largest entry of the plain result: du 2e-4 (f32) and 1e-10 (f64);
+   step 9): the mega stage; the HO stage with and without its LO
+   output and once with n_cg == 0; wdet; geom_conv; the HO stage from the
+   nodes (kernel 5) with its defaults, n_cg=0, with_face=False and mode=-1;
+   the element-local GL CG (kernel 6); the neighbour gather (kernel 7), bit
+   for bit, on the mesh, on the same shape made periodic and on a layout
+   whose block size is not a multiple of 8. Limits, relative to the largest
+   entry of the plain result: du (and CG's x) 2e-4 (f32) and 1e-10 (f64);
    wdet, and geom_conv's Ku, 1e-5 (f32) and 1e-12 (f64). Each check prints
-   the kernel's ms per launch (CUDA events), the plain version's and the
-   bound;
+   the kernel's ms per launch (CUDA events), the plain version's, the bound
+   (remhos_torch/utils/cost.py) and, for the gather, the ms of its one-call
+   library equivalent (index_select);
 4. drives the main path: bench.build_case(n=24, order=3, f32) and 320 RK3
    steps at dt = 0.2/320 with the mass closures, bench.verify and the 2-step
    f32-vs-f64 cross check; asserts that the mega stage ran on every stage;
@@ -37,12 +42,20 @@ It builds the CUDA kernels from the sources on first use, then:
    per solve. Then path D in f64: -ho 2 -lo 4 -vb, one field, 20 steps (the
    Bernstein CG, the subcell weights, the monotonicity check), and one stage
    of path C split into its parts by CUDA events;
-8. holds wdet and geom_conv against their plain versions on the operator of
+8. drives the measurement entry points: bench.run(phases=True, trace=True)
+   on the main path, over 10 steps (the phase FOM report, the trace's kernel
+   and glue time per stage, its top glue ops and the device's idle share),
+   the phase ablation on a non-fused operator (path C's configuration, one
+   field), the tools microbench and kernelbench at N=24, and one traced
+   launch of each kernel. Every trace must hold as many events of each
+   kernel as its launch counter advanced over the traced code;
+9. holds wdet and geom_conv against their plain versions on the operator of
    each cheap remap -pa golden row outside the -lo 5 family (its own mesh,
    p=2, f64), then runs the row in f64 on the card against
    goldens/reference_goldens.json (5e-10 relative on mass and max u);
-9. prints one JSON line per result and a `kernels` line;
-10. ends with {"ok": true, "device": {...}}.
+10. prints one JSON line per result, the wall seconds of each step and a
+    `kernels` line;
+11. ends with {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a path and read just after. Any
 failure raises and exits nonzero; without CUDA it exits 2 and prints no
@@ -58,20 +71,25 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from remhos_torch import bench, bounds, driver, pa, structured
+from remhos_torch import bench, bounds, driver, ops, pa, structured
 from remhos_torch.config import RunConfig
 from remhos_torch.operator import Advection, SolverConfig
 from remhos_torch.ops import build
+from remhos_torch.ops import gather_nbr as gn
 from remhos_torch.ops import geom_conv as gc
+from remhos_torch.ops import gl_cg as cg
 from remhos_torch.ops import mega_stage as ms
 from remhos_torch.ops import stage_ho as sh
+from remhos_torch.ops import stage_ho_nodes as shn
 from remhos_torch.ops import wdet as wd
+from remhos_torch.tools import kernelbench, microbench
+from remhos_torch.utils import fom
+from remhos_torch.utils import trace as trc
+from remhos_torch.utils.cost import (bound, gather_nbr_cost,
+                                     gather_nbr_index, geom_conv_cost,
+                                     gl_cg_cost, stage_cost,
+                                     stage_ho_nodes_cost, wdet_cost)
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and the card's peak rate for each
-# type: f32 outside the tensor cores (no tensor-core f32 keeps its
-# accuracy), f64 through the tensor cores (DMMA), the faster of its two
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 # kernel against plain version, relative to max|du|: f64 round-off; f32
 # 10x above the ~2e-5 FMA-ordering difference, below the ~2.5e-3 a lost
 # Jacobi sweep would make
@@ -129,6 +147,8 @@ C_LIMITS = dict(A_LIMITS)
 PATH_D = dict(PATH_A, ho=2, lo=4, product_sync=False, dtype="float64",
               verify_bounds=True, max_tsteps=20)
 D_LIMITS = dict(mass_loss_u_rel=1e-8, max_u=1.0 + 1e-10, min_steps=20)
+# steps of the main path's phase ablation and trace (the measurement step)
+MEASURE_STEPS = 10
 GOLDEN_ROWS = ("remap-cube3d-m3pa", "remap-cube3d-m4pa")
 GOLDEN_TOL = 5e-10       # the baseline prints 10 significant digits
 
@@ -153,101 +173,6 @@ def time_ms(fn, reps):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
-
-
-def tensor_macs(n, q, d):
-    """Multiply-adds of one sum-factorized contraction between n^d values
-    and q^d values (either way), one direction at a time."""
-    lo, hi = min(n, q), max(n, q)
-    return sum(hi ** k * lo ** (d - k + 1) for k in range(1, d + 1))
-
-
-def stage_cost(tb, P, n_cg, kind="mega", with_lo=False):
-    """(bytes, flops) one stage kernel needs at the least, from its shapes.
-
-    kind "mega": the limited stage (reads the two stencil arrays too, writes
-    du). kind "ho": the HO stage (writes du_HO and wdet, and du_LO with
-    `with_lo`). Bytes: each input read once (u, u_nbr, P, the tables), each
-    output written once. Flops: 2 per multiply-add, every table contraction
-    counted at its sum-factorized size (the tables are tensor products of 1D
-    ones: n1 = p+1 dofs and q1 points per direction), plus the pointwise
-    work."""
-    dim, nd, Q, Qf, nf, fd = (tb[k] for k in ("dim", "nd", "Q", "Qf", "nf",
-                                               "fd"))
-    n1, q1 = round(nd ** (1 / dim)), round(Q ** (1 / dim))
-    assert (n1 ** dim, q1 ** dim, n1 ** (dim - 1), q1 ** (dim - 1)) == (
-        nd, Q, fd, Qf), "the tables are not tensor products"
-    FQ, NFD, ncls = nf * Qf, nf * fd, 3 ** dim
-    E, itemsize = P.shape[0], P.element_size()
-    tables = sum(v.numel() * v.element_size() for v in tb.values()
-                 if torch.is_tensor(v))
-    lo_work = kind == "mega" or (with_lo and n_cg > 0)
-    if kind == "mega":
-        per_el = 2 * nd + NFD + 2 * ncls
-    else:
-        per_el = 2 * nd + NFD + Q + (nd if with_lo else 0)
-    nbytes = E * per_el * itemsize + P.numel() * itemsize + tables
-    vol = tensor_macs(n1, q1, dim)        # dofs <-> volume points
-    face = nf * tensor_macs(n1, q1, dim - 1)
-    mac = (dim * vol                  # reference gradients of u
-           + vol + face               # volume and face parts of Ku
-           + 2 * face                 # own and neighbour face traces
-           + Q * dim * (dim - 1) + Q * dim + FQ * (dim - 1))  # Horner
-    pointwise = 2 * dim * Q + 3 * FQ
-    if n_cg > 0:
-        mac += (2 * tensor_macs(n1, n1, dim)   # b = Ku A, du_HO = x A^T
-                + vol                          # the Jacobi diagonal
-                + n_cg * 2 * vol)              # Jacobi sweeps
-        pointwise += n_cg * (Q + 3 * nd) + 2 * nd
-    if lo_work:
-        mac += vol                    # the lumped mass
-        pointwise += 8 * nd           # the LO average
-    if kind == "mega":
-        pointwise += 20 * nd          # ClipScale
-    return nbytes, E * (2 * mac + pointwise)
-
-
-def wdet_cost(xs, tables):
-    """(bytes, flops) of wdet at the least: xs and the tables read once,
-    wdet written once; the dim*dim Jacobian entries as sum-factorized
-    contractions from (mesh order + 1)^dim nodes to Q points, then the
-    closed-form determinant."""
-    E, nm, dim = xs.shape
-    Q = tables["w_q"].shape[0]
-    m1, q1 = round(nm ** (1 / dim)), round(Q ** (1 / dim))
-    assert (m1 ** dim, q1 ** dim) == (nm, Q)
-    itemsize = xs.element_size()
-    nbytes = (xs.numel() + tables["GmT"].numel() + Q + E * Q) * itemsize
-    det = 14 if dim == 3 else 3
-    return nbytes, E * (2 * dim * dim * tensor_macs(m1, q1, dim)
-                        + (det + 1) * Q)
-
-
-def geom_conv_cost(xs, u, tables):
-    """(bytes, flops) of geom_conv at the least: xs, v, u and the kernel's
-    tables read once, Ku and wdet written once; the dim*dim Jacobian entries
-    and the dim velocity components as sum-factorized contractions from
-    (mesh order + 1)^dim nodes to Q points, the dim reference gradients of u
-    from nd dofs to Q points and Ku back from Q points to nd dofs, then the
-    cofactor algebra at every point."""
-    E, nm, dim = xs.shape
-    nd, Q = u.shape[1], tables["w_q"].shape[0]
-    m1, n1, q1 = (round(k ** (1 / dim)) for k in (nm, nd, Q))
-    assert (m1 ** dim, n1 ** dim, q1 ** dim) == (nm, nd, Q)
-    itemsize = xs.element_size()
-    tb = sum(tables[k].numel() for k in gc.KERNEL_TABLES)
-    nbytes = (2 * xs.numel() + u.numel() + tb + E * nd + E * Q) * itemsize
-    mac = ((dim * dim + dim) * tensor_macs(m1, q1, dim)
-           + (dim + 1) * tensor_macs(n1, q1, dim))
-    pointwise = (55 if dim == 3 else 14) * Q
-    return nbytes, E * (2 * mac + pointwise)
-
-
-def bound(nbytes, flops, dtype):
-    t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return dict(bound_ms=1e3 * max(t_b, t_f),
-                bound_by="bytes" if t_b >= t_f else "operations",
-                bytes=nbytes, flops=flops)
 
 
 def compare(label, what, got, ref, limit):
@@ -381,21 +306,137 @@ def check_geom_conv(label, adv, rng):
     return res
 
 
-KERNELS = dict(mega_stage=ms.mega_stage, stage_ho=sh.stage_ho, wdet=wd.wdet,
-               geom_conv=gc.geom_conv)
+def check_stage_ho_nodes(label, adv, tb, rng, **kw):
+    """Kernel 5 vs plain version at the nodes x0 + 0.3 v, the mesh velocity
+    v, a random u and its trace: du (Ku with n_cg=0) and wdet; kw are the
+    kernel's options (mode, n_cg, with_face). The f32 Bernstein mass inverse
+    amplifies the different roundings of the kernel's fixed-order sums and
+    the plain version's library products most without the face flux; at
+    these shapes du stays inside LIMITS all the same."""
+    dtype = adv.dtype
+    v = adv.v_nodes
+    xs = (adv.x0_nodes + 0.3 * v).contiguous()
+    u = torch.as_tensor(rng.standard_normal((xs.shape[0], adv.disc.nd)),
+                        dtype=dtype, device=adv.device)
+    unbr = adv.gather_nbr(u).reshape(u.shape[0], -1)
+    kw = dict(dict(mode=1.0, n_cg=None, with_face=True), **kw)
+    n = sh.default_sweeps(dtype) if kw["n_cg"] is None else kw["n_cg"]
+    got = shn.stage_ho_nodes(xs, v, u, unbr, tb, **kw)
+    torch.cuda.synchronize()
+    ref = shn.stage_ho_nodes_reference(xs, v, u, unbr, tb, **dict(kw, n_cg=n))
+    torch.cuda.synchronize()
+    err, rel = compare(label, "du", got[0], ref[0], LIMITS[dtype])
+    _, wrel = compare(label, "wdet", got[1], ref[1], WDET_LIMITS[dtype])
+    res = dict(check=label, kernel="stage_ho_nodes", E=u.shape[0],
+               mode=kw["mode"], n_cg=n, with_face=kw["with_face"],
+               max_abs_err=err, rel_err=rel, wdet_rel_err=wrel,
+               limit=LIMITS[dtype], wdet_limit=WDET_LIMITS[dtype])
+    res.update(
+        ms=time_ms(lambda: shn.stage_ho_nodes(xs, v, u, unbr, tb, **kw), 20),
+        plain_ms=time_ms(lambda: shn.stage_ho_nodes_reference(
+            xs, v, u, unbr, tb, **dict(kw, n_cg=n)), 5))
+    res.update(bound(*stage_ho_nodes_cost(xs, u, tb, n, kw["with_face"]),
+                     dtype))
+    print(json.dumps(res), flush=True)
+    return res
 
 
-def reset_counts():
-    for fn in KERNELS.values():
-        fn.launches = 0
+def check_gl_cg(label, adv, tb, rng):
+    """Kernel 6 vs plain version: a random right-hand side and wdet at the
+    nodes x0 + 0.3 v (det J varies inside the elements, so the GL mass
+    matrix is not diagonal). The bound counts the iterations each element
+    takes on this data (from the plain version)."""
+    dtype = adv.dtype
+    xs = (adv.x0_nodes + 0.3 * adv.v_nodes).contiguous()
+    wdet = wd.wdet_reference(xs, adv._wdet_tables)
+    rhs = torch.as_tensor(rng.standard_normal((xs.shape[0], adv.disc.nd)),
+                          dtype=dtype, device=adv.device)
+    got = cg.gl_cg(rhs, wdet, tb)
+    torch.cuda.synchronize()
+    ref, its = cg.gl_cg_reference(rhs, wdet, tb, with_iterations=True)
+    torch.cuda.synchronize()
+    err, rel = compare(label, "x", got, ref, LIMITS[dtype])
+    res = dict(check=label, kernel="gl_cg", E=rhs.shape[0], max_abs_err=err,
+               rel_err=rel, limit=LIMITS[dtype],
+               iterations_mean=float(its.double().mean()),
+               iterations_max=int(its.max()),
+               ms=time_ms(lambda: cg.gl_cg(rhs, wdet, tb), 20),
+               plain_ms=time_ms(lambda: cg.gl_cg_reference(rhs, wdet, tb),
+                                5))
+    res.update(bound(*gl_cg_cost(rhs, wdet, tb, its), dtype))
+    print(json.dumps(res), flush=True)
+    return res
 
 
-def counts():
-    return {name: fn.launches for name, fn in KERNELS.items()}
+def check_gather_nbr(label, adv, rng):
+    """Kernel 7 vs plain version, bit for bit, on random u: on the
+    operator's (non-periodic) mesh, timed, with the one-call library
+    equivalent (index_select of u with a zero slot over a flat index
+    table); then on the same shape made periodic and on a layout whose
+    block size is not a multiple of 8."""
+    dtype, dev, dim = adv.dtype, adv.device, adv.disc.dim
+    nd = adv.disc.nd
+    nbr = torch.as_tensor(adv.disc.dofmaps.nbr_dof_local, dtype=torch.int32,
+                          device=dev)
+    odd = (5, 3, 7) if dim == 3 else (7, 5)
+    layouts = [(tuple(adv.shape), tuple(adv.periodic)),
+               (tuple(adv.shape), (True,) * dim),
+               (odd, (True, False, True)[:dim])]
+    res = dict(check=label, kernel="gather_nbr", E=adv.x0_nodes.shape[0],
+               layouts=[], max_abs_err=0.0, rel_err=0.0, limit=0.0)
+    for i, (shape, periodic) in enumerate(layouts):
+        E = int(np.prod(shape))
+        u = torch.as_tensor(rng.standard_normal((E, nd)), dtype=dtype,
+                            device=dev)
+        got = gn.gather_nbr(u, shape, periodic, nbr)
+        ref = gn.gather_nbr_reference(u, shape, periodic, nbr)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"{label}: gather_nbr is not bit-identical "
+                               f"to its plain version on {shape} "
+                               f"{periodic}")
+        res["layouts"].append(dict(shape=shape, periodic=periodic,
+                                   bit_identical=True))
+        if i == 0:
+            idx = gather_nbr_index(shape, periodic, nbr, nd, dev).reshape(-1)
+            u_pad = torch.cat([u.reshape(-1), u.new_zeros(1)])
+            lib = u_pad.index_select(0, idx).reshape(E, -1)
+            if not torch.equal(lib, ref):
+                raise RuntimeError(f"{label}: the index_select equivalent "
+                                   "is not the gather")
+            res.update(
+                ms=time_ms(lambda: gn.gather_nbr(u, shape, periodic, nbr),
+                           50),
+                plain_ms=time_ms(lambda: gn.gather_nbr_reference(
+                    u, shape, periodic, nbr), 20),
+                library_ms=time_ms(lambda: u_pad.index_select(0, idx), 50))
+            res.update(bound(*gather_nbr_cost(u, idx.reshape(E, -1)), dtype))
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def new_kernel_checks(tag, size, prec, adv, rng, out):
+    """Kernels 5-7 against their plain versions on one operator: kernel 5
+    with its defaults, n_cg=0, with_face=False and mode=-1; kernel 6;
+    kernel 7. Results go into out[kernel][key]."""
+    key = f"{tag}_{prec}"
+    tb = shn.stage_ho_nodes_tables(adv.disc, adv.dtype, adv.device)
+    k5 = out.setdefault("stage_ho_nodes", {})
+    k5[key] = check_stage_ho_nodes(f"{size} {prec}", adv, tb, rng)
+    for opt, kw in (("n_cg0", dict(n_cg=0)), ("noface", dict(with_face=False)),
+                    ("mode-1", dict(mode=-1.0))):
+        k5[f"{key}_{opt}"] = check_stage_ho_nodes(
+            f"{size} {prec} {opt}", adv, tb, rng, **kw)
+    out.setdefault("gl_cg", {})[key] = check_gl_cg(f"{size} {prec}", adv, tb,
+                                                   rng)
+    out.setdefault("gather_nbr", {})[key] = check_gather_nbr(
+        f"{size} {prec}", adv, rng)
 
 
 def expect_counts(path, want):
-    got = counts()
+    """The seven launch counts against `want` (a kernel it leaves out: 0)."""
+    got = ops.launch_counts()
+    want = {k: want.get(k, 0) for k in ops.KERNELS}
     if got != want:
         raise RuntimeError(f"{path}: kernel launches {got}, expected {want}")
     return got
@@ -431,7 +472,7 @@ def run_driver_path(path, cfg_kw, limits, device, launches=fused_launches):
     record."""
     cfg = RunConfig(device=str(device), **cfg_kw)
     fields = 2 if cfg.product_sync else 1
-    reset_counts()
+    ops.reset_launch_counts()
     res = driver.run(cfg)
     n = expect_counts(path, launches(res.steps_total, fields))
     mass0_u = res.final_mass_u + res.mass_loss_u
@@ -488,7 +529,7 @@ def run_golden_rows(device, rng, wdet_checks, gc_checks):
         wdet_checks[name] = check_wdet(label, adv)
         gc_checks[name] = check_geom_conv(label, adv, rng)
         del adv
-        reset_counts()
+        ops.reset_launch_counts()
         res = driver.run(cfg)
         n = expect_counts(name, nonfused_launches(res.steps_total, 1))
         rec = dict(golden=name, steps=res.steps, mass=res.final_mass_u,
@@ -542,6 +583,114 @@ def split_nonfused_stage(device):
     rec["cg_iterations"] = stats["iterations"]
     print(json.dumps(rec), flush=True)
     return rec
+
+
+def trace_seven_kernels(case, rng):
+    """One launch of each of the seven kernels, at N=24 f32, under the
+    profiler: the trace must hold one device event of each (the kernels
+    are launched through ctypes, outside any aten op). Returns the events
+    and each kernel's device ms from the trace: the kernel alone, where the
+    CUDA-event times of phase 3 include the wrapper's host work whenever
+    that is longer."""
+    adv = case.adv
+    u, unbr, smin, smax = stage_inputs(adv, rng)
+    P, tb = adv._poly, adv._stage_tables
+    nf_adv = nonfused_operator(adv)
+    tbn = shn.stage_ho_nodes_tables(adv.disc, adv.dtype, adv.device)
+    xs = (adv.x0_nodes + 0.3 * adv.v_nodes).contiguous()
+    v = adv.v_nodes
+    nbr = torch.as_tensor(adv.disc.dofmaps.nbr_dof_local, dtype=torch.int32,
+                          device=adv.device)
+
+    def seven():
+        ms.mega_stage(0.1, case.dt, u, unbr, smin, smax, P, tb)
+        sh.stage_ho(0.1, u, unbr, P, tb)
+        wdet = wd.wdet(xs, adv._wdet_tables)
+        gc.geom_conv(xs, v, u, nf_adv._gc_tables, 1.0)
+        shn.stage_ho_nodes(xs, v, u, unbr, tbn, mode=1.0)
+        cg.gl_cg(u, wdet, tb)
+        gn.gather_nbr(u, adv.shape, adv.periodic, nbr)
+
+    seven()                                   # built and warm
+    tr, launches = trc.capture_counted(seven)
+    events = trc.check_kernel_events(tr, launches, "seven kernels")
+    if set(events.values()) != {1}:
+        raise RuntimeError(f"seven kernels: trace events {events}")
+    by_name = trc.loop_report(tr, 1, 1)["kernel_s_per_stage_by_name"]
+    return events, {k: 1e3 * v for k, v in by_name.items()}
+
+
+def measurement_phase(device, rng):
+    """The port's measurement entry points on the card: bench.run with the
+    phase ablation and the trace on the main path; measure_phases on a
+    non-fused operator (path C's configuration, one field); microbench and
+    kernelbench at N=24 p=3 f32; one traced launch of each kernel. Every
+    trace's kernel events must equal the launch counters over it."""
+    f32 = torch.float32
+    case = bench.build_case(N_MAIN, ORDER, f32, device, n_steps=STEPS)
+    # fewer steps for the ablation and the trace than bench.py's 40: each
+    # level runs warm, untraced and traced, inside the time limit
+    rec = bench.run(case, phases=True, trace=True,
+                    measure_steps=MEASURE_STEPS)
+    if rec["trace_kernel_events"] != rec["trace_launches"]:
+        raise RuntimeError(f"main path trace: kernel events "
+                           f"{rec['trace_kernel_events']}, launches "
+                           f"{rec['trace_launches']}")
+    want = bench.STAGES * rec["trace_steps"]
+    if rec["trace_launches"]["mega_stage"] != want:
+        raise RuntimeError(f"main path trace: {rec['trace_launches']}, "
+                           f"expected {want} mega_stage launches")
+    main = dict(check="main path: phases and trace, 3d N=%d f32" % N_MAIN,
+                **{k: rec[k] for k in (
+                    "ms_per_stage", "MDOF_stages_per_s", "kernel_us_per_stage",
+                    "glue_us_per_stage", "glue_breakdown_us", "idle_share",
+                    "idle_share_untraced", "trace_kernel_events",
+                    "hbm_bytes_per_stage_model",
+                    "phase_s_per_stage", "phase_timing_source", "fom",
+                    "fom_all", "fom_rhs", "fom_inv", "fom_lo", "fom_fct",
+                    "dispatch_ms_per_call")})
+    print(json.dumps(main), flush=True)
+
+    adv = nonfused_operator(case.adv)
+    n_steps = 5
+    ph = fom.measure_phases(adv, case.u0, case.dt, n_steps=n_steps,
+                            device=device)
+    fom.print_fom_report(ph, case.ndofs, n_steps * bench.STAGES,
+                         total_wall=ph.get("wall_total"))
+    t = ph["trace"]
+    if t["kernel_events"] != t["launches"]:
+        raise RuntimeError(f"non-fused trace: kernel events "
+                           f"{t['kernel_events']}, launches {t['launches']}")
+    rep = t["report"]
+    nonfused = dict(
+        check="non-fused operator (-lo 3, one field): phases and trace, "
+              "3d N=%d f32" % N_MAIN,
+        phase_s_per_stage={k: ph[k] for k in (
+            "combine", "rhs", "inv", "lo", "bounds", "fct", "pipeline_total",
+            "noise_floor", "dispatch")},
+        wall_s_per_stage=ph["wall_total"] / (n_steps * bench.STAGES),
+        kernel_us_per_stage=rep["kernel_s_per_stage"] * 1e6,
+        glue_us_per_stage=rep["glue_s_per_stage"] * 1e6,
+        glue_breakdown_us={k: v * 1e6 for k, v in
+                           list(rep["buckets_s_per_stage"].items())[:5]},
+        idle_share=rep["idle_share"],
+        idle_share_untraced=t["idle_share_untraced"],
+        trace_kernel_events=t["kernel_events"])
+    print(json.dumps(nonfused), flush=True)
+    del adv
+
+    # shorter loops than the tools' own (30 and 50): the time limit
+    ops.reset_launch_counts()
+    mb = microbench.main(device, n_inner=10)
+    kb = kernelbench.main(device, n_inner=20)
+    tools = dict(check="microbench and kernelbench, 3d N=%d f32, ms" % N_MAIN,
+                 microbench=mb, kernelbench=kb, launches=ops.launch_counts())
+    print(json.dumps(tools), flush=True)
+    seven, tools["trace_ms"] = trace_seven_kernels(case, rng)
+    print(json.dumps(dict(check="one traced launch of each kernel",
+                          trace_kernel_events=seven,
+                          trace_ms=tools["trace_ms"])), flush=True)
+    return main, nonfused, tools
 
 
 def check_vb_stage(device):
@@ -600,9 +749,21 @@ def main():
                       "ptxas": {n: build.ptxas_report(n) for n in libs}}),
           flush=True)
 
+    seconds = {"build": build_s}
+    lap = [time.perf_counter()]
+
+    def done(phase):
+        now = time.perf_counter()
+        seconds[phase] = now - lap[0]
+        lap[0] = now
+
     # 3. kernels against plain versions, f32 and f64, N=24 3D and a 2D mesh
     rng = np.random.default_rng(SEED)
+    # kernels 5-7 draw from their own stream: kernels 1-4 see the inputs
+    # they saw before those checks existed
+    rng_new = np.random.default_rng(SEED + 1)
     checks, ho_checks, wdet_checks, gc_checks = {}, {}, {}, {}
+    new_checks = {}
     for tag, n, dim in (("3d", N_MAIN, 3), ("2d", 16, 2)):
         case = bench.build_case(n, ORDER, torch.float32, dev, n_steps=STEPS,
                                 dim=dim)
@@ -618,15 +779,17 @@ def main():
             wdet_checks[key] = check_wdet(f"{size} {prec}", adv)
             gc_checks[key] = check_geom_conv(f"{size} {prec}",
                                              nonfused_operator(adv), rng)
+            new_kernel_checks(tag, size, prec, adv, rng_new, new_checks)
         if dim == 3:
             ho_checks["3d_f32_ku"] = check_stage_ho(
                 f"{size} f32 n_cg=0 with_lo=True", case.adv, case.dt, rng,
                 True, n_cg=0, timed=False)
         del case
         torch.cuda.empty_cache()
+    done("kernel checks")
 
     # 4. the main path, counted
-    reset_counts()
+    ops.reset_launch_counts()
     case = bench.build_case(N_MAIN, ORDER, torch.float32, dev,
                             n_steps=STEPS)
     rec = bench.run(case)
@@ -643,6 +806,7 @@ def main():
     print(json.dumps(rec), flush=True)
     del case, adv, u, unbr, smin, smax
     torch.cuda.empty_cache()
+    done("main path")
 
     # 5. path A: product remap, f32, through driver.run; then in f64 with
     # dt control
@@ -651,23 +815,36 @@ def main():
     # 6. path B: IDP-RK3 product remap with -vb in f64; the stage's aux
     rec_b = run_driver_path("B", PATH_B, B_LIMITS, dev)
     check_vb_stage(dev)
+    done("paths A and B")
     # 7. paths C and D: the non-fused PA stage; 8. its cheap golden rows
     rec_c = run_driver_path("C", PATH_C, C_LIMITS, dev, nonfused_launches)
     rec_path_d = run_driver_path("D", PATH_D, D_LIMITS, dev, nonfused_launches)
     split_nonfused_stage(dev)
+    torch.cuda.empty_cache()
+    done("paths C and D")
+    # 8. the measurement entry points: phases, traces, the tools
+    _, _, tools = measurement_phase(dev, rng_new)
+    torch.cuda.empty_cache()
+    done("measurement")
+    # 9. the cheap golden rows of the non-fused stage
     run_golden_rows(dev, rng, wdet_checks, gc_checks)
+    done("golden rows")
+    print(json.dumps({"seconds": seconds}), flush=True)
 
-    # 9. every ported kernel: `launches` on its own path (mega stage: the
-    # main path; stage_ho: path A; wdet and geom_conv: path C), numbers at
-    # 3D N=24 f32
+    # 10. every ported kernel: `launches` on its own path (mega stage: the
+    # main path; stage_ho: path A; wdet and geom_conv: path C; kernels 5-7:
+    # the tools, microbench and kernelbench), numbers at 3D N=24 f32
     def row(name, source, replaces, launches, c32, c64, all_checks, **more):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+        lib = more.pop("library_ms", None)
+        more["trace_ms"] = tools["trace_ms"][name]
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=c32["max_abs_err"],
             ms=more.pop("ms", c32["ms"]), plain_ms=c32["plain_ms"],
             bound_ms=c32["bound_ms"], bound_by=c32["bound_by"],
-            library_ms=None, f64={k: c64[k] for k in keys},
+            library_ms=lib, f64={k: c64[k] for k in keys + (
+                ("library_ms",) if lib is not None else ())},
             checks=[{k: c[k] for k in ("check", "max_abs_err", "rel_err",
                                        "limit")}
                     for c in all_checks.values()], **more)
@@ -694,6 +871,26 @@ def main():
             rec_c["launches"]["geom_conv"], gc_checks["3d_f32"],
             gc_checks["3d_f64"], gc_checks,
             launches_path_d=rec_path_d["launches"]["geom_conv"]),
+    ]
+    k5, k6, k7 = (new_checks[k] for k in ("stage_ho_nodes", "gl_cg",
+                                          "gather_nbr"))
+    tl = tools["launches"]
+    kernels += [
+        row("stage_ho_nodes", "remhos_torch/ops/csrc/stage_ho_nodes.cu",
+            pk + ":490", tl["stage_ho_nodes"], k5["3d_f32"], k5["3d_f64"], k5,
+            microbench_ms=tools["microbench"]["fused"],
+            kernelbench_ms=tools["kernelbench"]),
+        row("gl_cg", "remhos_torch/ops/csrc/gl_cg.cu", pk + ":209",
+            tl["gl_cg"], k6["3d_f32"], k6["3d_f64"], k6,
+            iterations_mean=k6["3d_f32"]["iterations_mean"],
+            microbench_ms=tools["microbench"]["gl_cg kernel"],
+            microbench_mass_solve_gl_ms=tools["microbench"]["mass_solve_gl"]),
+        row("gather_nbr", "remhos_torch/ops/csrc/gather_nbr.cu",
+            pk + ":1280", tl["gather_nbr"], k7["3d_f32"], k7["3d_f64"], k7,
+            library_ms=k7["3d_f32"]["library_ms"],
+            library="index_select of u with a zero slot over a flat index "
+                    "table",
+            microbench_ms=tools["microbench"]["gather kernel"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,3 +36,9 @@ def resolve_device(device=None) -> torch.device:
             " is False; pass device='cpu' explicitly to run the plain PyTorch"
             " versions of the kernels")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work on `device`; nothing on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

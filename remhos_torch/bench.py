@@ -27,10 +27,10 @@ import numpy as np
 import torch
 
 from . import problems as prob
-from . import resolve_device
+from . import resolve_device, synchronize
 from . import steppers as st
 from .discretization import build_discretization
-from .driver import _integrate_mesh_velocity, _project_bernstein
+from .driver import integrate_mesh_velocity, project_bernstein
 from .geometry import lumped_mass_poly
 from .mesh import make_cartesian_mesh
 from .operator import Advection, SolverConfig
@@ -74,9 +74,9 @@ def build_case(n=24, order=3, dtype=torch.float32, device=None,
     dt = 0.2 / n_steps if dt is None else float(dt)
     f64 = torch.float64
     x0 = torch.as_tensor(mesh.x, dtype=f64, device=device)
-    v = _integrate_mesh_velocity(x0, PROBLEM, mesh.bb_min, mesh.bb_max,
-                                 0.7, dt)
-    u0, _ = _project_bernstein(
+    v = integrate_mesh_velocity(x0, PROBLEM, mesh.bb_min, mesh.bb_max,
+                                0.7, dt)
+    u0, _ = project_bernstein(
         x0, disc.Bm_at_unodes,
         lambda x: prob.u0_function(PROBLEM, x, mesh.bb_min, mesh.bb_max))
     adv64 = Advection(disc, cfg, x0, v, dtype=f64, device=device)
@@ -214,23 +214,29 @@ def cross_precision_check(u2, dt, adv64, u0_64):
     return rel
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def run(case: Case) -> dict:
+def run(case: Case, phases=False, trace=False, measure_steps=40) -> dict:
     """Time the step loop, then verify it. One record, verified or raised.
 
     The wall time is one pass of the loop, not bench.py's best of
     BENCH_REPS passes of a compiled loop (bench.py:512-517). The cross check
     runs only for a float32 case (it holds f32 against f64); a float64 case
-    records it as skipped."""
+    records it as skipped.
+
+    trace=True (bench.py's BENCH_TRACE) adds, from a torch.profiler trace
+    of min(n_steps, measure_steps) steps of the same loop: kernel and glue
+    microseconds per stage, the top five glue ops, the device's idle share
+    over the traced window and against the wall of an untraced pass of the
+    same steps, the trace's kernel events and the launch counters over it,
+    and the least bytes per stage of the stage kernel (utils/cost.py).
+    phases=True (bench.py's BENCH_PHASES) adds the phase
+    ablation's FOMs (utils/fom.py) over min(n_steps, measure_steps) steps
+    and prints the reference's report (bench.py takes 40 steps for both).
+    With both off the record is as before."""
     dev = case.u0.device
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     uT, cT, injected, _ = run_steps(case)
-    _sync(dev)
+    synchronize(dev)
     wall = time.perf_counter() - t0
     closed = case.closure is not None
     rel_loss, inj_rel = verify(case.adv64, case.u0, uT, case.dt,
@@ -245,7 +251,7 @@ def run(case: Case) -> dict:
     else:
         cross = {"status": "skipped", "reason": "float64 case"}
     stage_calls = case.n_steps * STAGES
-    return {
+    result = {
         "metric": "fom_total_p%d_%dd_remap_pa_%s" % (
             case.disc.p, case.disc.dim,
             "f32" if case.u0.dtype == torch.float32 else "f64"),
@@ -259,3 +265,54 @@ def run(case: Case) -> dict:
         "cross_check": cross,
         "verified": True,
     }
+    m_steps = min(case.n_steps, measure_steps)
+    if trace:
+        result.update(_trace_record(case, m_steps))
+    if phases:
+        from .utils.fom import measure_phases, print_fom_report
+        ph = measure_phases(case.adv, case.u0, case.dt, n_steps=m_steps,
+                            device=dev)
+        foms = print_fom_report(ph, case.ndofs, m_steps * STAGES,
+                                total_wall=ph.get("wall_total"))
+        result.update(foms)
+        result["phase_s_per_stage"] = {
+            k: ph[k] for k in ("combine", "rhs", "inv", "lo", "bounds", "fct",
+                               "pipeline_total", "noise_floor")}
+        result["phase_timing_source"] = ph["timing_source"]
+    return result
+
+
+def _trace_record(case, tr_steps) -> dict:
+    """The trace keys of `run`: one traced pass of tr_steps steps of the
+    benched loop (bench.py:582-616 without XLA's placement bytes)."""
+    from .ops.stage_core import default_sweeps
+    from .utils import cost, trace as trc
+    dev = case.u0.device
+    run_steps(case, tr_steps)                    # warm
+    synchronize(dev)
+    t0 = time.perf_counter()
+    run_steps(case, tr_steps)                    # the same pass, untraced
+    synchronize(dev)
+    wall = time.perf_counter() - t0
+    tr, launches = trc.capture_counted(lambda: run_steps(case, tr_steps))
+    rep = trc.loop_report(tr, tr_steps, STAGES)
+    adv = case.adv
+    out = {
+        "kernel_us_per_stage": rep["kernel_s_per_stage"] * 1e6,
+        "glue_us_per_stage": rep["glue_s_per_stage"] * 1e6,
+        "glue_breakdown_us": {
+            k: v * 1e6
+            for k, v in list(rep["buckets_s_per_stage"].items())[:5]},
+        "idle_share": rep["idle_share"],
+        # the profiler slows the host: the same device work against the
+        # wall of the untraced pass
+        "idle_share_untraced": 1.0 - rep["busy_s"] / wall,
+        "trace_steps": tr_steps,
+        "trace_kernel_events": trc.kernel_events(tr),
+        "trace_launches": launches,
+    }
+    if adv._mega_stage_eligible():
+        nbytes, _ = cost.stage_cost(adv._stage_tables, adv._poly,
+                                    default_sweeps(adv.dtype))
+        out["hbm_bytes_per_stage_model"] = nbytes
+    return out

@@ -33,7 +33,7 @@ import torch
 
 from . import geometry as geo
 from . import problems as prob
-from . import resolve_device
+from . import resolve_device, synchronize
 from . import steppers
 from . import sync as syncm
 from .config import RunConfig, RunResult
@@ -42,7 +42,7 @@ from .mesh import default_mesh, load_mesh
 from .operator import Advection, SolverConfig
 
 
-def _project_bernstein(x_nodes, Bm_at_unodes, func):
+def project_bernstein(x_nodes, Bm_at_unodes, func):
     """MFEM PositiveFiniteElement::Project: function values at the
     closed-uniform nodes become the Bernstein dofs (remhos.cpp:883).
     Returns (dofs[E, nd], x_unodes[E, nd, dim])."""
@@ -52,7 +52,7 @@ def _project_bernstein(x_nodes, Bm_at_unodes, func):
     return func(x_unodes), x_unodes
 
 
-def _integrate_mesh_velocity(x0, problem, bb_min, bb_max, t_final, dt):
+def integrate_mesh_velocity(x0, problem, bb_min, bb_max, t_final, dt):
     """Remap pseudo-velocity v = x_final - x0: the mesh nodes integrated to
     t_final with the analytic velocity by forward Euler (remhos.cpp:560-584).
 
@@ -105,11 +105,6 @@ def _unported(cfg: RunConfig):
     return None
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def build_operator(cfg: RunConfig):
     """(adv, dt): the operator of a run on its mesh, with the remap mesh
     velocity in `adv.v_nodes`, and the run's initial dt. `run` starts here;
@@ -139,9 +134,9 @@ def build_operator(cfg: RunConfig):
 
     # --- remap mesh velocity (f64, then cast to the working dtype) ---
     x0_64 = torch.as_tensor(mesh.x, dtype=f64, device=device)
-    v_nodes = _integrate_mesh_velocity(x0_64, cfg.problem, mesh.bb_min,
-                                       mesh.bb_max, cfg.t_final,
-                                       dt).to(dtype)
+    v_nodes = integrate_mesh_velocity(x0_64, cfg.problem, mesh.bb_min,
+                                      mesh.bb_max, cfg.t_final,
+                                      dt).to(dtype)
 
     # --- solver config / operator ---
     scfg = SolverConfig(problem=cfg.problem, ho=cfg.ho, lo=cfg.lo,
@@ -167,7 +162,7 @@ def run(cfg: RunConfig) -> RunResult:
     t_final = 1.0   # pseudo-time convention (remhos.cpp:1128-1134)
 
     # --- initial condition (from the working-dtype nodes, in f64) ---
-    u0, x_unodes = _project_bernstein(
+    u0, x_unodes = project_bernstein(
         x0_nodes.to(f64), disc.Bm_at_unodes,
         lambda x: prob.u0_function(cfg.problem, x, mesh.bb_min, mesh.bb_max))
     fields = [u0]
@@ -229,7 +224,7 @@ def run(cfg: RunConfig) -> RunResult:
     fetch_aux = cfg.verify_bounds or cfg.dt_control != 0
     C = torch.zeros_like(S) if use_closure else None
     inj_acc = torch.zeros((), dtype=f64, device=device)
-    _sync(device)
+    synchronize(device)
     wall0 = time.perf_counter()
     while not done:
         dt_real = min(dt, t_final - t)
@@ -291,7 +286,7 @@ def run(cfg: RunConfig) -> RunResult:
         if cfg.verbose and (done or ti % cfg.vis_steps == 0):
             print(f"time step: {ti}, time: {t:.6g}, dt: {dt:.6g}, "
                   f"residual: 0")
-    _sync(device)
+    synchronize(device)
     wall = time.perf_counter() - wall0
 
     # --- final mass / max (remhos.cpp:1382-1436) ---

@@ -30,9 +30,15 @@ LIBRARIES = {
     "stage_ho": (("stage_ho.cu",), ("stage_core.cuh",)),
     "wdet": (("wdet.cu",), ()),
     "geom_conv": (("geom_conv.cu",), ()),
+    "stage_ho_nodes": (("stage_ho_nodes.cu",), ("stage_core.cuh",)),
+    "gl_cg": (("gl_cg.cu",), ("stage_core.cuh",)),
+    "gather_nbr": (("gather_nbr.cu",), ()),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# mangled template type codes of the kernels' first template argument
+_ENTRY_TYPES = {"f": "f32", "d": "f64", "t": "16-bit", "j": "32-bit",
+                "m": "64-bit"}
 
 
 def _nvcc() -> str:
@@ -103,14 +109,16 @@ def ptxas_report(name: str) -> dict[str, str]:
     """Registers and spills of each kernel of a built library, from its
     ptxas log: {"<scalar type> dim <d>": "<spill line>; <register line>"}.
     The template arguments are read off the mangled entry name
-    (`...kernelIfLi3EE...` is <float, 3>)."""
+    (`...kernelIfLi3EE...` is <float, 3>; the gather's element types are
+    unsigned integers of 2, 4 or 8 bytes)."""
     log = library_path(name).with_suffix(".log").read_text()
     out, key = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            t = re.search(r"I([fd])Li(\d)E", m.group(1))
-            key = (f"{'f32' if t.group(1) == 'f' else 'f64'} dim {t.group(2)}"
+            t = re.search(r"I([fdtjm])(?:Li(\d)E)?", m.group(1))
+            key = (_ENTRY_TYPES[t.group(1)]
+                   + (f" dim {t.group(2)}" if t.group(2) else "")
                    if t else m.group(1))
             out[key] = ""
         elif key is not None and ("registers" in ln or "spill" in ln):

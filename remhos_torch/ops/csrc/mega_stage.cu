@@ -61,9 +61,10 @@ namespace {
 
 using namespace remhos;
 
-template <typename T>
+template <typename T, int DIM>
 struct Args {
   CoreArgs<T> c;
+  PolyGeom<T, DIM> g;
   const T* smin;    // [ncls, E] class-major bounds stencil
   const T* smax;
   const int* cls;   // [nd]
@@ -81,7 +82,7 @@ size_t smem_bytes(int nd, int Q, int Qf, int nf, int fd) {
 
 template <typename T, int DIM>
 __global__ void __launch_bounds__(NT, Tile<T, DIM>::MINB)
-mega_stage_kernel(const Args<T> a) {
+mega_stage_kernel(const Args<T, DIM> a) {
   constexpr int TE = Tile<T, DIM>::TE;
   constexpr int NCLS = DIM == 3 ? 27 : 9;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -109,7 +110,7 @@ mega_stage_kernel(const Args<T> a) {
   }
 
   // 1-4. du_HO (stage_core.cuh), and the lumped mass ml = wdet Bu
-  T* s_du = stage_core<T, DIM, TE>(a.c, s, e_base, ne);
+  T* s_du = stage_core<T, DIM, TE>(a.c, a.g, s, e_base, ne);
   contract<T, TE>(s.wdet, Q, a.c.Bu, nd, s_ml);
   __syncthreads();
 
@@ -169,8 +170,9 @@ template <typename T, int DIM>
 int launch(const void* const* p, double t, double dt, const int* sz,
            cudaStream_t stream) {
   constexpr int TE = Tile<T, DIM>::TE;
-  Args<T> a;
-  fill_core_args(a.c, p, t, sz);
+  Args<T, DIM> a;
+  fill_core_args(a.c, p, sz);
+  a.g = poly_geom<T, DIM>(p, t, sz);
   a.smin = static_cast<const T*>(p[N_CORE_PTRS]);
   a.smax = static_cast<const T*>(p[N_CORE_PTRS + 1]);
   a.cls = static_cast<const int*>(p[N_CORE_PTRS + 2]);

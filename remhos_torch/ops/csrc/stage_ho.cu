@@ -37,9 +37,10 @@ namespace {
 
 using namespace remhos;
 
-template <typename T>
+template <typename T, int DIM>
 struct Args {
   CoreArgs<T> c;
+  PolyGeom<T, DIM> g;
   T* du_ho;    // [E, nd] out
   T* wdet;     // [E, Q] out
   T* du_lo;    // [E, nd] out, nullptr without LO
@@ -55,7 +56,7 @@ size_t smem_bytes(int nd, int Q, int Qf, int nf, int fd) {
 
 template <typename T, int DIM>
 __global__ void __launch_bounds__(NT, Tile<T, DIM>::MINB)
-stage_ho_kernel(const Args<T> a) {
+stage_ho_kernel(const Args<T, DIM> a) {
   constexpr int TE = Tile<T, DIM>::TE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
@@ -72,7 +73,7 @@ stage_ho_kernel(const Args<T> a) {
   const bool with_lo = a.du_lo != nullptr;
   const bool avg = with_lo && a.c.n_cg != 0;
 
-  T* s_res = stage_core<T, DIM, TE>(a.c, s, e_base, ne);
+  T* s_res = stage_core<T, DIM, TE>(a.c, a.g, s, e_base, ne);
   if (avg) contract<T, TE>(s.wdet, Q, a.c.Bu, nd, s_ml);
   __syncthreads();
   if (avg) {
@@ -100,8 +101,9 @@ template <typename T, int DIM>
 int launch(const void* const* p, double t, double dt, const int* sz,
            cudaStream_t stream) {
   constexpr int TE = Tile<T, DIM>::TE;
-  Args<T> a;
-  fill_core_args(a.c, p, t, sz);
+  Args<T, DIM> a;
+  fill_core_args(a.c, p, sz);
+  a.g = poly_geom<T, DIM>(p, t, sz);
   a.du_ho = static_cast<T*>(const_cast<void*>(p[N_CORE_PTRS]));
   a.wdet = static_cast<T*>(const_cast<void*>(p[N_CORE_PTRS + 1]));
   a.du_lo = static_cast<T*>(const_cast<void*>(p[N_CORE_PTRS + 2]));

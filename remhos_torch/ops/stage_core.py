@@ -1,9 +1,10 @@
-"""What the two stage kernels share on the Python side: the plain PyTorch
+"""What the stage kernels share on the Python side: the plain PyTorch
 version of their common core and the operand checks of their wrappers.
 
 `poly_stage_core_reference` is the counterpart of `_poly_stage_core`
 (remhos_tpu/ops/pallas_kernels.py:578), as `csrc/stage_core.cuh` is on the
-CUDA side: the plain versions of `mega_stage` and `stage_ho` both call it.
+CUDA side: the plain versions of `mega_stage` and `stage_ho` both call it,
+and `jacobi_gl_inverse`, its mass inverse, also serves `stage_ho_nodes`.
 """
 
 from __future__ import annotations
@@ -75,13 +76,20 @@ def poly_stage_core_reference(t, u, u_nbr, P, tables, n_cg):
                                       (flux @ tb["SBf"]).reshape(E, -1))
     if n_cg == 0:
         return Ku, wdet
+    return jacobi_gl_inverse(Ku, wdet, tb, n_cg), wdet
 
+
+def jacobi_gl_inverse(Ku, wdet, tables, n_cg):
+    """Steps 4-6 of the core: du_HO = x A^T after b = Ku A, x = D^-1 b and
+    n_cg Jacobi sweeps x += D^-1 (b - M_gl x), M_gl x = ((x Bgl^T) wdet) Bgl.
+    The plain versions of the three stage kernels share it."""
+    tb = tables
     b_ = Ku @ tb["A"]
     inv_diag = 1.0 / (wdet @ tb["Bgl2"])
     x = inv_diag * b_
     for _ in range(n_cg):
         x = x + inv_diag * (b_ - ((x @ tb["BglT"]) * wdet) @ tb["Bgl"])
-    return x @ tb["AT"], wdet
+    return x @ tb["AT"]
 
 
 def core_shapes(tb, E):

@@ -17,10 +17,15 @@ import torch
 from remhos_torch import bench, bounds, driver, structured
 from remhos_torch.config import RunConfig
 from remhos_torch.operator import Advection, SolverConfig
+from remhos_torch import ops
+from remhos_torch.ops import gather_nbr as gn
 from remhos_torch.ops import geom_conv as gc
+from remhos_torch.ops import gl_cg as cg
 from remhos_torch.ops import mega_stage as ms
 from remhos_torch.ops import stage_ho as sh
+from remhos_torch.ops import stage_ho_nodes as shn
 from remhos_torch.ops import wdet as wd
+from remhos_torch.utils import trace as trc
 
 DT = 0.2 / 320
 
@@ -272,3 +277,139 @@ def test_pacman_golden_rows(name):
     assert gc.geom_conv.launches - g0 == 6 * r.steps_total
     for got, want in ((r.final_mass_u, row["mass"]), (r.max_u, row["max"])):
         assert abs(got - want) <= 5e-10 * max(abs(got), abs(want))
+
+
+def _moved(dim, n, dtype):
+    """The benchmark's operator at n^dim and its nodes x0 + 0.3 v."""
+    adv = bench.build_case(n=n, order=3, dtype=dtype, device="cuda",
+                           n_steps=4, dt=DT, dim=dim).adv
+    return adv, (adv.x0_nodes + 0.3 * adv.v_nodes).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,n", [(3, 8), (2, 9), (3, 12)])
+@pytest.mark.parametrize("seed", [9, 1])
+@pytest.mark.parametrize("dtype,tol,wtol", [(torch.float64, 1e-10, 1e-12),
+                                            (torch.float32, 1e-3, 1e-5)])
+@pytest.mark.parametrize("opts", [{}, dict(n_cg=0), dict(with_face=False),
+                                  dict(mode=-1.0)], ids=str)
+def test_stage_ho_nodes_matches_reference(dim, n, seed, dtype, tol, wtol,
+                                          opts):
+    """Kernel 5 vs its plain version: du (Ku with n_cg=0) and wdet, with
+    each option. In f64 du is held to the plain version at 1e-10 of
+    max|du|. In f32 it is held to the f64 plain result at 1e-3 of max|du|:
+    the f32 Bernstein mass inverse (condition ~4.3e4) amplifies rounding,
+    most without the face flux, where on these small meshes the kernel's
+    fixed-order sums and the plain version's library products need not
+    agree to 2e-4 with each other; a lost Jacobi sweep moves du by ~2.5e-3.
+    wdet is held to the plain version in the working type."""
+    _cuda()
+    adv, xs = _moved(dim, n, dtype)
+    tb = shn.stage_ho_nodes_tables(adv.disc, dtype, "cuda")
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.standard_normal((xs.shape[0], adv.disc.nd)),
+                        dtype=dtype, device="cuda")
+    unbr = adv.gather_nbr(u).reshape(u.shape[0], -1)
+    kw = dict(dict(mode=1.0), **opts)
+    before = shn.stage_ho_nodes.launches
+    got = shn.stage_ho_nodes(xs, adv.v_nodes, u, unbr, tb, **kw)
+    torch.cuda.synchronize()
+    assert shn.stage_ho_nodes.launches == before + 1
+    n_cg = kw.pop("n_cg", sh.default_sweeps(dtype))
+    ref = shn.stage_ho_nodes_reference(xs, adv.v_nodes, u, unbr, tb,
+                                       n_cg=n_cg, **kw)
+    if dtype == torch.float32:
+        d = torch.float64
+        ref = (shn.stage_ho_nodes_reference(
+            xs.to(d), adv.v_nodes.to(d), u.to(d), unbr.to(d),
+            shn.stage_ho_nodes_tables(adv.disc, d, "cuda"), n_cg=n_cg,
+            **kw)[0], ref[1])
+        got = (got[0].double(), got[1])
+    for g, r, lim in zip(got, ref, (tol, wtol)):
+        assert (g - r).abs().max().item() <= lim * r.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,n", [(3, 8), (2, 9)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 2e-4)])
+def test_gl_cg_matches_reference(dim, n, dtype, tol):
+    """Kernel 6 vs its plain version on a random right-hand side, with an
+    element whose right-hand side is 0 (stopped from the start)."""
+    _cuda()
+    adv, xs = _moved(dim, n, dtype)
+    wdet = wd.wdet_reference(xs, adv._wdet_tables)
+    rng = np.random.default_rng(10)
+    rhs = torch.as_tensor(rng.standard_normal((xs.shape[0], adv.disc.nd)),
+                          dtype=dtype, device="cuda")
+    rhs[3] = 0.0
+    tb = adv._stage_tables
+    before = cg.gl_cg.launches
+    got = cg.gl_cg(rhs, wdet, tb)
+    torch.cuda.synchronize()
+    assert cg.gl_cg.launches == before + 1
+    ref, its = cg.gl_cg_reference(rhs, wdet, tb, with_iterations=True)
+    assert int(its[3]) == 0 and int(its.max()) > 1
+    assert float(got[3].abs().max()) == 0.0
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,periodic", [
+    ((8, 8, 8), (False, False, False)), ((8, 8, 8), (True, True, True)),
+    ((5, 3, 7), (True, False, True)), ((8, 1), (True, True)),
+    ((7, 5), (False, True))], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.float16])
+def test_gather_nbr_bit_identical(shape, periodic, dtype):
+    """Kernel 7 vs the plain structured gather, bit for bit, on layouts
+    whose block size is and is not a multiple of 8, in three dtypes."""
+    _cuda()
+    from remhos_torch.dofmaps import build_dofmaps
+    dm = build_dofmaps(len(shape), 3)
+    rng = np.random.default_rng(11)
+    u = torch.as_tensor(rng.standard_normal((int(np.prod(shape)), dm.nd)),
+                        dtype=dtype, device="cuda")
+    got = gn.gather_nbr(u, shape, periodic, dm.nbr_dof_local)
+    ref = gn.gather_nbr_reference(u, shape, periodic, dm.nbr_dof_local)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_trace_counts_equal_launch_counters():
+    """The profiler's trace holds one device event of each kernel per
+    launch (the kernels are launched through ctypes)."""
+    _cuda()
+    case = bench.build_case(n=6, order=3, dtype=torch.float32,
+                            device="cuda", n_steps=4, dt=DT)
+    adv = case.adv
+    rng = np.random.default_rng(12)
+    u = torch.as_tensor(rng.random(tuple(case.u0.shape)),
+                        dtype=torch.float32, device="cuda")
+    unbr = adv.gather_nbr(u).reshape(u.shape[0], -1)
+    smin, smax = structured.overlap_stencil_T(
+        *bounds.elements_min_max(u), adv.shape, adv.periodic, adv.masks)
+    xs = (adv.x0_nodes + 0.3 * adv.v_nodes).contiguous()
+    nf = Advection(adv.disc, SolverConfig(problem=10, ho=3, lo=3, fct=2,
+                                          pa=True), adv.x0_nodes,
+                   adv.v_nodes, dtype=torch.float32, device="cuda")
+    tbn = shn.stage_ho_nodes_tables(adv.disc, torch.float32, "cuda")
+
+    def seven():
+        for _ in range(2):
+            ms.mega_stage(0.1, DT, u, unbr, smin, smax, adv._poly,
+                          adv._stage_tables)
+        sh.stage_ho(0.1, u, unbr, adv._poly, adv._stage_tables)
+        wdet = wd.wdet(xs, adv._wdet_tables)
+        gc.geom_conv(xs, adv.v_nodes, u, nf._gc_tables, 1.0)
+        shn.stage_ho_nodes(xs, adv.v_nodes, u, unbr, tbn, mode=1.0)
+        cg.gl_cg(u, wdet, adv._stage_tables)
+        gn.gather_nbr(u, adv.shape, adv.periodic,
+                      adv.disc.dofmaps.nbr_dof_local)
+
+    seven()
+    tr, launches = trc.capture_counted(seven)
+    events = trc.check_kernel_events(tr, launches, "test")
+    assert events == dict(dict.fromkeys(ops.KERNELS, 1), mega_stage=2)
+    rep = trc.loop_report(tr, 1, 1)
+    assert rep["kernel_calls"] == 8 and 0.0 <= rep["idle_share"] < 1.0

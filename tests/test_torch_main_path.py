@@ -136,7 +136,11 @@ def test_import_pulls_in_no_jax():
             "remhos_torch.config, remhos_torch.ops.stage_ho, "
             "remhos_torch.ops.wdet, remhos_torch.ops.build, "
             "remhos_torch.ops.geom_conv, remhos_torch.assembly, "
-            "remhos_torch.subcell, remhos_torch.pa, remhos_torch.lo; "
+            "remhos_torch.subcell, remhos_torch.pa, remhos_torch.lo, "
+            "remhos_torch.ops.stage_ho_nodes, remhos_torch.ops.gl_cg, "
+            "remhos_torch.ops.gather_nbr, remhos_torch.utils.cost, "
+            "remhos_torch.utils.trace, remhos_torch.utils.fom, "
+            "remhos_torch.tools.microbench, remhos_torch.tools.kernelbench; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('remhos_tpu')]; "
             "assert not bad, bad")

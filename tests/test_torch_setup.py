@@ -74,7 +74,7 @@ def test_problem_setup(problem, shape):
     u0j, xuj = jdrv._project_bernstein(
         jnp.asarray(x0), jd.Bm_at_unodes,
         lambda x: jprob.u0_function(problem, x, m.bb_min, m.bb_max))
-    u0t, xut = driver._project_bernstein(
+    u0t, xut = driver.project_bernstein(
         _t(x0), td.Bm_at_unodes,
         lambda x: problems.u0_function(problem, x, m.bb_min, m.bb_max))
     _close(xut, xuj)
@@ -93,8 +93,8 @@ def test_integrate_mesh_velocity(shape):
     dt = 0.2 / 320
     vj = jdrv._integrate_mesh_velocity(m.x, jd.Bm, 10, m.bb_min, m.bb_max,
                                        0.7, dt)
-    vt = driver._integrate_mesh_velocity(_t(m.x), 10, m.bb_min, m.bb_max,
-                                         0.7, dt)
+    vt = driver.integrate_mesh_velocity(_t(m.x), 10, m.bb_min, m.bb_max,
+                                        0.7, dt)
     _close(vt, vj)
 
 
