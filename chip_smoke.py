@@ -20,7 +20,18 @@ It builds the CUDA kernels from the sources on first use, then:
    wdet, and geom_conv's Ku, 1e-5 (f32) and 1e-12 (f64). Each check prints
    the kernel's ms per launch (CUDA events), the plain version's, the bound
    (remhos_torch/utils/cost.py) and, for the gather, the ms of its one-call
-   library equivalent (index_select);
+   library equivalent (index_select), both by CUDA events over back-to-back
+   calls (taken in turns) and as device time from a trace. Then kernels 1, 2
+   and 5 at the orders p = 1, 2, 4 and 5 (3D N=24 and 2D 16x16, f32 and
+   f64; p = 1 and 5 run the core's runtime-size instantiation).
+   The f32 stage kernels (1, 2, 5) are held to the plain version evaluated
+   in f64 on the same inputs with the kernel's one Jacobi sweep (the plain
+   version's own f32 result carries its own rounding, amplified by the
+   Bernstein mass inverse; its distance is printed beside), at 2e-4; in 3D
+   at p = 4 at kernel 5's f32 small-mesh rule, 1e-3, and at p = 5 no
+   farther than the f32 plain version (`stage_limit`). Each f32 check also
+   prints how far one Jacobi sweep fewer moves the f64 du
+   (`lost_sweep_rel`): at 24^3 less than any of these limits;
 4. drives the main path: bench.build_case(n=24, order=3, f32) and 320 RK3
    steps at dt = 0.2/320 with the mass closures, bench.verify and the 2-step
    f32-vs-f64 cross check; asserts that the mega stage ran on every stage;
@@ -80,8 +91,10 @@ from remhos_torch.ops import geom_conv as gc
 from remhos_torch.ops import gl_cg as cg
 from remhos_torch.ops import mega_stage as ms
 from remhos_torch.ops import stage_ho as sh
+from remhos_torch.ops import stage_core as core
 from remhos_torch.ops import stage_ho_nodes as shn
 from remhos_torch.ops import wdet as wd
+from remhos_torch.ops.stage_core import as_dtype
 from remhos_torch.tools import kernelbench, microbench
 from remhos_torch.utils import fom
 from remhos_torch.utils import trace as trc
@@ -91,8 +104,7 @@ from remhos_torch.utils.cost import (bound, gather_nbr_cost,
                                      stage_ho_nodes_cost, wdet_cost)
 
 # kernel against plain version, relative to max|du|: f64 round-off; f32
-# 10x above the ~2e-5 FMA-ordering difference, below the ~2.5e-3 a lost
-# Jacobi sweep would make
+# 10x above the ~2e-5 FMA-ordering difference
 LIMITS = {torch.float32: 2e-4, torch.float64: 1e-10}
 # wdet, relative to max|wdet|: a few Horner or dot roundings
 WDET_LIMITS = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -151,6 +163,11 @@ D_LIMITS = dict(mass_loss_u_rel=1e-8, max_u=1.0 + 1e-10, min_steps=20)
 MEASURE_STEPS = 10
 GOLDEN_ROWS = ("remap-cube3d-m3pa", "remap-cube3d-m4pa")
 GOLDEN_TOL = 5e-10       # the baseline prints 10 significant digits
+# the orders kernels 1, 2 and 5 are also held at (p=3: step 3's checks);
+# p = 2-4 are compiled sizes of the core, p = 1 and 5 its runtime sizes
+ORDERS = (1, 2, 4, 5)
+# f32 stage kernels in 3D at p >= 4 (`stage_limit`)
+F32_HIGH_ORDER_LIMIT = 1e-3
 
 
 def card_line():
@@ -186,6 +203,51 @@ def compare(label, what, got, ref, limit):
     return err, err / scale
 
 
+def hold(label, what, got, ref, ref64, limit):
+    """A stage kernel's output `got` against its plain version; raises
+    beyond `limit`. ref64 None (f64, and f32 wdet): against the plain
+    version `ref` in the working type. f32:
+    against `ref64`, the plain version evaluated in f64 on the same inputs
+    with the kernel's sweep count: the plain version's own f32 result `ref`
+    carries its own rounding, amplified by the Bernstein mass inverse; limit
+    None holds the kernel no farther from ref64 than `ref` lies. Returns
+    (max abs err, rel err, the plain f32 result's rel err from ref64, or
+    None)."""
+    if ref64 is None:
+        return (*compare(label, what, got, ref, limit), None)
+    f64 = torch.float64
+    plain_rel = float((ref.to(f64) - ref64).abs().max()
+                      / ref64.abs().max())
+    if limit is None:
+        limit = plain_rel
+    return (*compare(label, what, got.to(f64), ref64, limit), plain_rel)
+
+
+def stage_limit(adv):
+    """The limit of a stage kernel's du on operator `adv` (`hold`): LIMITS,
+    but in f32 in 3D, where f32 rounding, amplified by the Bernstein mass
+    inverse, puts neither the kernel nor the plain version within 2e-4 of
+    the f64 evaluation: at p = 4 kernel 5's f32 small-mesh rule, 1e-3; at
+    p >= 5, where the f32 plain version lies 1e-2 off, None: no farther
+    than the f32 plain version."""
+    if adv.dtype == torch.float32 and adv.disc.dim == 3:
+        if adv.disc.p >= 5:
+            return None
+        if adv.disc.p == 4:
+            return F32_HIGH_ORDER_LIMIT
+    return LIMITS[adv.dtype]
+
+
+def lost_sweep_rel(t, u64, unbr64, P64, tb64, n_cg):
+    """How far one Jacobi sweep fewer moves du_HO, relative to max|du_HO|:
+    the f64 plain core with n_cg - 1 sweeps against n_cg, on the same
+    inputs. An f32 limit sees a lost sweep only below it."""
+    Ku, wdet = core.poly_stage_core_reference(t, u64, unbr64, P64, tb64, 0)
+    full = core.jacobi_gl_inverse(Ku, wdet, tb64, n_cg)
+    lost = core.jacobi_gl_inverse(Ku, wdet, tb64, n_cg - 1)
+    return float((lost - full).abs().max() / full.abs().max())
+
+
 def stage_inputs(adv, rng):
     """Random u from the seed and its gather and stencil on the card."""
     u = torch.as_tensor(rng.random((adv._poly.shape[0],
@@ -197,20 +259,28 @@ def stage_inputs(adv, rng):
     return u, unbr, smin, smax
 
 
-def check_kernel(label, adv, dt, rng):
-    """One mega stage, kernel vs plain version, on random u; raises beyond
-    the limit. Returns the measured numbers."""
+def check_kernel(label, adv, adv64, dt, rng):
+    """One mega stage, kernel vs plain version (`hold`; adv64: the f64
+    operator of the same case, for the f64 evaluation), on random u; raises
+    beyond the limit. Returns the measured numbers."""
     dtype = adv.dtype
     u, unbr, smin, smax = stage_inputs(adv, rng)
-    args = (0.1, dt, u, unbr, smin, smax, adv._poly, adv._stage_tables)
+    t, dt = as_dtype(0.1, dtype), as_dtype(dt, dtype)
+    args = (t, dt, u, unbr, smin, smax, adv._poly, adv._stage_tables)
     n_cg = ms.default_sweeps(dtype)
     got = ms.mega_stage(*args)
     torch.cuda.synchronize()
     ref = ms.mega_stage_reference(*args, n_cg)
+    ref64 = None
+    if dtype == torch.float32:
+        ref64 = ms.mega_stage_reference(
+            t, dt, *f64_inputs(u, unbr, smin, smax, adv._poly),
+            adv64._stage_tables, n_cg)
     torch.cuda.synchronize()
-    err, rel = compare(label, "du", got, ref, LIMITS[dtype])
+    err, rel, prel = hold(label, "du", got, ref, ref64, LIMITS[dtype])
     res = dict(check=label, kernel="mega_stage", E=u.shape[0],
                max_abs_err=err, rel_err=rel, limit=LIMITS[dtype],
+               plain_f32_rel_err=prel,
                ms=time_ms(lambda: ms.mega_stage(*args), 20),
                plain_ms=time_ms(
                    lambda: ms.mega_stage_reference(*args, n_cg), 5))
@@ -220,33 +290,42 @@ def check_kernel(label, adv, dt, rng):
     return res
 
 
-def check_stage_ho(label, adv, dt, rng, with_lo, n_cg=None, timed=True):
-    """One HO stage, kernel vs plain version, on random u: du_HO, wdet and
-    (with_lo) du_LO; raises beyond the limits."""
+def check_stage_ho(label, adv, adv64, dt, rng, with_lo, n_cg=None,
+                   timed=True):
+    """One HO stage, kernel vs plain version (`hold`), on random u: du_HO,
+    wdet and (with_lo) du_LO; raises beyond the limits."""
     dtype = adv.dtype
     tb, P = adv._stage_tables, adv._poly
     u, unbr, _, _ = stage_inputs(adv, rng)
     n = sh.default_sweeps(dtype) if n_cg is None else n_cg
+    t, dt = as_dtype(0.1, dtype), as_dtype(dt, dtype)
     kw = dict(n_cg=n_cg, dt=dt, with_lo=with_lo)
-    got = sh.stage_ho(0.1, u, unbr, P, tb, **kw)
+    got = sh.stage_ho(t, u, unbr, P, tb, **kw)
     torch.cuda.synchronize()
-    ref = sh.stage_ho_poly_reference(0.1, u, unbr, P, tb, n, dt=dt,
+    ref = sh.stage_ho_poly_reference(t, u, unbr, P, tb, n, dt=dt,
                                      with_lo=with_lo)
+    ref64 = [None] * len(ref)
+    if dtype == torch.float32:
+        ref64 = sh.stage_ho_poly_reference(
+            t, *f64_inputs(u, unbr, P), adv64._stage_tables, n, dt=dt,
+            with_lo=with_lo)
     torch.cuda.synchronize()
     names = ("du_HO", "wdet", "du_LO")[:len(ref)]
     limits = (LIMITS[dtype], WDET_LIMITS[dtype], LIMITS[dtype])
-    errs = {k: compare(label, k, g, r, lim)
-            for k, g, r, lim in zip(names, got, ref, limits)}
+    # wdet in its working type: no mass inverse amplifies its rounding
+    errs = {k: hold(label, k, g, r, None if k == "wdet" else r64, lim)
+            for k, g, r, r64, lim in zip(names, got, ref, ref64, limits)}
     res = dict(check=label, kernel="stage_ho", E=u.shape[0],
                with_lo=with_lo, n_cg=n,
                max_abs_err=max(errs[k][0] for k in names if k != "wdet"),
                rel_err={k: errs[k][1] for k in names},
+               plain_f32_rel_err={k: errs[k][2] for k in names},
                limit=LIMITS[dtype], wdet_limit=WDET_LIMITS[dtype])
     if timed:
         res.update(
-            ms=time_ms(lambda: sh.stage_ho(0.1, u, unbr, P, tb, **kw), 20),
+            ms=time_ms(lambda: sh.stage_ho(t, u, unbr, P, tb, **kw), 20),
             plain_ms=time_ms(lambda: sh.stage_ho_poly_reference(
-                0.1, u, unbr, P, tb, n, dt=dt, with_lo=with_lo), 5))
+                t, u, unbr, P, tb, n, dt=dt, with_lo=with_lo), 5))
     res.update(bound(*stage_cost(tb, P, n, "ho", with_lo), dtype))
     print(json.dumps(res), flush=True)
     return res
@@ -306,13 +385,11 @@ def check_geom_conv(label, adv, rng):
     return res
 
 
-def check_stage_ho_nodes(label, adv, tb, rng, **kw):
-    """Kernel 5 vs plain version at the nodes x0 + 0.3 v, the mesh velocity
-    v, a random u and its trace: du (Ku with n_cg=0) and wdet; kw are the
-    kernel's options (mode, n_cg, with_face). The f32 Bernstein mass inverse
-    amplifies the different roundings of the kernel's fixed-order sums and
-    the plain version's library products most without the face flux; at
-    these shapes du stays inside LIMITS all the same."""
+def check_stage_ho_nodes(label, adv, tb, tb64, rng, **kw):
+    """Kernel 5 vs plain version (`hold`; tb64: the f64 tables) at the nodes
+    x0 + 0.3 v, the mesh velocity v, a random u and its trace: du (Ku with
+    n_cg=0) and wdet; kw are the kernel's options (mode, n_cg,
+    with_face)."""
     dtype = adv.dtype
     v = adv.v_nodes
     xs = (adv.x0_nodes + 0.3 * v).contiguous()
@@ -324,12 +401,19 @@ def check_stage_ho_nodes(label, adv, tb, rng, **kw):
     got = shn.stage_ho_nodes(xs, v, u, unbr, tb, **kw)
     torch.cuda.synchronize()
     ref = shn.stage_ho_nodes_reference(xs, v, u, unbr, tb, **dict(kw, n_cg=n))
+    ref64 = (None, None)
+    if dtype == torch.float32:
+        ref64 = shn.stage_ho_nodes_reference(
+            *f64_inputs(xs, v, u, unbr), tb64, **dict(kw, n_cg=n))
     torch.cuda.synchronize()
-    err, rel = compare(label, "du", got[0], ref[0], LIMITS[dtype])
-    _, wrel = compare(label, "wdet", got[1], ref[1], WDET_LIMITS[dtype])
+    err, rel, prel = hold(label, "du", got[0], ref[0], ref64[0],
+                          LIMITS[dtype])
+    _, wrel, _ = hold(label, "wdet", got[1], ref[1], None,
+                      WDET_LIMITS[dtype])
     res = dict(check=label, kernel="stage_ho_nodes", E=u.shape[0],
                mode=kw["mode"], n_cg=n, with_face=kw["with_face"],
                max_abs_err=err, rel_err=rel, wdet_rel_err=wrel,
+               plain_f32_rel_err=prel,
                limit=LIMITS[dtype], wdet_limit=WDET_LIMITS[dtype])
     res.update(
         ms=time_ms(lambda: shn.stage_ho_nodes(xs, v, u, unbr, tb, **kw), 20),
@@ -376,8 +460,7 @@ def check_gather_nbr(label, adv, rng):
     block size is not a multiple of 8."""
     dtype, dev, dim = adv.dtype, adv.device, adv.disc.dim
     nd = adv.disc.nd
-    nbr = torch.as_tensor(adv.disc.dofmaps.nbr_dof_local, dtype=torch.int32,
-                          device=dev)
+    nbr = adv.disc.dofmaps.nbr_dof_local
     odd = (5, 3, 7) if dim == 3 else (7, 5)
     layouts = [(tuple(adv.shape), tuple(adv.periodic)),
                (tuple(adv.shape), (True,) * dim),
@@ -388,7 +471,8 @@ def check_gather_nbr(label, adv, rng):
         E = int(np.prod(shape))
         u = torch.as_tensor(rng.standard_normal((E, nd)), dtype=dtype,
                             device=dev)
-        got = gn.gather_nbr(u, shape, periodic, nbr)
+        lay = gn.GatherLayout(shape, periodic, nbr, dev)
+        got = gn.gather_nbr(u, lay)
         ref = gn.gather_nbr_reference(u, shape, periodic, nbr)
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
@@ -404,15 +488,125 @@ def check_gather_nbr(label, adv, rng):
             if not torch.equal(lib, ref):
                 raise RuntimeError(f"{label}: the index_select equivalent "
                                    "is not the gather")
+            kern = lambda: gn.gather_nbr(u, lay)
+            lib_call = lambda: u_pad.index_select(0, idx)
+            # host-bound back-to-back calls: in turns, kernel first
+            k_ms, l_ms = [], []
+            for _ in range(3):
+                k_ms.append(time_ms(kern, 100))
+                l_ms.append(time_ms(lib_call, 100))
             res.update(
-                ms=time_ms(lambda: gn.gather_nbr(u, shape, periodic, nbr),
-                           50),
+                ms=float(np.mean(k_ms)), ms_runs=k_ms,
                 plain_ms=time_ms(lambda: gn.gather_nbr_reference(
                     u, shape, periodic, nbr), 20),
-                library_ms=time_ms(lambda: u_pad.index_select(0, idx), 50))
+                library_ms=float(np.mean(l_ms)), library_ms_runs=l_ms,
+                trace_ms=traced_ms(kern, "gather_nbr"),
+                library_trace_ms=traced_ms(lib_call, None))
             res.update(bound(*gather_nbr_cost(u, idx.reshape(E, -1)), dtype))
     print(json.dumps(res), flush=True)
     return res
+
+
+def traced_ms(fn, kernel, n=10):
+    """Device ms per call of fn from a trace of n calls: the port kernel
+    `kernel`'s events, or (kernel None) every device event."""
+    fn()
+    tr, launches = trc.capture_counted(lambda: [fn() for _ in range(n)])
+    trc.check_kernel_events(tr, launches, f"{n} calls")
+    rep = trc.loop_report(tr, 1, n)
+    if kernel is None:
+        return 1e3 * rep["total_s_per_stage"]
+    return 1e3 * rep["kernel_s_per_stage_by_name"][kernel]
+
+
+def f64_inputs(*tensors):
+    """The same inputs in f64, for the plain version evaluated in f64."""
+    return [x.to(torch.float64) for x in tensors]
+
+
+def order_checks(label, adv, adv64, dt, rng):
+    """Kernels 1, 2 (with LO) and 5 on one operator against their plain
+    versions (`hold`). Prints and returns one record per kernel."""
+    dtype, f64 = adv.dtype, torch.float64
+    n_cg = ms.default_sweeps(dtype)
+    tb, P = adv._stage_tables, adv._poly
+    tb64 = adv64._stage_tables
+    u, unbr, smin, smax = stage_inputs(adv, rng)
+    u64, unbr64, smin64, smax64, P64 = f64_inputs(u, unbr, smin, smax, P)
+    t, dt_ = as_dtype(0.1, dtype), as_dtype(dt, dtype)
+    tbn = shn.stage_ho_nodes_tables(adv.disc, dtype, adv.device)
+    tbn64 = shn.stage_ho_nodes_tables(adv.disc, f64, adv.device)
+    xs = (adv.x0_nodes + 0.3 * adv.v_nodes).contiguous()
+    v = adv.v_nodes
+    xs64, v64 = f64_inputs(xs, v)
+    lim_du = stage_limit(adv)
+    control = None
+    if dtype == torch.float32:
+        control = lost_sweep_rel(t, u64, unbr64, P64, tb64, n_cg)
+    cases = dict(
+        mega_stage=(
+            lambda: (ms.mega_stage(t, dt_, u, unbr, smin, smax, P, tb),),
+            lambda: (ms.mega_stage_reference(t, dt_, u64, unbr64, smin64,
+                                             smax64, P64, tb64, n_cg),),
+            lambda: (ms.mega_stage_reference(t, dt_, u, unbr, smin, smax, P,
+                                             tb, n_cg),),
+            stage_cost(tb, P, n_cg)),
+        stage_ho=(
+            lambda: sh.stage_ho(t, u, unbr, P, tb, dt=dt_, with_lo=True),
+            lambda: sh.stage_ho_poly_reference(t, u64, unbr64, P64, tb64,
+                                               n_cg, dt=dt_, with_lo=True),
+            lambda: sh.stage_ho_poly_reference(t, u, unbr, P, tb, n_cg,
+                                               dt=dt_, with_lo=True),
+            stage_cost(tb, P, n_cg, "ho", True)),
+        stage_ho_nodes=(
+            lambda: shn.stage_ho_nodes(xs, v, u, unbr, tbn, mode=1.0),
+            lambda: shn.stage_ho_nodes_reference(xs64, v64, u64, unbr64,
+                                                 tbn64, mode=1.0, n_cg=n_cg),
+            lambda: shn.stage_ho_nodes_reference(xs, v, u, unbr, tbn,
+                                                 mode=1.0, n_cg=n_cg),
+            stage_ho_nodes_cost(xs, u, tbn, n_cg, True)),
+    )
+    out = {}
+    for name, (kern, ref64, plain, cost) in cases.items():
+        got = kern()
+        torch.cuda.synchronize()
+        ref = plain()
+        ref64 = ref64() if dtype == torch.float32 else [None] * len(ref)
+        names = ("du", "wdet", "du_LO")[:len(ref)]
+        limits = (lim_du, WDET_LIMITS[dtype], LIMITS[dtype])
+        errs = {k: hold(f"{label} {name}", k, g, r,
+                        None if k == "wdet" else r64, lim)
+                for k, g, r, r64, lim in zip(names, got, ref, ref64, limits)}
+        rec = dict(check=label, kernel=name, E=u.shape[0], n_cg=n_cg,
+                   max_abs_err=max(errs[k][0] for k in names if k != "wdet"),
+                   rel_err={k: errs[k][1] for k in names},
+                   plain_f32_rel_err={k: errs[k][2] for k in names},
+                   limit=lim_du if lim_du is not None else "plain f32",
+                   lost_sweep_rel=control,
+                   ms=time_ms(kern, 20))
+        rec.update(bound(*cost, dtype))
+        print(json.dumps(rec), flush=True)
+        out[name] = rec
+    return out
+
+
+def check_other_orders(dev, rng):
+    """order_checks at ORDERS, 3D N=24 and 2D 16x16, f32 and f64:
+    {kernel: {key: record}}."""
+    out = {}
+    for p in ORDERS:
+        for tag, n, dim in (("3d", N_MAIN, 3), ("2d", 16, 2)):
+            case = bench.build_case(n, p, torch.float32, dev, n_steps=STEPS,
+                                    dim=dim)
+            size = f"{tag} N={n}" if dim == 3 else f"{tag} {n}x{n}"
+            for prec, adv in (("f32", case.adv), ("f64", case.adv64)):
+                recs = order_checks(f"p={p} {size} {prec}", adv, case.adv64,
+                                    case.dt, rng)
+                for k, r in recs.items():
+                    out.setdefault(k, {})[f"p{p}_{tag}_{prec}"] = r
+            del case
+            torch.cuda.empty_cache()
+    return out
 
 
 def new_kernel_checks(tag, size, prec, adv, rng, out):
@@ -421,12 +615,13 @@ def new_kernel_checks(tag, size, prec, adv, rng, out):
     kernel 7. Results go into out[kernel][key]."""
     key = f"{tag}_{prec}"
     tb = shn.stage_ho_nodes_tables(adv.disc, adv.dtype, adv.device)
+    tb64 = shn.stage_ho_nodes_tables(adv.disc, torch.float64, adv.device)
     k5 = out.setdefault("stage_ho_nodes", {})
-    k5[key] = check_stage_ho_nodes(f"{size} {prec}", adv, tb, rng)
+    k5[key] = check_stage_ho_nodes(f"{size} {prec}", adv, tb, tb64, rng)
     for opt, kw in (("n_cg0", dict(n_cg=0)), ("noface", dict(with_face=False)),
                     ("mode-1", dict(mode=-1.0))):
         k5[f"{key}_{opt}"] = check_stage_ho_nodes(
-            f"{size} {prec} {opt}", adv, tb, rng, **kw)
+            f"{size} {prec} {opt}", adv, tb, tb64, rng, **kw)
     out.setdefault("gl_cg", {})[key] = check_gl_cg(f"{size} {prec}", adv, tb,
                                                    rng)
     out.setdefault("gather_nbr", {})[key] = check_gather_nbr(
@@ -599,8 +794,8 @@ def trace_seven_kernels(case, rng):
     tbn = shn.stage_ho_nodes_tables(adv.disc, adv.dtype, adv.device)
     xs = (adv.x0_nodes + 0.3 * adv.v_nodes).contiguous()
     v = adv.v_nodes
-    nbr = torch.as_tensor(adv.disc.dofmaps.nbr_dof_local, dtype=torch.int32,
-                          device=adv.device)
+    lay = gn.GatherLayout(adv.shape, adv.periodic,
+                          adv.disc.dofmaps.nbr_dof_local, adv.device)
 
     def seven():
         ms.mega_stage(0.1, case.dt, u, unbr, smin, smax, P, tb)
@@ -609,7 +804,7 @@ def trace_seven_kernels(case, rng):
         gc.geom_conv(xs, v, u, nf_adv._gc_tables, 1.0)
         shn.stage_ho_nodes(xs, v, u, unbr, tbn, mode=1.0)
         cg.gl_cg(u, wdet, tb)
-        gn.gather_nbr(u, adv.shape, adv.periodic, nbr)
+        gn.gather_nbr(u, lay)
 
     seven()                                   # built and warm
     tr, launches = trc.capture_counted(seven)
@@ -770,22 +965,24 @@ def main():
         size = f"{tag} N={n}" if dim == 3 else f"{tag} {n}x{n}"
         for prec, adv in (("f32", case.adv), ("f64", case.adv64)):
             key = f"{tag}_{prec}"
-            checks[key] = check_kernel(f"{size} {prec}", adv, case.dt, rng)
+            checks[key] = check_kernel(f"{size} {prec}", adv, case.adv64,
+                                       case.dt, rng)
             for with_lo in (True, False):
                 k2 = key + ("_lo" if with_lo else "")
                 ho_checks[k2] = check_stage_ho(
-                    f"{size} {prec} with_lo={with_lo}", adv, case.dt, rng,
-                    with_lo)
+                    f"{size} {prec} with_lo={with_lo}", adv, case.adv64,
+                    case.dt, rng, with_lo)
             wdet_checks[key] = check_wdet(f"{size} {prec}", adv)
             gc_checks[key] = check_geom_conv(f"{size} {prec}",
                                              nonfused_operator(adv), rng)
             new_kernel_checks(tag, size, prec, adv, rng_new, new_checks)
         if dim == 3:
             ho_checks["3d_f32_ku"] = check_stage_ho(
-                f"{size} f32 n_cg=0 with_lo=True", case.adv, case.dt, rng,
-                True, n_cg=0, timed=False)
+                f"{size} f32 n_cg=0 with_lo=True", case.adv, case.adv64,
+                case.dt, rng, True, n_cg=0, timed=False)
         del case
         torch.cuda.empty_cache()
+    order_recs = check_other_orders(dev, np.random.default_rng(SEED + 2))
     done("kernel checks")
 
     # 4. the main path, counted
@@ -829,7 +1026,9 @@ def main():
     # 9. the cheap golden rows of the non-fused stage
     run_golden_rows(dev, rng, wdet_checks, gc_checks)
     done("golden rows")
-    print(json.dumps({"seconds": seconds}), flush=True)
+    print(json.dumps({"seconds": seconds,
+                      "trace_retakes": trc.capture_counted.retakes}),
+          flush=True)
 
     # 10. every ported kernel: `launches` on its own path (mega stage: the
     # main path; stage_ho: path A; wdet and geom_conv: path C; kernels 5-7:
@@ -838,6 +1037,12 @@ def main():
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
         lib = more.pop("library_ms", None)
         more["trace_ms"] = tools["trace_ms"][name]
+        if name in order_recs:
+            recs = order_recs[name]
+            all_checks = dict(all_checks, **recs)
+            more["orders"] = {k: {f: r[f] for f in (
+                "max_abs_err", "rel_err", "ms", "bound_ms", "bound_by")}
+                for k, r in recs.items()}
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=c32["max_abs_err"],
@@ -890,6 +1095,10 @@ def main():
             library_ms=k7["3d_f32"]["library_ms"],
             library="index_select of u with a zero slot over a flat index "
                     "table",
+            ms_runs=k7["3d_f32"]["ms_runs"],
+            library_ms_runs=k7["3d_f32"]["library_ms_runs"],
+            check_trace_ms=k7["3d_f32"]["trace_ms"],
+            library_trace_ms=k7["3d_f32"]["library_trace_ms"],
             microbench_ms=tools["microbench"]["gather kernel"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

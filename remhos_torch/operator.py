@@ -214,7 +214,7 @@ class Advection:
             return dict(t=t)
         xs = self.x0_nodes + t * self.v_nodes
         nor = geo.face_normals_tangent(xs, *self._face_tan)
-        vn = torch.einsum("efqd,efqd->efq", self._v_fq_static, nor)
+        vn = (self._v_fq_static * nor).sum(-1)
         wvn = -(self.w_fq[None, None, :] * (-vn.clamp(min=0.0)))
         geom = dict(t=t, xs=xs, wvn=wvn)
         self._set_wdet(geom, wdet_kernel(xs, self._wdet_tables))

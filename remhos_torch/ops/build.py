@@ -20,6 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -128,10 +130,12 @@ def ptxas_report(name: str) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build if needed, then load once per process."""
+    """Build if needed, then load once per process. The library's calls keep
+    the GIL (ctypes.PyDLL): a launch entry only enqueues work, and releasing
+    and taking back the GIL would cost more than the call."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        lib = ctypes.PyDLL(str(build(name)))
         _LOADED[name] = lib
     return lib
 
@@ -146,6 +150,28 @@ def bind(lib: ctypes.CDLL, fn: str, argtypes) -> ctypes.CDLL:
         lib.remhos_cuda_error_string.restype = ctypes.c_char_p
         lib._remhos_bound = True
     return lib
+
+
+def _stream_of(index: int) -> int:
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+# PyTorch's current CUDA device, and its current stream on a device as an
+# int: the direct calls where this build of PyTorch has them
+current_device = (getattr(torch._C, "_cuda_getDevice", None)
+                  or torch.cuda.current_device)
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or _stream_of
+
+
+def call_on(device, fn, *args) -> int:
+    """fn(*args, stream): a C launch entry called on PyTorch's current
+    stream of `device`. The device guard is entered only when `device` is
+    not the current device already (the launch goes to the current one)."""
+    index = device.index
+    if current_device() == index:
+        return fn(*args, raw_stream(index))
+    with torch.cuda.device(device):
+        return fn(*args, raw_stream(index))
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str):

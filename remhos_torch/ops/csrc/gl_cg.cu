@@ -200,10 +200,10 @@ int launch(const void* const* p, double rel_tol2, const int* sz,
   if (a.n_iter < 0) return -4;
   const size_t smem = smem_bytes<T>(a.nd, a.Q);
   if (smem > 227 * 1024) return -3;
-  cudaError_t err = cudaFuncSetAttribute(
-      gl_cg_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  // the shared-memory attribute is set once per size and device
+  const int rc =
+      allow_smem(reinterpret_cast<const void*>(&gl_cg_kernel<T>), smem);
+  if (rc != 0) return rc;
   const int blocks = (a.E + TE - 1) / TE;
   gl_cg_kernel<T><<<blocks, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();

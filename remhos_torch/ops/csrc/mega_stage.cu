@@ -24,33 +24,29 @@
 //
 // What bounds it on the H100: at N=24, p=3, f32, one launch reads about
 // 207 MB (P is 191 MB of it: 3456 coefficients per element), ~62 us at
-// 3.35 TB/s. The function needs ~25k multiply-adds per element (every
-// tensor-product table contraction sum-factorized), ~10 us at ~67 TFLOP/s
-// f32: it is bound by bytes. This kernel contracts with the dense tables,
-// ~143k multiply-adds per element at 1 Jacobi sweep (~60 us), so as
-// written it sits at the ridge. Reading the dense tables is the third
-// stream: every block reads ~0.5 MB of tables from L2 for TE elements.
-// In f64 (8 sweeps) the bytes double to ~413 MB (~123 us) and still bound.
+// 3.35 TB/s. The function needs ~25k multiply-adds per element with every
+// tensor-product contraction sum-factorized, ~10 us at ~67 TFLOP/s f32: it
+// is bound by bytes. In f64 (8 sweeps) the bytes double to ~413 MB (~123
+// us) and still bound.
 //
-// What this design does about it (a first version: right and simple).
-// Steps 1-4 are stage_core() of stage_core.cuh, shared with stage_ho.cu,
-// and the element sums of step 5 are its lo_element_sums():
-//   - one thread block per tile of TE elements, 256 threads; every
-//     per-element vector lives in shared memory as [len][TE]; in each
-//     contraction a thread owns one output for a power-of-two group of the
-//     tile's elements, keeps their accumulators in registers and reads each
-//     table entry once per group;
-//   - the static tables are read from global memory (L2/L1 resident:
-//     every block shares them);
+// The first version contracted with the dense tables (~143k multiply-adds
+// per element, one shared-memory load each, ~0.5 MB of tables from L2 per
+// block of 8 elements) and took 12x the byte bound. Steps 1-4 are now
+// stage_core() of stage_core.cuh, sum-factorized, shared with stage_ho.cu
+// and stage_ho_nodes.cu (its head comment has the design); the element sums
+// of step 5 and ClipScale are per-element reductions, one warp per element
+// in a fixed order. The blocks are persistent and walk over tiles of te
+// elements; the 1D tables are staged once per block.
 //   - plain FMA in the working type: no bf16 splitting, no TF32, no tensor
 //     cores. The GL<->Bernstein transforms have kappa ~4.3e4 and the LO and
 //     lumped-mass sums are conservation-critical; true f32 is at least as
 //     accurate as the TPU's bf16x3 products;
-//   - P is streamed once, coalesced, inside the pointwise phase;
-//   - the face tables stay per face ([Qf, fd]) and are indexed through
-//     bdr, which saves ~38k of the dense form's ~181k multiply-adds.
-// Making it fast (wgmma/TMA, a tensor-core scheme that keeps f32 accuracy,
-// larger element tiles) is later work.
+//   - P is streamed once, coalesced, inside the pointwise passes;
+//   - the face tables are the 1D trace tables, and face dofs are reached
+//     through bdr and dof_faces.
+// What still bounds it and what stays for later (overlapping the P stream
+// with the contractions, TMA multicast, wgmma-based f32 schemes, folding
+// the neighbour gather into the element window): stage_core.cuh's head.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ops/build.py does this at first use).
@@ -65,6 +61,7 @@ template <typename T, int DIM>
 struct Args {
   CoreArgs<T> c;
   PolyGeom<T, DIM> g;
+  CoreLayout L;
   const T* smin;    // [ncls, E] class-major bounds stencil
   const T* smax;
   const int* cls;   // [nd]
@@ -72,104 +69,109 @@ struct Args {
   T dt;
 };
 
-template <typename T, int DIM>
-size_t smem_bytes(int nd, int Q, int Qf, int nf, int fd) {
-  constexpr int TE = Tile<T, DIM>::TE;
-  const int ncls = DIM == 3 ? 27 : 9;
-  const size_t n = core_smem_len(DIM, nd, Q, Qf, nf, fd) + nd + 2 * ncls + 4;
-  return n * TE * sizeof(T);
-}
-
-template <typename T, int DIM>
-__global__ void __launch_bounds__(NT, Tile<T, DIM>::MINB)
-mega_stage_kernel(const Args<T, DIM> a) {
-  constexpr int TE = Tile<T, DIM>::TE;
+template <typename T, int DIM, int DT, int QT>
+__global__ void __launch_bounds__(NT, min_blocks<T>())
+mega_stage_kernel(const __grid_constant__ Args<T, DIM> a) {
   constexpr int NCLS = DIM == 3 ? 27 : 9;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-
-  const int nd = a.c.nd, Q = a.c.Q;
-  const CoreSmem<T> s =
-      core_smem<T, DIM, TE>(sm, nd, Q, a.c.nf * a.c.Qf, a.c.nf * a.c.fd);
-  T* s_ml = s.end;                 // [nd][TE]
-  T* s_min = s_ml + nd * TE;       // [NCLS][TE]
-  T* s_max = s_min + NCLS * TE;
-  T* s_red = s_max + NCLS * TE;    // [4][TE]: mass, vol, sum_neg, sum_pos
-
+  const CoreLayout& L = a.L;
+  const int te = a.c.te, nd = a.c.nd, E = a.c.E;
+  T* s_min = sm + L.end;           // [te][NCLS]
+  T* s_max = s_min + te * NCLS;
+  T* s_red = s_max + te * NCLS;    // [4][te]: mass, vol, sum_neg, sum_pos
+  const T* s_u = sm + L.u;
+  const T* s_ml = sm + L.ml;
+  T* s_f = sm + L.b;               // free after the core: the flux
+  T* s_lo = sm + L.x;              // and du_LO
   const int tid = threadIdx.x;
-  const int e_base = blockIdx.x * TE;
-  const int ne = min(TE, a.c.E - e_base);
   const T dt = a.dt;
 
-  // the tile's bounds stencil (the core's first barrier covers it)
-  for (int idx = tid; idx < NCLS * TE; idx += NT) {
-    const int c = idx / TE, e = idx % TE;
-    const size_t g = (size_t)c * a.c.E + e_base + e;
-    s_min[idx] = e < ne ? a.smin[g] : T(0);
-    s_max[idx] = e < ne ? a.smax[g] : T(0);
+  load_tables(a.c, sm, L);
+  const int ntiles = (E + te - 1) / te;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int e_base = tile * te;
+    const int ne = min(te, E - e_base);
+
+    // the tile's bounds stencil (the core's first barrier covers it)
+    for (int idx = tid; idx < NCLS * te; idx += NT) {
+      const int c = idx / te, e = idx - c * te;
+      const size_t g = (size_t)c * E + e_base + e;
+      s_min[e * NCLS + c] = e < ne ? a.smin[g] : T(0);
+      s_max[e * NCLS + c] = e < ne ? a.smax[g] : T(0);
+    }
+
+    // 1-4. du_HO and ml = wdet Bu (stage_core.cuh)
+    const T* s_du = stage_core<T, DIM, DT, QT>(a.c, a.g, sm, L, e_base, ne);
+    __syncthreads();
+
+    // 5. element mass and volume of the HO update, in the ml metric
+    element_sums<T>(te, nd, [&](int j, int e) {
+      const int i = e * nd + j;
+      return s_ml[i] * (s_u[i] + dt * s_du[i]);
+    }, s_red);
+    element_sums<T>(te, nd, [&](int j, int e) { return s_ml[e * nd + j]; },
+                    s_red + te);
+    __syncthreads();
+
+    // MassBasedAvg LO and the clipped antidiffusive flux
+    for (int i = tid; i < te * nd; i += NT) {
+      const int e = i / nd, j = i - e * nd;
+      const T u = s_u[i], ml = s_ml[i];
+      const T du_lo = (s_red[e] / s_red[te + e] - u) / dt;
+      const int c = __ldg(a.cls + j);
+      const T u_new_lo = u + dt * du_lo;
+      const T f_min = ml / dt * (s_min[e * NCLS + c] - u_new_lo);
+      const T f_max = ml / dt * (s_max[e * NCLS + c] - u_new_lo);
+      const T f = ml * (s_du[i] - du_lo);
+      const T f_lo = f_min > f ? f_min : f;          // max(f_min, f)
+      s_f[i] = f_max < f_lo ? f_max : f_lo;          // min(f_max, .)
+      s_lo[i] = du_lo;
+    }
+    __syncthreads();
+
+    // 6. ClipScale: rescale the flux so that its mass sum is zero
+    element_sums<T>(te, nd, [&](int j, int e) {
+      const T f = s_f[e * nd + j];
+      return f < T(0) ? f : T(0);
+    }, s_red + 2 * te);
+    element_sums<T>(te, nd, [&](int j, int e) {
+      const T f = s_f[e * nd + j];
+      return f > T(0) ? f : T(0);
+    }, s_red + 3 * te);
+    __syncthreads();
+    const T eps = T(1e-15);
+    T* out = a.du + (size_t)e_base * nd;
+    for (int i = tid; i < ne * nd; i += NT) {
+      const int e = i / nd;
+      const T sum_neg = s_red[2 * te + e], sum_pos = s_red[3 * te + e];
+      const T new_mass = sum_neg + sum_pos;
+      T f = s_f[i];
+      const T fpos = f > T(0) ? f : T(0), fneg = f < T(0) ? f : T(0);
+      if (new_mass > eps) f = fneg - fpos * (sum_neg / sum_pos);
+      else if (new_mass < -eps) f = fpos - fneg * (sum_pos / sum_neg);
+      out[i] = s_lo[i] + f / s_ml[i];
+    }
+    __syncthreads();     // the next tile reuses the shared arrays
   }
+}
 
-  // 1-4. du_HO (stage_core.cuh), and the lumped mass ml = wdet Bu
-  T* s_du = stage_core<T, DIM, TE>(a.c, a.g, s, e_base, ne);
-  contract<T, TE>(s.wdet, Q, a.c.Bu, nd, s_ml);
-  __syncthreads();
-
-  // 5. element mass and volume of the HO update, in the ml metric
-  lo_element_sums<T, TE>(s.u, s_du, s_ml, dt, nd, s_red);
-  __syncthreads();
-
-  // MassBasedAvg LO and the clipped antidiffusive flux (s.ku and s.b are
-  // free after the core: they take the flux and du_LO)
-  for (int idx = tid; idx < nd * TE; idx += NT) {
-    const int j = idx / TE, e = idx % TE;
-    const T u = s.u[idx], ml = s_ml[idx];
-    const T du_lo = (s_red[e] / s_red[TE + e] - u) / dt;
-    const int c = __ldg(a.cls + j);
-    const T u_new_lo = u + dt * du_lo;
-    const T f_min = ml / dt * (s_min[c * TE + e] - u_new_lo);
-    const T f_max = ml / dt * (s_max[c * TE + e] - u_new_lo);
-    const T f = ml * (s_du[idx] - du_lo);
-    const T f_lo = f_min > f ? f_min : f;          // max(f_min, f)
-    s.ku[idx] = f_max < f_lo ? f_max : f_lo;       // min(f_max, .)
-    s.b[idx] = du_lo;
-  }
-  __syncthreads();
-
-  // 6. ClipScale: rescale the flux so that its mass sum is zero
-  element_sum<T, TE>(
-      nd,
-      [&](int j, int e) {
-        const T f = s.ku[j * TE + e];
-        return f < T(0) ? f : T(0);
-      },
-      s_red + 2 * TE);
-  element_sum<T, TE>(
-      nd,
-      [&](int j, int e) {
-        const T f = s.ku[j * TE + e];
-        return f > T(0) ? f : T(0);
-      },
-      s_red + 3 * TE);
-  __syncthreads();
-  const T eps = T(1e-15);
-  for (int idx = tid; idx < TE * nd; idx += NT) {
-    const int e = idx / nd, j = idx % nd;
-    if (e >= ne) continue;
-    const int sl = j * TE + e;
-    const T sum_neg = s_red[2 * TE + e], sum_pos = s_red[3 * TE + e];
-    const T new_mass = sum_neg + sum_pos;
-    T f = s.ku[sl];
-    const T fpos = f > T(0) ? f : T(0), fneg = f < T(0) ? f : T(0);
-    if (new_mass > eps) f = fneg - fpos * (sum_neg / sum_pos);
-    else if (new_mass < -eps) f = fpos - fneg * (sum_pos / sum_neg);
-    a.du[(size_t)(e_base + e) * nd + j] = s.b[sl] + f / s_ml[sl];
-  }
+template <typename T, int DIM, int DT, int QT>
+int launch_sized(const Args<T, DIM>& a, size_t smem, cudaStream_t stream) {
+  const void* fn = reinterpret_cast<const void*>(
+      &mega_stage_kernel<T, DIM, DT, QT>);
+  int grid = 0;
+  const int rc = persistent_grid(fn, smem, (a.c.E + a.c.te - 1) / a.c.te,
+                                 &grid);
+  if (rc != 0) return rc;
+  mega_stage_kernel<T, DIM, DT, QT><<<grid, NT, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int DIM>
 int launch(const void* const* p, double t, double dt, const int* sz,
            cudaStream_t stream) {
-  constexpr int TE = Tile<T, DIM>::TE;
+  constexpr int NCLS = DIM == 3 ? 27 : 9;
   Args<T, DIM> a;
   fill_core_args(a.c, p, sz);
   a.g = poly_geom<T, DIM>(p, t, sz);
@@ -180,25 +182,29 @@ int launch(const void* const* p, double t, double dt, const int* sz,
   a.dt = static_cast<T>(dt);
   if (a.c.E <= 0) return 0;
   if (a.c.n_cg < 1) return -4;   // the limited stage needs the mass inverse
-  const size_t smem =
-      smem_bytes<T, DIM>(a.c.nd, a.c.Q, a.c.Qf, a.c.nf, a.c.fd);
-  if (smem > 227 * 1024) return -3;
-  cudaError_t err = cudaFuncSetAttribute(
-      mega_stage_kernel<T, DIM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (a.c.E + TE - 1) / TE;
-  mega_stage_kernel<T, DIM><<<blocks, NT, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  int rc = check_core_sizes(DIM, sz);
+  if (rc != 0) return rc;
+  a.c.need_ml = 1;
+  size_t smem = 0;
+  a.c.te = tile_elements(DIM, a.c.D, a.c.Q1, a.c.nf, sizeof(T), 2 * NCLS,
+                         &a.L, &smem);
+  smem += 4 * a.c.te * sizeof(T);    // s_red
+  if (smem > SMEM_MAX) return -3;
+  switch (size_case(DIM, a.c.D, a.c.Q1)) {
+    case 3: return launch_sized<T, DIM, 3, 3 + (DIM == 3 ? 2 : 1)>(a, smem, stream);
+    case 4: return launch_sized<T, DIM, 4, 4 + (DIM == 3 ? 2 : 1)>(a, smem, stream);
+    case 5: return launch_sized<T, DIM, 5, 5 + (DIM == 3 ? 2 : 1)>(a, smem, stream);
+    default: return launch_sized<T, DIM, 0, 0>(a, smem, stream);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// ptrs: the core's 15 device pointers in CoreArgs order, then smin, smax,
-// cls, du; sizes: E, nd, Q, Qf, nf, fd, n_cg. Returns 0, a CUDA error code
-// (> 0), or < 0 for a bad argument.
+// ptrs: the core's 6 device pointers (u, u_nbr, P, sf, bdr, dof_faces), then
+// smin, smax, cls, du; sizes: E, nd, Q, Qf, nf, fd, n_cg, D, Q1. Returns 0,
+// a CUDA error code (> 0), or < 0 for a bad argument.
 int remhos_mega_stage(int dtype_bytes, int dim, const void* const* ptrs,
                       int nptrs, double t, double dt, const int* sizes,
                       int nsizes, void* stream) {

@@ -23,10 +23,10 @@
 // What bounds it on the H100: bytes. At N=24, p=3, f32 with LO it reads P
 // (191 MB), u and u_nbr (9 MB) and writes du_HO, wdet and du_LO (19 MB),
 // about 219 MB, ~65 us at 3.35 TB/s, against ~10 us of sum-factorized
-// arithmetic. The design is the mega stage kernel's (one block per tile of TE
-// elements, per-element vectors in shared memory, dense table contractions
-// in plain FMA, no TF32): right and simple first. No 128-lane padding and no
-// bf16x3 split: those are TPU devices.
+// arithmetic. The design is the mega stage kernel's: the sum-factorized
+// core of stage_core.cuh (its head comment), persistent blocks over tiles of
+// te elements, plain FMA in the working type, no TF32. No 128-lane padding
+// and no bf16x3 split: those are TPU devices.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ops/build.py does this at first use).
@@ -41,66 +41,75 @@ template <typename T, int DIM>
 struct Args {
   CoreArgs<T> c;
   PolyGeom<T, DIM> g;
+  CoreLayout L;
   T* du_ho;    // [E, nd] out
   T* wdet;     // [E, Q] out
   T* du_lo;    // [E, nd] out, nullptr without LO
   T dt;
 };
 
-template <typename T, int DIM>
-size_t smem_bytes(int nd, int Q, int Qf, int nf, int fd) {
-  constexpr int TE = Tile<T, DIM>::TE;
-  const size_t n = core_smem_len(DIM, nd, Q, Qf, nf, fd) + nd + 2;
-  return n * TE * sizeof(T);
-}
-
-template <typename T, int DIM>
-__global__ void __launch_bounds__(NT, Tile<T, DIM>::MINB)
-stage_ho_kernel(const Args<T, DIM> a) {
-  constexpr int TE = Tile<T, DIM>::TE;
+template <typename T, int DIM, int DT, int QT>
+__global__ void __launch_bounds__(NT, min_blocks<T>())
+stage_ho_kernel(const __grid_constant__ Args<T, DIM> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-
-  const int nd = a.c.nd, Q = a.c.Q;
-  const CoreSmem<T> s =
-      core_smem<T, DIM, TE>(sm, nd, Q, a.c.nf * a.c.Qf, a.c.nf * a.c.fd);
-  T* s_ml = s.end;               // [nd][TE]
-  T* s_red = s_ml + nd * TE;     // [2][TE]: mass, vol
-
+  const CoreLayout& L = a.L;
+  const int te = a.c.te, nd = a.c.nd, Q = a.c.Q, E = a.c.E;
+  T* s_red = sm + L.end;           // [2][te]: mass, vol
+  const T* s_u = sm + L.u;
+  const T* s_ml = sm + L.ml;
+  const T* s_w = sm + L.wdet;
   const int tid = threadIdx.x;
-  const int e_base = blockIdx.x * TE;
-  const int ne = min(TE, a.c.E - e_base);
   const bool with_lo = a.du_lo != nullptr;
   const bool avg = with_lo && a.c.n_cg != 0;
 
-  T* s_res = stage_core<T, DIM, TE>(a.c, a.g, s, e_base, ne);
-  if (avg) contract<T, TE>(s.wdet, Q, a.c.Bu, nd, s_ml);
-  __syncthreads();
-  if (avg) {
-    lo_element_sums<T, TE>(s.u, s_res, s_ml, a.dt, nd, s_red);
+  load_tables(a.c, sm, L);
+  const int ntiles = (E + te - 1) / te;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int e_base = tile * te;
+    const int ne = min(te, E - e_base);
+    const T* s_res = stage_core<T, DIM, DT, QT>(a.c, a.g, sm, L, e_base, ne);
     __syncthreads();
+    if (avg) {
+      element_sums<T>(te, nd, [&](int j, int e) {
+        const int i = e * nd + j;
+        return s_ml[i] * (s_u[i] + a.dt * s_res[i]);
+      }, s_red);
+      element_sums<T>(te, nd, [&](int j, int e) { return s_ml[e * nd + j]; },
+                      s_red + te);
+      __syncthreads();
+    }
+    const size_t g0 = (size_t)e_base * nd;
+    for (int i = tid; i < ne * nd; i += NT) {
+      const T r = s_res[i];
+      a.du_ho[g0 + i] = r;
+      if (with_lo) {
+        const int e = i / nd;
+        a.du_lo[g0 + i] =
+            avg ? (s_red[e] / s_red[te + e] - s_u[i]) / a.dt : r;
+      }
+    }
+    const size_t w0 = (size_t)e_base * Q;
+    for (int i = tid; i < ne * Q; i += NT) a.wdet[w0 + i] = s_w[i];
+    __syncthreads();     // the next tile reuses the shared arrays
   }
+}
 
-  for (int idx = tid; idx < TE * nd; idx += NT) {
-    const int e = idx / nd, j = idx % nd;
-    if (e >= ne) continue;
-    const size_t g = (size_t)(e_base + e) * nd + j;
-    const T r = s_res[j * TE + e];
-    a.du_ho[g] = r;
-    if (with_lo)
-      a.du_lo[g] = avg ? (s_red[e] / s_red[TE + e] - s.u[j * TE + e]) / a.dt
-                       : r;
-  }
-  for (int idx = tid; idx < TE * Q; idx += NT) {
-    const int e = idx / Q, q = idx % Q;
-    if (e < ne) a.wdet[(size_t)(e_base + e) * Q + q] = s.wdet[q * TE + e];
-  }
+template <typename T, int DIM, int DT, int QT>
+int launch_sized(const Args<T, DIM>& a, size_t smem, cudaStream_t stream) {
+  const void* fn = reinterpret_cast<const void*>(
+      &stage_ho_kernel<T, DIM, DT, QT>);
+  int grid = 0;
+  const int rc = persistent_grid(fn, smem, (a.c.E + a.c.te - 1) / a.c.te,
+                                 &grid);
+  if (rc != 0) return rc;
+  stage_ho_kernel<T, DIM, DT, QT><<<grid, NT, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int DIM>
 int launch(const void* const* p, double t, double dt, const int* sz,
            cudaStream_t stream) {
-  constexpr int TE = Tile<T, DIM>::TE;
   Args<T, DIM> a;
   fill_core_args(a.c, p, sz);
   a.g = poly_geom<T, DIM>(p, t, sz);
@@ -110,26 +119,30 @@ int launch(const void* const* p, double t, double dt, const int* sz,
   a.dt = static_cast<T>(dt);
   if (a.c.E <= 0) return 0;
   if (a.c.n_cg < 0) return -4;
-  const size_t smem =
-      smem_bytes<T, DIM>(a.c.nd, a.c.Q, a.c.Qf, a.c.nf, a.c.fd);
-  if (smem > 227 * 1024) return -3;
-  cudaError_t err = cudaFuncSetAttribute(
-      stage_ho_kernel<T, DIM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (a.c.E + TE - 1) / TE;
-  stage_ho_kernel<T, DIM><<<blocks, NT, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  int rc = check_core_sizes(DIM, sz);
+  if (rc != 0) return rc;
+  a.c.need_ml = a.du_lo != nullptr && a.c.n_cg != 0;
+  size_t smem = 0;
+  a.c.te = tile_elements(DIM, a.c.D, a.c.Q1, a.c.nf, sizeof(T), 0, &a.L,
+                         &smem);
+  smem += 2 * a.c.te * sizeof(T);    // s_red
+  if (smem > SMEM_MAX) return -3;
+  switch (size_case(DIM, a.c.D, a.c.Q1)) {
+    case 3: return launch_sized<T, DIM, 3, 3 + (DIM == 3 ? 2 : 1)>(a, smem, stream);
+    case 4: return launch_sized<T, DIM, 4, 4 + (DIM == 3 ? 2 : 1)>(a, smem, stream);
+    case 5: return launch_sized<T, DIM, 5, 5 + (DIM == 3 ? 2 : 1)>(a, smem, stream);
+    default: return launch_sized<T, DIM, 0, 0>(a, smem, stream);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// ptrs: the core's 15 device pointers in CoreArgs order, then du_ho, wdet
-// and du_lo (null for no LO output); sizes: E, nd, Q, Qf, nf, fd, n_cg.
-// dt is read only with an LO output. Returns 0, a CUDA error code (> 0), or
-// < 0 for a bad argument.
+// ptrs: the core's 6 device pointers (u, u_nbr, P, sf, bdr, dof_faces), then
+// du_ho, wdet and du_lo (null for no LO output); sizes: E, nd, Q, Qf, nf,
+// fd, n_cg, D, Q1. dt is read only with an LO output. Returns 0, a CUDA
+// error code (> 0), or < 0 for a bad argument.
 int remhos_stage_ho(int dtype_bytes, int dim, const void* const* ptrs,
                     int nptrs, double t, double dt, const int* sizes,
                     int nsizes, void* stream) {

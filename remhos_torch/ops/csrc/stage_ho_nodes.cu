@@ -20,14 +20,13 @@
 // What bounds it on the H100: at N=24, mesh order 2, p=3 in f32 it reads xs
 // and v (4.5 MB each), u (3.5 MB) and u_nbr (5.3 MB) and writes du (3.5 MB)
 // and wdet (11.9 MB), ~33 MB, ~10 us at 3.35 TB/s. Its arithmetic at
-// sum-factorized size is of the same order (chip_smoke.py's cost model
-// decides which bounds). As written the geometry is dense per-point dots
-// over the nm nodes (geom_conv.cu's) and the contractions are the core's
-// dense table products: the arithmetic, not the bytes, sets this first
-// version's time. The design is the other stage kernels' (one block per tile
-// of TE elements, per-element vectors in shared memory, plain FMA in the
-// working type, no TF32); no 128-lane padding and no block-diagonal face
-// tables, which are TPU devices.
+// sum-factorized size is of the same order (remhos_torch/utils/cost.py
+// decides which bounds): the geometry is dense per-point dots over the nm
+// nodes (geom_conv.cu's), ~100 multiply-adds a point. The contractions are
+// the sum-factorized core of stage_core.cuh (its head comment), shared with
+// kernels 1 and 2; the blocks are persistent over tiles of te elements;
+// plain FMA in the working type, no TF32; no 128-lane padding and no
+// block-diagonal face tables, which are TPU devices.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ops/build.py does this at first use).
@@ -42,54 +41,57 @@ template <typename T, int DIM>
 struct Args {
   CoreArgs<T> c;
   NodeGeom<T, DIM> g;
+  CoreLayout L;
   T* du;       // [E, nd] out
   T* wdet;     // [E, Q] out
 };
 
-template <typename T, int DIM>
-size_t smem_bytes(int nd, int Q, int Qf, int nf, int fd, int nm) {
-  constexpr int TE = Tile<T, DIM>::TE;
-  const size_t n = core_smem_len(DIM, nd, Q, Qf, nf, fd) + 2 * (size_t)nm * DIM;
-  return n * TE * sizeof(T);
-}
-
-template <typename T, int DIM>
-__global__ void __launch_bounds__(NT, Tile<T, DIM>::MINB)
-stage_ho_nodes_kernel(const Args<T, DIM> a) {
-  constexpr int TE = Tile<T, DIM>::TE;
+template <typename T, int DIM, int DT, int QT>
+__global__ void __launch_bounds__(NT, min_blocks<T>())
+stage_ho_nodes_kernel(const __grid_constant__ Args<T, DIM> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-
-  const int nd = a.c.nd, Q = a.c.Q;
-  const CoreSmem<T> s =
-      core_smem<T, DIM, TE>(sm, nd, Q, a.c.nf * a.c.Qf, a.c.nf * a.c.fd);
+  const CoreLayout& L = a.L;
+  const int te = a.c.te, nd = a.c.nd, Q = a.c.Q, E = a.c.E;
   NodeGeom<T, DIM> g = a.g;
-  g.s_x = s.end;                         // [TE][nm*DIM]
-  g.s_v = g.s_x + TE * g.nm * DIM;
-
+  g.s_x = sm + L.end;                    // [te][nm*DIM]
+  g.s_v = g.s_x + te * g.nm * DIM;
+  const T* s_w = sm + L.wdet;
   const int tid = threadIdx.x;
-  const int e_base = blockIdx.x * TE;
-  const int ne = min(TE, a.c.E - e_base);
 
-  T* s_res = stage_core<T, DIM, TE>(a.c, g, s, e_base, ne);
-  __syncthreads();
-  for (int idx = tid; idx < TE * nd; idx += NT) {
-    const int e = idx / nd, j = idx % nd;
-    if (e < ne) a.du[(size_t)(e_base + e) * nd + j] = s_res[j * TE + e];
+  load_tables(a.c, sm, L);
+  const int ntiles = (E + te - 1) / te;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int e_base = tile * te;
+    const int ne = min(te, E - e_base);
+    const T* s_res = stage_core<T, DIM, DT, QT>(a.c, g, sm, L, e_base, ne);
+    __syncthreads();
+    const size_t g0 = (size_t)e_base * nd;
+    for (int i = tid; i < ne * nd; i += NT) a.du[g0 + i] = s_res[i];
+    const size_t w0 = (size_t)e_base * Q;
+    for (int i = tid; i < ne * Q; i += NT) a.wdet[w0 + i] = s_w[i];
+    __syncthreads();     // the next tile reuses the shared arrays
   }
-  for (int idx = tid; idx < TE * Q; idx += NT) {
-    const int e = idx / Q, q = idx % Q;
-    if (e < ne) a.wdet[(size_t)(e_base + e) * Q + q] = s.wdet[q * TE + e];
-  }
+}
+
+template <typename T, int DIM, int DT, int QT>
+int launch_sized(const Args<T, DIM>& a, size_t smem, cudaStream_t stream) {
+  const void* fn = reinterpret_cast<const void*>(
+      &stage_ho_nodes_kernel<T, DIM, DT, QT>);
+  int grid = 0;
+  const int rc = persistent_grid(fn, smem, (a.c.E + a.c.te - 1) / a.c.te,
+                                 &grid);
+  if (rc != 0) return rc;
+  stage_ho_nodes_kernel<T, DIM, DT, QT><<<grid, NT, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int DIM>
 int launch(const void* const* p, double mode, const int* sz,
            cudaStream_t stream) {
-  constexpr int TE = Tile<T, DIM>::TE;
   Args<T, DIM> a;
   fill_core_args(a.c, p, sz);
-  a.c.with_face = sz[8];
+  a.c.with_face = sz[10];
   const void* const* q = p + N_CORE_PTRS;
   NodeGeom<T, DIM>& g = a.g;
   g.xs = static_cast<const T*>(q[0]);
@@ -102,7 +104,7 @@ int launch(const void* const* p, double mode, const int* sz,
   g.w_q = static_cast<const T*>(q[7]);
   g.s_x = g.s_v = nullptr;
   g.mode = static_cast<T>(mode);
-  g.nm = sz[7];
+  g.nm = sz[9];
   g.Q = a.c.Q;
   g.FQ = a.c.nf * a.c.Qf;
   a.du = static_cast<T*>(const_cast<void*>(q[8]));
@@ -110,26 +112,28 @@ int launch(const void* const* p, double mode, const int* sz,
   if (a.c.E <= 0) return 0;
   if (a.c.n_cg < 0) return -4;
   if (DIM == 3 && g.GT2 == nullptr) return -5;
-  const size_t smem = smem_bytes<T, DIM>(a.c.nd, a.c.Q, a.c.Qf, a.c.nf,
-                                         a.c.fd, g.nm);
-  if (smem > 227 * 1024) return -3;
-  cudaError_t err = cudaFuncSetAttribute(
-      stage_ho_nodes_kernel<T, DIM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (a.c.E + TE - 1) / TE;
-  stage_ho_nodes_kernel<T, DIM><<<blocks, NT, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  int rc = check_core_sizes(DIM, sz);
+  if (rc != 0) return rc;
+  size_t smem = 0;
+  a.c.te = tile_elements(DIM, a.c.D, a.c.Q1, a.c.nf, sizeof(T),
+                         2 * g.nm * DIM, &a.L, &smem);
+  if (smem > SMEM_MAX) return -3;
+  switch (size_case(DIM, a.c.D, a.c.Q1)) {
+    case 3: return launch_sized<T, DIM, 3, 3 + (DIM == 3 ? 2 : 1)>(a, smem, stream);
+    case 4: return launch_sized<T, DIM, 4, 4 + (DIM == 3 ? 2 : 1)>(a, smem, stream);
+    case 5: return launch_sized<T, DIM, 5, 5 + (DIM == 3 ? 2 : 1)>(a, smem, stream);
+    default: return launch_sized<T, DIM, 0, 0>(a, smem, stream);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// ptrs: the core's 15 device pointers in CoreArgs order (slot 2, P, unused:
-// null), then xs, v, GmT, BmT, GT1, GT2 (null in 2D), BmfT, w_q, du, wdet;
-// sizes: E, nd, Q, Qf, nf, fd, n_cg, nm, with_face; mode is +1 or -1.
-// Returns 0, a CUDA error code (> 0), or < 0 for a bad argument.
+// ptrs: the core's 6 device pointers (u, u_nbr, P (unused: null), sf, bdr,
+// dof_faces), then xs, v, GmT, BmT, GT1, GT2 (null in 2D), BmfT, w_q, du,
+// wdet; sizes: E, nd, Q, Qf, nf, fd, n_cg, D, Q1, nm, with_face; mode is +1
+// or -1. Returns 0, a CUDA error code (> 0), or < 0 for a bad argument.
 int remhos_stage_ho_nodes(int dtype_bytes, int dim, const void* const* ptrs,
                           int nptrs, double mode, const int* sizes,
                           int nsizes, void* stream) {

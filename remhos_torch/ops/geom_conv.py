@@ -109,13 +109,11 @@ def geom_conv(xs, v, u, tables, sign):
     Ku = torch.empty((E, nd), dtype=xs.dtype, device=xs.device)
     wdet = torch.empty((E, Q), dtype=xs.dtype, device=xs.device)
     lib = build.bind(build.load("geom_conv"), "remhos_geom_conv", ARGTYPES)
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream(xs.device).cuda_stream
-        rc = lib.remhos_geom_conv(
-            xs.element_size(), dim, xs.data_ptr(), v.data_ptr(),
-            u.data_ptr(), *[tables[k].data_ptr() for k in KERNEL_TABLES],
-            float(sign), Ku.data_ptr(), wdet.data_ptr(), E, nm, nd, Q,
-            stream)
+    rc = build.call_on(
+        xs.device, lib.remhos_geom_conv, xs.element_size(), dim,
+        xs.data_ptr(), v.data_ptr(), u.data_ptr(),
+        *[tables[k].data_ptr() for k in KERNEL_TABLES], float(sign),
+        Ku.data_ptr(), wdet.data_ptr(), E, nm, nd, Q)
     build.check(lib, rc, "geom_conv")
     geom_conv.launches += 1
     return Ku, wdet

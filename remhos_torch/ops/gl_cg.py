@@ -86,10 +86,11 @@ def gl_cg(rhs, wdet, tables, rel_tol=None, n_iter=16):
         rel_tol = default_rel_tol(rhs.dtype)
     E, nd = rhs.shape
     Q = tables["Bgl"].shape[0]
-    shapes = dict(wdet=(E, Q), A=(nd, nd), AT=(nd, nd), BglT=(nd, Q),
-                  Bgl=(Q, nd), Bgl2=(Q, nd))
-    ops = dict(u=rhs, wdet=wdet, **{k: tables[k] for k in TABLES})
-    core.check_operands("gl_cg", ops, dict(u=(E, nd), **shapes), ())
+    if nd != tables["nd"]:
+        raise ValueError(f"rhs must be [E, {tables['nd']}], got "
+                         f"{tuple(rhs.shape)}")
+    core.check_operands("gl_cg", ("rhs", "wdet"), (rhs, wdet),
+                        ((E, nd), (E, Q)), tables)
     if rhs.device.type == "cpu":
         return gl_cg_reference(rhs, wdet, tables, rel_tol, n_iter)
     out = torch.empty_like(rhs)
@@ -97,10 +98,8 @@ def gl_cg(rhs, wdet, tables, rel_tol=None, n_iter=16):
     ptrs = (ctypes.c_void_p * 8)(*[x.data_ptr() for x in tensors])
     sizes = (ctypes.c_int * 4)(E, nd, Q, n_iter)
     lib = build.bind(build.load("gl_cg"), "remhos_gl_cg", ARGTYPES)
-    with torch.cuda.device(rhs.device):
-        stream = torch.cuda.current_stream(rhs.device).cuda_stream
-        rc = lib.remhos_gl_cg(rhs.element_size(), ptrs, 8,
-                              float(rel_tol) ** 2, sizes, 4, stream)
+    rc = build.call_on(rhs.device, lib.remhos_gl_cg, rhs.element_size(),
+                       ptrs, 8, float(rel_tol) ** 2, sizes, 4)
     build.check(lib, rc, "gl_cg")
     gl_cg.launches += 1
     return out

@@ -18,13 +18,13 @@ from __future__ import annotations
 import torch
 
 from .. import fct, lo
-from . import build
 from . import stage_core as core
 from .stage_core import default_sweeps  # noqa: F401  (part of this API)
 
-# pointer order of Args in csrc/mega_stage.cu
-OPERANDS = core.CORE_OPERANDS + ("smin", "smax", "cls")
-INT_TABLES = core.INT_TABLES + ("cls",)
+# pointer order of Args in csrc/mega_stage.cu: the core's, then these
+OPERANDS = core.CORE_OPERANDS + ("smin", "smax", "cls", "du")
+STATIC = ("sf", "bdr", "dof_faces", "cls")
+NAMES = ("u", "u_nbr", "P", "smin", "smax")       # the per-call operands
 
 
 def mega_stage_reference(t, dt, u, u_nbr, smin, smax, P, tables, n_cg):
@@ -45,30 +45,34 @@ def mega_stage_reference(t, dt, u, u_nbr, smin, smax, P, tables, n_cg):
 
 
 def _check(u, u_nbr, smin, smax, P, tables):
-    """Raise on a dtype, shape or device the kernel does not take."""
-    E, ncls = u.shape[0], 3 ** tables["dim"]
-    ops = dict(u=u, u_nbr=u_nbr, P=P, smin=smin, smax=smax,
-               **{k: tables[k] for k in core.FLOAT_TABLES + INT_TABLES})
-    shapes = dict(core.core_shapes(tables, E), smin=(ncls, E),
-                  smax=(ncls, E), cls=(tables["nd"],))
-    core.check_operands("mega_stage", ops, shapes, INT_TABLES)
-    return [ops[k] for k in OPERANDS]
+    """Raise on a dtype, shape or device the kernel does not take (the
+    static tables are checked once, where they are built)."""
+    E = u.shape[0]
+    key = ("mega_shapes", E)
+    shapes = tables.get(key)
+    if shapes is None:
+        ncls = 3 ** tables["dim"]
+        shapes = tables[key] = core.operand_shapes(tables, E) + (
+            (ncls, E), (ncls, E))
+    core.check_operands("mega_stage", NAMES, (u, u_nbr, P, smin, smax),
+                        shapes, tables)
 
 
 def mega_stage(t, dt, u, u_nbr, smin, smax, P, tables):
     """du_limited[E, nd] for one stage, with default_sweeps(u.dtype) Jacobi
     sweeps; see the module docstring."""
-    ops = _check(u, u_nbr, smin, smax, P, tables)
+    _check(u, u_nbr, smin, smax, P, tables)
     n_cg = default_sweeps(u.dtype)
     if u.device.type == "cpu":
         return mega_stage_reference(t, dt, u, u_nbr, smin, smax, P, tables,
                                     n_cg)
     du = torch.empty_like(u)
-    lib = build.bind(build.load("mega_stage"), "remhos_mega_stage",
-                     core.LAUNCH_ARGTYPES)
-    rc = core.launch(lib, "remhos_mega_stage", ops + [du], u, tables, t, dt,
-                     n_cg)
-    build.check(lib, rc, "mega_stage")
+    E = u.shape[0]
+    lau = core.Launcher.get("mega_stage", "remhos_mega_stage",
+                            core.LAUNCH_ARGTYPES, tables, OPERANDS, STATIC,
+                            core.core_sizes(tables, E, n_cg))
+    lau(u.device, (u.element_size(), tables["dim"]),
+        (u, u_nbr, P, smin, smax, du), (float(t), float(dt)), E, n_cg)
     mega_stage.launches += 1
     return du
 

@@ -1,10 +1,17 @@
 """What the stage kernels share on the Python side: the plain PyTorch
-version of their common core and the operand checks of their wrappers.
+version of their common core, the operand checks of their wrappers and
+their launch path.
 
 `poly_stage_core_reference` is the counterpart of `_poly_stage_core`
 (remhos_tpu/ops/pallas_kernels.py:578), as `csrc/stage_core.cuh` is on the
 CUDA side: the plain versions of `mega_stage` and `stage_ho` both call it,
 and `jacobi_gl_inverse`, its mass inverse, also serves `stage_ho_nodes`.
+
+The static tables are checked once, where `ops.tables` builds them
+(`tables.check_tables` records the check in the table dict); a wrapper
+checks per call only the operands that change between calls. `Launcher`
+keeps each library's pointer and size arrays per table dict, so a launch
+writes only the operands' pointers, E and n_cg.
 """
 
 from __future__ import annotations
@@ -13,13 +20,14 @@ import ctypes
 
 import torch
 
-from .tables import poly_layout
+from . import build
+from .tables import check_tables, poly_layout
 
-FLOAT_TABLES = ("GuT", "Buw", "Bface", "SBf", "A", "AT", "BglT", "Bgl",
-                "Bgl2", "Bu")
-INT_TABLES = ("bdr", "dof_faces")
-# pointer order of CoreArgs in csrc/stage_core.cuh
-CORE_OPERANDS = ("u", "u_nbr", "P") + FLOAT_TABLES + INT_TABLES
+# pointer order of CoreArgs in csrc/stage_core.cuh: the per-call operands,
+# then the static tables the kernels read (the packed 1D factors and the
+# face index tables)
+CORE_OPERANDS = ("u", "u_nbr", "P", "sf", "bdr", "dof_faces")
+# sizes of the C interface: E, then these, then n_cg, D, Q1
 SIZE_KEYS = ("nd", "Q", "Qf", "nf", "fd")
 
 LAUNCH_ARGTYPES = [
@@ -92,48 +100,98 @@ def jacobi_gl_inverse(Ku, wdet, tables, n_cg):
     return x @ tb["AT"]
 
 
-def core_shapes(tb, E):
-    """The shape the kernels index each core operand and table with."""
-    dim, nd, Q, Qf, nf, fd = (tb[k] for k in ("dim", "nd", "Q", "Qf", "nf",
-                                               "fd"))
-    return dict(u=(E, nd), u_nbr=(E, nf * fd),
-                P=(E, poly_layout(dim, Q, nf * Qf)["width"]),
-                GuT=(nd, dim * Q), Buw=(Q, nd), Bface=(Qf, fd), SBf=(Qf, fd),
-                A=(nd, nd), AT=(nd, nd), BglT=(nd, Q), Bgl=(Q, nd),
-                Bgl2=(Q, nd), Bu=(Q, nd), bdr=(nf, fd), dof_faces=(nd, dim))
+def operand_shapes(tb, E):
+    """The shapes the kernels index the per-call core operands u, u_nbr and
+    P with, made once per (table dict, E)."""
+    key = ("operand_shapes", E)
+    shapes = tb.get(key)
+    if shapes is None:
+        dim, nd, Q, Qf, nf, fd = (tb[k] for k in ("dim", "nd", "Q", "Qf",
+                                                   "nf", "fd"))
+        shapes = tb[key] = ((E, nd), (E, nf * fd),
+                            (E, poly_layout(dim, Q, nf * Qf)["width"]))
+    return shapes
 
 
-def check_operands(what, ops, shapes, int_names):
-    """Raise on a dtype, shape or device the kernels do not take. `ops` and
-    `shapes` are dicts by operand name; ops["u"] sets dtype and device."""
-    u = ops["u"]
+def check_operands(what, names, tensors, shapes, tables, key="checked"):
+    """Raise on a dtype, shape or device the kernels do not take. `names`,
+    `tensors` and `shapes` list the per-call operands, u first: u must be
+    float32 or float64, and every operand must have the shape given and the
+    dtype and device of the tables (checked once: `tables.check_tables`);
+    on the card, be contiguous."""
+    dtype, device = tables.get(key) or check_tables(tables)
+    cuda = device.type == "cuda"
+    for x, shape in zip(tensors, shapes):
+        if (x.shape != shape or x.dtype != dtype or x.device != device
+                or (cuda and not x.is_contiguous())):
+            _refuse(what, names, tensors, shapes, dtype, device)
+
+
+def _refuse(what, names, tensors, shapes, dtype, device):
+    """Raise the error of the first operand that fails the checks."""
+    u = tensors[0]
     if u.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{what} takes float32 or float64, got {u.dtype}")
     if u.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cuda or cpu, not {u.device}")
-    for name, shape in shapes.items():
-        x = ops[name]
-        want = torch.int32 if name in int_names else u.dtype
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
-        if x.dtype != want:
-            raise TypeError(f"{name} is {x.dtype}, must be {want}")
-        if x.device != u.device:
-            raise ValueError(f"{name} is on {x.device}, u on {u.device}")
-        if u.device.type == "cuda" and not x.is_contiguous():
+    for name, x, shape in zip(names, tensors, shapes):
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, got "
+                             f"{tuple(x.shape)}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} is {x.dtype}, must be {dtype}")
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, the tables on "
+                             f"{device}")
+        if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
-def launch(lib, fn, tensors, u, tables, t, dt, n_cg):
-    """Call a stage library's C entry `fn` on PyTorch's current stream with
-    `tensors` (None -> a null pointer) in the kernel's pointer order.
-    Returns the entry's return code."""
-    tb = tables
-    n = len(tensors)
-    ptrs = (ctypes.c_void_p * n)(*[None if x is None else x.data_ptr()
-                                   for x in tensors])
-    sizes = (ctypes.c_int * 7)(u.shape[0], *[tb[k] for k in SIZE_KEYS], n_cg)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        return getattr(lib, fn)(u.element_size(), tb["dim"], ptrs, n,
-                                float(t), float(dt), sizes, 7, stream)
+class Launcher:
+    """A stage library's C entry bound once per table dict: the pointer
+    array holds the static tables' pointers from the start, the size array
+    its fixed sizes; a launch writes the per-call pointers, E and n_cg and
+    calls the entry on PyTorch's current stream (`build.call_on`)."""
+
+    def __init__(self, name, entry, argtypes, tables, order, static, sizes):
+        if tables.get("sf") is None:
+            raise ValueError(f"{name}: the tables lack the 1D factors `sf` "
+                             "(ops.tables.stage_ho_tables builds them)")
+        lib = build.bind(build.load(name), entry, argtypes)
+        self.name, self.lib, self.fn = name, lib, getattr(lib, entry)
+        self.ptrs = (ctypes.c_void_p * len(order))()
+        self.dynamic = [i for i, k in enumerate(order) if k not in static]
+        for i, k in enumerate(order):
+            if k in static and tables.get(k) is not None:
+                self.ptrs[i] = tables[k].data_ptr()
+        self.sizes = (ctypes.c_int * len(sizes))(*sizes)
+        self.tables = tables            # keeps the static tensors alive
+
+    @classmethod
+    def get(cls, name, entry, argtypes, tables, order, static, sizes):
+        """The launcher of `entry` for this table dict, made at first use."""
+        key = ("launcher", entry)
+        lau = tables.get(key)
+        if lau is None:
+            lau = tables[key] = cls(name, entry, argtypes, tables, order,
+                                    static, sizes)
+        return lau
+
+    def __call__(self, device, head, tensors, tail, E, n_cg, *more):
+        """Launch with `tensors` in the dynamic slots (None -> null), E and
+        n_cg in size slots 0 and 6 and `more` from slot 9 on; the entry's
+        arguments are `head`, the pointer array, `tail`, the size array.
+        Raises on a nonzero return code."""
+        for i, x in zip(self.dynamic, tensors):
+            self.ptrs[i] = None if x is None else x.data_ptr()
+        self.sizes[0], self.sizes[6] = E, n_cg
+        for i, v in enumerate(more):
+            self.sizes[9 + i] = v
+        rc = build.call_on(device, self.fn, *head, self.ptrs, len(self.ptrs),
+                           *tail, self.sizes, len(self.sizes))
+        build.check(self.lib, rc, self.name)
+
+
+def core_sizes(tb, E, n_cg):
+    """The C interface's sizes: E, nd, Q, Qf, nf, fd, n_cg, D, Q1."""
+    return [E] + [tb[k] for k in SIZE_KEYS] + [n_cg, tb["D"], tb["Q1"]]

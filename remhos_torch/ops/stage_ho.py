@@ -20,9 +20,12 @@ from __future__ import annotations
 import torch
 
 from .. import lo
-from . import build
 from . import stage_core as core
 from .stage_core import default_sweeps
+
+# pointer order of Args in csrc/stage_ho.cu: the core's, then the outputs
+OPERANDS = core.CORE_OPERANDS + ("du", "wdet", "du_lo")
+NAMES = ("u", "u_nbr", "P")                        # the per-call operands
 
 
 def stage_ho_poly_reference(t, u, u_nbr, P, tables, n_cg, dt=None,
@@ -53,23 +56,22 @@ def stage_ho(t, u, u_nbr, P, tables, n_cg=None, dt=None, with_lo=False):
         raise ValueError(f"n_cg must be >= 0, got {n_cg}")
     if with_lo and dt is None:
         raise ValueError("with_lo needs the limiter dt")
-    names = core.CORE_OPERANDS
-    ops = dict(u=u, u_nbr=u_nbr, P=P, **{k: tables[k] for k in names[3:]})
-    core.check_operands("stage_ho", ops, core.core_shapes(tables, u.shape[0]),
-                        core.INT_TABLES)
+    E = u.shape[0]
+    core.check_operands("stage_ho", NAMES, (u, u_nbr, P),
+                        core.operand_shapes(tables, E), tables)
     if u.device.type == "cpu":
         return stage_ho_poly_reference(t, u, u_nbr, P, tables, n_cg, dt=dt,
                                        with_lo=with_lo)
     du = torch.empty_like(u)
-    wdet = torch.empty((u.shape[0], tables["Q"]), dtype=u.dtype,
-                       device=u.device)
+    wdet = torch.empty((E, tables["Q"]), dtype=u.dtype, device=u.device)
     du_lo = torch.empty_like(u) if with_lo else None
-    lib = build.bind(build.load("stage_ho"), "remhos_stage_ho",
-                     core.LAUNCH_ARGTYPES)
-    rc = core.launch(lib, "remhos_stage_ho",
-                     [ops[k] for k in names] + [du, wdet, du_lo], u, tables,
-                     t, 0.0 if dt is None else dt, n_cg)
-    build.check(lib, rc, "stage_ho")
+    lau = core.Launcher.get("stage_ho", "remhos_stage_ho",
+                            core.LAUNCH_ARGTYPES, tables, OPERANDS,
+                            core.CORE_OPERANDS[3:],
+                            core.core_sizes(tables, E, n_cg))
+    lau(u.device, (u.element_size(), tables["dim"]),
+        (u, u_nbr, P, du, wdet, du_lo),
+        (float(t), 0.0 if dt is None else float(dt)), E, n_cg)
     stage_ho.launches += 1
     return (du, wdet, du_lo) if with_lo else (du, wdet)
 

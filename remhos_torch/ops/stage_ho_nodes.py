@@ -32,17 +32,21 @@ import torch
 
 from .. import assembly as asm
 from .. import geometry as geo
-from . import build
 from . import stage_core as core
 from .geom_conv import geom_conv_reference, geom_conv_tables
 from .stage_core import default_sweeps
-from .tables import stage_ho_tables
+from .tables import check_tables, stage_ho_tables
 
 ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
             ctypes.c_int, ctypes.c_double, ctypes.POINTER(ctypes.c_int),
             ctypes.c_int, ctypes.c_void_p]
 # the kernel's geometry tables, after the core's operands
 GEOM_TABLES = ("GmT", "BmT", "GT1", "GT2", "BmfT", "w_q")
+# pointer order of Args in csrc/stage_ho_nodes.cu
+OPERANDS = (core.CORE_OPERANDS + ("xs", "v") + GEOM_TABLES
+            + ("du", "wdet"))
+# the record of the one-time check of the geometry tables
+CHECKED = "checked_nodes"
 
 
 def stage_ho_nodes_tables(disc, dtype, device):
@@ -78,7 +82,18 @@ def stage_ho_nodes_tables(disc, dtype, device):
               GT2=F(point_minor(Gt[..., 1])) if disc.dim == 3 else None,
               BmfT=F(point_minor(disc.Bmf)),
               face_tan=(F(Gt), F(sgn)), nm=nm)
+    check_tables(tb, geometry_shapes(tb), key=CHECKED)
     return tb
+
+
+def geometry_shapes(tb):
+    """The shapes of kernel 5's geometry tables."""
+    nm, dim, Q = tb["nm"], tb["dim"], tb["Q"]
+    FQ = tb["nf"] * tb["Qf"]
+    shapes = dict(GmT=(nm, dim, Q), BmT=(nm, Q), GT1=(nm, FQ), BmfT=(nm, FQ))
+    if dim == 3:
+        shapes["GT2"] = (nm, FQ)
+    return shapes
 
 
 def stage_ho_nodes_reference(xs, v, u, u_nbr, tables, *, mode, n_cg,
@@ -96,7 +111,7 @@ def stage_ho_nodes_reference(xs, v, u, u_nbr, tables, *, mode, n_cg,
     if with_face:
         nor = geo.face_normals_tangent(xs, *tb["face_tan"])   # [E, nf, Qf, dim]
         v_fq = geo.interp_nodes(v, tb["BmfT"].T).reshape(E, nf, Qf, dim)
-        up = (mode * torch.einsum("efqd,efqd->efq", v_fq, nor)).clamp(min=0.0)
+        up = (mode * (v_fq * nor).sum(-1)).clamp(min=0.0)
         bdr = tb["bdr"].long()
         Bface = tb["Bface"]
         flux = up * (u_nbr.reshape(E, nf, fd) @ Bface.T - u[:, bdr] @ Bface.T)
@@ -123,38 +138,23 @@ def stage_ho_nodes(xs, v, u, u_nbr, tables, *, mode, n_cg=None,
         raise ValueError(f"xs must be [E, nm, {tb['dim']}], got "
                          f"{tuple(xs.shape)}")
     E, nm, dim = xs.shape
-    names = [k for k in core.CORE_OPERANDS if k != "P"]
-    ops = dict(u=u, u_nbr=u_nbr, xs=xs, v=v,
-               **{k: tb[k] for k in names[2:] + list(GEOM_TABLES)
-                  if tb[k] is not None})
-    shapes = core.core_shapes(tb, E)
-    del shapes["P"]
-    FQ = tb["nf"] * tb["Qf"]
-    shapes.update(xs=(E, nm, dim), v=(E, nm, dim), GmT=(nm, dim, tb["Q"]),
-                  BmT=(nm, tb["Q"]), GT1=(nm, FQ), BmfT=(nm, FQ),
-                  w_q=(tb["Q"],))
-    if dim == 3:
-        shapes["GT2"] = (nm, FQ)
-    core.check_operands("stage_ho_nodes", ops, shapes, core.INT_TABLES)
+    if CHECKED not in tb:
+        check_tables(tb, geometry_shapes(tb), key=CHECKED)
+    shapes = core.operand_shapes(tb, E)[:2] + ((E, tb["nm"], dim),) * 2
+    core.check_operands("stage_ho_nodes", ("u", "u_nbr", "xs", "v"),
+                        (u, u_nbr, xs, v), shapes, tb, key=CHECKED)
     if u.device.type == "cpu":
         return stage_ho_nodes_reference(xs, v, u, u_nbr, tb, mode=mode,
                                         n_cg=n_cg, with_face=with_face)
     du = torch.empty_like(u)
     wdet = torch.empty((E, tb["Q"]), dtype=u.dtype, device=u.device)
-    tensors = ([None if k == "P" else ops[k] for k in core.CORE_OPERANDS]
-               + [xs, v] + [ops.get(k) for k in GEOM_TABLES] + [du, wdet])
-    ptrs = (ctypes.c_void_p * len(tensors))(
-        *[None if x is None else x.data_ptr() for x in tensors])
-    sizes = (ctypes.c_int * 9)(E, *[tb[k] for k in core.SIZE_KEYS], n_cg, nm,
-                               int(bool(with_face)))
-    lib = build.bind(build.load("stage_ho_nodes"), "remhos_stage_ho_nodes",
-                     ARGTYPES)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        rc = lib.remhos_stage_ho_nodes(u.element_size(), dim, ptrs,
-                                       len(tensors), float(mode), sizes, 9,
-                                       stream)
-    build.check(lib, rc, "stage_ho_nodes")
+    lau = core.Launcher.get(
+        "stage_ho_nodes", "remhos_stage_ho_nodes", ARGTYPES, tb, OPERANDS,
+        core.CORE_OPERANDS[3:] + GEOM_TABLES,
+        core.core_sizes(tb, E, n_cg) + [nm, 1])
+    lau(u.device, (u.element_size(), dim),
+        (u, u_nbr, None, xs, v, du, wdet), (float(mode),), E, n_cg, nm,
+        int(bool(with_face)))
     stage_ho_nodes.launches += 1
     return du, wdet
 

@@ -12,7 +12,11 @@ Counterparts of `stage_ho_tables` and `build_poly_tables` in
   each dof, and the stencil expansion is an index lookup.
 
 Every dense table is stored input-index-major ([K, L] for an L-long output
-contracted over K), which is the order the kernel reads it in.
+contracted over K). The plain versions contract with the dense tables; the
+stage kernels (kernels 1, 2 and 5) contract axis by axis with their 1D
+factors (`sum_factor_tables`): every dense table of the fused family is a
+Kronecker product of one 1D table per axis (axis 0 fastest), because the
+fused stage runs only on tensor-product elements.
 """
 
 from __future__ import annotations
@@ -20,7 +24,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import basis as B
 from .. import geometry as geo
+
+# order of the 1D tables in the packed `sf` block the stage kernels stage in
+# shared memory (csrc/stage_core.cuh reads them in this order)
+SF_TABLES = ("B1", "G1", "Bw1", "Bgl1", "Bgl21", "Bf1", "wBf1", "A1")
 
 
 def poly_layout(dim, Q, FQ):
@@ -65,8 +74,43 @@ def _dof_faces(bdr, nd, dim):
     return out
 
 
+def sum_factor_tables(disc):
+    """The 1D factors of the dense stage tables (host numpy, float64).
+
+    With D = p + 1 Bernstein functions and Q1 Gauss-Legendre points per
+    axis (the face rule has Q1 points per axis too):
+    B1, G1 [Q1, D]: Bernstein values and derivatives at the volume points
+    (Bu = B1 x ... x B1; Gu[..., b] has G1 on axis b); Bw1 = w1 B1 (Buw);
+    Bgl1 [Q1, D]: the GL nodal basis (Bgl), Bgl21 = Bgl1^2 (Bgl2); A1
+    [D, D]: the GL -> Bernstein map (A = A1 x ... x A1); Bf1 [Q1, D] and
+    wBf1 = w1 Bf1 at the face points (Bface, SBf over dim - 1 axes)."""
+    dim, nd = disc.dim, disc.nd
+    D = round(nd ** (1.0 / dim))
+    Q1 = round(len(disc.w_q) ** (1.0 / dim))
+    Qf = disc.Bface.shape[0]
+    if D ** dim != nd or Q1 ** dim != len(disc.w_q) or \
+            Q1 ** (dim - 1) != Qf:
+        raise ValueError("the stage kernels need tensor-product elements "
+                         "with one 1D rule on every axis")
+    p = D - 1
+    q1, w1 = B.gauss_legendre(Q1)
+    unodes = np.linspace(0.0, 1.0, D)
+    gl = B.gauss_legendre(D)[0]
+    B1 = B.bernstein_vals(p, q1)
+    Bgl1 = B.lagrange_vals(gl, q1)
+    return dict(
+        B1=B1, G1=B.bernstein_grads(p, q1), Bw1=w1[:, None] * B1,
+        Bgl1=Bgl1, Bgl21=Bgl1 * Bgl1, Bf1=B1, wBf1=w1[:, None] * B1,
+        A1=np.linalg.solve(B.bernstein_vals(p, unodes),
+                           B.lagrange_vals(gl, unodes)),
+        D=D, Q1=Q1)
+
+
 def stage_ho_tables(disc, dtype, device):
-    """Static tables of the mega stage (built once per Advection)."""
+    """Static tables of the stage kernels (built once per Advection): the
+    dense tables of the plain versions, the packed 1D factors `sf` the
+    kernels read (`sum_factor_tables`, in SF_TABLES order) and the sizes.
+    The tables are checked once here (`check_tables`)."""
     dim, nd, fd = disc.dim, disc.nd, disc.fd
     Q = len(disc.w_q)
     Qf = disc.Bface.shape[0]
@@ -86,7 +130,8 @@ def stage_ho_tables(disc, dtype, device):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
                                device=device)
 
-    return dict(
+    sf = sum_factor_tables(disc)
+    tb = dict(
         GuT=F(GuT),                                  # [nd, dim*Q]
         Buw=F(Bu * np.asarray(disc.w_q)[:, None]),   # [Q, nd]
         Bface=F(disc.Bface),                         # [Qf, fd]
@@ -97,7 +142,10 @@ def stage_ho_tables(disc, dtype, device):
         bdr=I(bdr),                                  # [nf, fd]
         dof_faces=I(_dof_faces(bdr, nd, dim)),       # [nd, dim]
         cls=I(class_of_dofs(nd, dim)),              # [nd]
-        dim=dim, nd=nd, Q=Q, Qf=Qf, nf=nf, fd=fd)
+        sf=F(np.concatenate([sf[k].ravel() for k in SF_TABLES])),
+        dim=dim, nd=nd, Q=Q, Qf=Qf, nf=nf, fd=fd, D=sf["D"], Q1=sf["Q1"])
+    check_tables(tb)
+    return tb
 
 
 def build_poly_tables(x0, v, disc):
@@ -199,3 +247,50 @@ def build_poly_tables(x0, v, disc):
     P = torch.cat(segs, dim=1)
     assert P.shape == (E, lay["width"])
     return P.contiguous()
+
+
+def table_shapes(tb, extra=()):
+    """The shape each static table must have: the dense tables, the packed
+    1D factors `sf` and the int tables (`extra`: more (name, shape) pairs,
+    e.g. kernel 5's geometry tables)."""
+    dim, nd, Q, Qf, nf, fd = (tb[k] for k in ("dim", "nd", "Q", "Qf", "nf",
+                                               "fd"))
+    shapes = dict(GuT=(nd, dim * Q), Buw=(Q, nd), Bface=(Qf, fd),
+                  SBf=(Qf, fd), A=(nd, nd), AT=(nd, nd), BglT=(nd, Q),
+                  Bgl=(Q, nd), Bgl2=(Q, nd), Bu=(Q, nd), w_q=(Q,),
+                  bdr=(nf, fd), dof_faces=(nd, dim), cls=(nd,))
+    if "sf" in tb:
+        D, Q1 = tb["D"], tb["Q1"]
+        shapes["sf"] = ((len(SF_TABLES) - 1) * Q1 * D + D * D,)
+    shapes.update(extra)
+    return shapes
+
+
+INT_NAMES = ("bdr", "dof_faces", "cls")
+
+
+def check_tables(tb, extra=(), key="checked"):
+    """Check the static tables once and record it: tb[key] = (dtype,
+    device). Every float table has the dtype of GuT (float32 or float64),
+    the int tables are int32, all on one device, contiguous, with the
+    shapes of `table_shapes`. Raises TypeError or ValueError as the
+    wrappers' operand checks do."""
+    dtype, device = tb["GuT"].dtype, tb["GuT"].device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the stage tables are {dtype}, not float32 or "
+                        "float64")
+    for name, shape in table_shapes(tb, extra).items():
+        x = tb[name]
+        if x is None:
+            continue
+        want = torch.int32 if name in INT_NAMES else dtype
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if x.dtype != want:
+            raise TypeError(f"{name} is {x.dtype}, must be {want}")
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, GuT on {device}")
+        if device.type == "cuda" and not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    tb[key] = (dtype, device)
+    return tb[key]

@@ -70,11 +70,9 @@ def wdet(xs, tables):
             raise ValueError(f"{name} must be contiguous")
     out = torch.empty((E, Q), dtype=xs.dtype, device=xs.device)
     lib = build.bind(build.load("wdet"), "remhos_wdet", ARGTYPES)
-    with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream(xs.device).cuda_stream
-        rc = lib.remhos_wdet(xs.element_size(), dim, xs.data_ptr(),
-                             GmT.data_ptr(), w_q.data_ptr(), out.data_ptr(),
-                             E, nm, Q, stream)
+    rc = build.call_on(xs.device, lib.remhos_wdet, xs.element_size(), dim,
+                       xs.data_ptr(), GmT.data_ptr(), w_q.data_ptr(),
+                       out.data_ptr(), E, nm, Q)
     build.check(lib, rc, "wdet")
     wdet.launches += 1
     return out

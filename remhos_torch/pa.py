@@ -31,8 +31,9 @@ def conv_action(u, va, Gu, Bu_w):
     Gu:   [Q, nd, dim] reference gradients
     Bu_w: [Q, nd]      w_q * Bu (test functions pre-weighted)
     """
-    du_q = torch.einsum("ej,qjb,eqb->eq", u, Gu, va)
-    return du_q @ Bu_w
+    Q, nd, dim = Gu.shape
+    grad = (u @ Gu.permute(1, 0, 2).reshape(nd, Q * dim)).reshape(-1, Q, dim)
+    return (grad * va).sum(-1) @ Bu_w
 
 
 def mass_action(u, wdet, Bu):
@@ -48,19 +49,19 @@ def lumped_mass_pa(wdet, Bu):
 def face_flux_q(u_face, u_nbr, Bface, wvn):
     """Upwind flux at the face points: [E, nf, Qf] = wvn * (u_nbr - u_own)_q,
     with wvn[E, nf, Qf] = -w_fq * vn_signed >= 0."""
-    return wvn * torch.einsum("efj,qj->efq", u_nbr - u_face, Bface)
+    return wvn * ((u_nbr - u_face) @ Bface.T)
 
 
 def face_full_apply(u_face, u_nbr, Bface, wvn):
     """Full (Galerkin) DG face contributions [E, nf, fd]."""
     fq = face_flux_q(u_face, u_nbr, Bface, wvn)
-    return torch.einsum("efq,qi->efi", fq, Bface)
+    return fq @ Bface
 
 
 def face_lumped_apply(u_face, u_nbr, Bface, wvn):
     """Lumped (alpha = 0) face contributions [E, nf, fd]: the row sums
     Bface^T wvn times (u_nbr_i - u_own_i)."""
-    row = torch.einsum("efq,qi->efi", wvn, Bface)
+    row = wvn @ Bface
     return row * (u_nbr - u_face)
 
 

@@ -76,8 +76,10 @@ def subcell_weights(adv, t):
     x0_sub, v_sub = adv._subcell_nodes
     sub2ind, Gc = adv._sub2ind, adv._q1_grads      # [ns, 2^d], [2^d, dim]
     corners = (x0_sub + t * v_sub)[:, sub2ind]      # [E, ns, 2^d, dim]
-    J_c = torch.einsum("esjd,jb->esdb", corners, Gc)
+    nc, dim = Gc.shape
+    J_c = (corners.transpose(-1, -2).reshape(-1, nc) @ Gc).reshape(
+        corners.shape[:2] + (dim, dim))             # one GEMM, not a bmm
     _, adj = det_adj(J_c)
     v_c = v_sub[:, sub2ind].mean(dim=2)             # [E, ns, dim]
-    av = torch.einsum("esd,esbd->esb", v_c, adj)    # adj J v (row form)
-    return torch.einsum("esb,jb->esj", av, Gc)
+    av = (v_c[:, :, None, :] * adj).sum(-1)        # adj J v (row form)
+    return av @ Gc.T

@@ -103,13 +103,12 @@ def main(device=None, n_inner=N_INNER):
 
     tables = shn.stage_ho_nodes_tables(disc, w, device)
     xs = x0 + 0.1 * v
-    nbr = torch.as_tensor(disc.dofmaps.nbr_dof_local, dtype=torch.int32,
-                          device=device)
+    lay = gn.GatherLayout(adv.shape, adv.periodic, disc.dofmaps.nbr_dof_local,
+                          device)
 
     unbr0 = adv.gather_nbr(u0).reshape(E, -1)
     line("gather_nbr     ", lambda u: adv.gather_nbr(u).reshape(E, -1)[:, :nd])
-    line("gather kernel  ",
-         lambda u: gn.gather_nbr(u, adv.shape, adv.periodic, nbr)[:, :nd])
+    line("gather kernel  ", lambda u: gn.gather_nbr(u, lay)[:, :nd])
 
     line("fused          ", lambda u: shn.stage_ho_nodes(
         xs, v, u, unbr0, tables, mode=1.0)[0])

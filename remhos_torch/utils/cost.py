@@ -79,12 +79,16 @@ def stage_cost(tb, P, n_cg, kind="mega", with_lo=False):
     """(bytes, flops) of kernels 1 and 2, the stages with t-polynomial
     geometry. kind "mega": the limited stage (reads the two stencil arrays
     too, writes du). kind "ho": the HO stage (writes du_HO and wdet, and
-    du_LO with `with_lo`). Reads u, u_nbr, P and the tables."""
+    du_LO with `with_lo`). Reads u, u_nbr, P and the tables in their least
+    form: the 1D factors `sf` and the index tables (the dense tables are the
+    plain versions')."""
     dim, nd, Q, Qf, nf, fd = (tb[k] for k in ("dim", "nd", "Q", "Qf", "nf",
                                                "fd"))
     FQ, NFD, ncls = nf * Qf, nf * fd, 3 ** dim
     E, itemsize = P.shape[0], P.element_size()
-    tables = _nbytes(v for v in tb.values() if torch.is_tensor(v))
+    tables = _nbytes(tb[k] for k in ("sf", "bdr", "dof_faces", "cls")
+                     if tb.get(k) is not None and (k != "cls" or
+                                                   kind == "mega"))
     lo_work = kind == "mega" or (with_lo and n_cg > 0)
     if kind == "mega":
         per_el = 2 * nd + NFD + 2 * ncls

@@ -33,20 +33,32 @@ import torch
 from .. import ops
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the profiler's own spans (the session, the schedule's steps): not part of
+# the traced window
+_PROFILER_SPANS = ("PyTorch Profiler", "ProfilerStep")
+# captures `capture_counted` takes at most before it gives up
+CAPTURE_ATTEMPTS = 3
 _KERNEL_RE = re.compile(r"([A-Za-z0-9_]+)_kernel(?![A-Za-z0-9_])")
 
 
 def capture_trace(fn):
     """Run fn() under torch.profiler (CPU activity, and CUDA activity where
     there is a card; synchronized at the end) and return the parsed
-    Chrome trace dict."""
-    from torch.profiler import ProfilerActivity, profile
+    Chrome trace dict. fn runs twice, in a warm-up cycle whose events are
+    dropped, then recorded: late in a long process the profiler has
+    dropped the records of the first kernels a session launches (2-3 of
+    them, in each of three captures in a row), also after 50 ms of quiet
+    on the card."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     cuda = torch.cuda.is_available()
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with profile(activities=acts) as prof:
-        fn()
-        if cuda:
-            torch.cuda.synchronize()
+    with profile(activities=acts, schedule=schedule(
+            wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            if cuda:
+                torch.cuda.synchronize()
+            prof.step()
     fd, path = tempfile.mkstemp(prefix="remhos_trace_", suffix=".json")
     os.close(fd)
     try:
@@ -165,7 +177,8 @@ def loop_report(trace, n_calls, stages_per_call):
         buckets[b] = buckets.get(b, 0.0) + o["dur"]
     spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
              for e in trace.get("traceEvents", [])
-             if e.get("ph") == "X" and "ts" in e]
+             if e.get("ph") == "X" and "ts" in e
+             and not e.get("name", "").startswith(_PROFILER_SPANS)]
     wall_us = max(b for _, b in spans) - min(a for a, _ in spans) \
         if spans else 0.0
     busy_us = _union_us((o["ts"], o["ts"] + o["dur"]) for o in dev)
@@ -193,12 +206,31 @@ def device_time_of_loop(trace):
 
 
 def capture_counted(fn):
-    """(trace, launches): the trace of fn() and how far each port kernel's
-    launch counter advanced in it."""
-    before = ops.launch_counts()
-    tr = capture_trace(fn)
-    after = ops.launch_counts()
-    return tr, {k: after[k] - before[k] for k in after}
+    """(trace, launches): the trace of fn() (`capture_trace`) and how far
+    each port kernel's launch counter advanced in the recorded call. On the
+    card the profiler has now and then dropped all the kernel records of a
+    short session, the warm-up of `capture_trace` notwithstanding; a
+    capture whose port-kernel events differ from the launch counters is
+    taken again, up to CAPTURE_ATTEMPTS captures in all, and counted in
+    `capture_counted.retakes`. The caller's check (`check_kernel_events`)
+    holds the last one."""
+    counts = {}
+
+    def counted():
+        before = ops.launch_counts()
+        fn()
+        after = ops.launch_counts()
+        counts.update({k: after[k] - before[k] for k in after})
+
+    for attempt in range(CAPTURE_ATTEMPTS):
+        capture_counted.retakes += attempt > 0
+        tr = capture_trace(counted)
+        if kernel_events(tr) == counts:
+            break
+    return tr, counts
+
+
+capture_counted.retakes = 0
 
 
 def check_kernel_events(trace, launches, what):

@@ -58,7 +58,8 @@ def _inputs(shape, periodic, p):
 
 def _port(u, shape, periodic, nbr, dtype):
     before = gn.gather_nbr.launches
-    out = gn.gather_nbr(torch.tensor(u, dtype=dtype), shape, periodic, nbr)
+    out = gn.gather_nbr(torch.tensor(u, dtype=dtype),
+                        gn.GatherLayout(shape, periodic, nbr, "cpu"))
     assert gn.gather_nbr.launches == before     # CPU: the plain version
     assert out.dtype == dtype
     return out
@@ -96,6 +97,7 @@ def test_gather_nbr_refuses_bad_operands():
     u, nbr, _ = _inputs((8, 5), (True, True), 2)
     ut = torch.tensor(u)
     with pytest.raises(ValueError, match="u must be"):
-        gn.gather_nbr(ut[:-1], (8, 5), (True, True), nbr)
+        gn.gather_nbr(ut[:-1], gn.GatherLayout((8, 5), (True, True), nbr,
+                                               "cpu"))
     with pytest.raises(ValueError, match="nbr_dof_local must be"):
-        gn.gather_nbr(ut, (8, 5), (True, True), nbr[:3])
+        gn.GatherLayout((8, 5), (True, True), nbr[:3], "cpu")

@@ -22,6 +22,7 @@ from remhos_torch.ops import gather_nbr as gn
 from remhos_torch.ops import geom_conv as gc
 from remhos_torch.ops import gl_cg as cg
 from remhos_torch.ops import mega_stage as ms
+from remhos_torch.ops import stage_core as core
 from remhos_torch.ops import stage_ho as sh
 from remhos_torch.ops import stage_ho_nodes as shn
 from remhos_torch.ops import wdet as wd
@@ -370,7 +371,8 @@ def test_gather_nbr_bit_identical(shape, periodic, dtype):
     rng = np.random.default_rng(11)
     u = torch.as_tensor(rng.standard_normal((int(np.prod(shape)), dm.nd)),
                         dtype=dtype, device="cuda")
-    got = gn.gather_nbr(u, shape, periodic, dm.nbr_dof_local)
+    got = gn.gather_nbr(u, gn.GatherLayout(shape, periodic, dm.nbr_dof_local,
+                                           "cuda"))
     ref = gn.gather_nbr_reference(u, shape, periodic, dm.nbr_dof_local)
     assert torch.equal(got, ref)
 
@@ -394,6 +396,8 @@ def test_trace_counts_equal_launch_counters():
                                           pa=True), adv.x0_nodes,
                    adv.v_nodes, dtype=torch.float32, device="cuda")
     tbn = shn.stage_ho_nodes_tables(adv.disc, torch.float32, "cuda")
+    lay = gn.GatherLayout(adv.shape, adv.periodic,
+                          adv.disc.dofmaps.nbr_dof_local, "cuda")
 
     def seven():
         for _ in range(2):
@@ -404,8 +408,7 @@ def test_trace_counts_equal_launch_counters():
         gc.geom_conv(xs, adv.v_nodes, u, nf._gc_tables, 1.0)
         shn.stage_ho_nodes(xs, adv.v_nodes, u, unbr, tbn, mode=1.0)
         cg.gl_cg(u, wdet, adv._stage_tables)
-        gn.gather_nbr(u, adv.shape, adv.periodic,
-                      adv.disc.dofmaps.nbr_dof_local)
+        gn.gather_nbr(u, lay)
 
     seven()
     tr, launches = trc.capture_counted(seven)
@@ -413,3 +416,124 @@ def test_trace_counts_equal_launch_counters():
     assert events == dict(dict.fromkeys(ops.KERNELS, 1), mega_stage=2)
     rep = trc.loop_report(tr, 1, 1)
     assert rep["kernel_calls"] == 8 and 0.0 <= rep["idle_share"] < 1.0
+
+
+def _f64(*tensors):
+    return [x.to(torch.float64) for x in tensors]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 2, 4, 5])
+@pytest.mark.parametrize("dim,n", [(3, 5), (2, 9)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_stage_kernels_at_other_orders(p, dim, n, dtype):
+    """Kernels 1 and 2 (with LO) at p = 1, 2, 4 and 5 (p = 1 and 5: the
+    core's runtime-size instantiation) against their plain versions: in f64
+    at 1e-10 of max|du|; in f32 against the plain version evaluated in f64
+    on the same inputs with the kernel's one Jacobi sweep, at 2e-4 (du_LO
+    always), but du in 3D at p = 4 at kernel 5's f32 small-mesh rule, 1e-3,
+    and at p = 5 no farther than the f32 plain version (f32 rounding,
+    amplified by the Bernstein mass inverse, puts neither the kernel nor
+    the plain version within 2e-4 there; chip_smoke.stage_limit). Where the
+    f32 limit is a number, one Jacobi sweep fewer must move the f64 du_HO
+    by more than it on these meshes. wdet at the wdet limits. 125 and 81
+    elements leave a ragged last tile."""
+    _cuda()
+    case = bench.build_case(n=n, order=p, dtype=torch.float32, device="cuda",
+                            n_steps=4, dt=DT, dim=dim)
+    adv = case.adv if dtype == torch.float32 else case.adv64
+    tb, tb64, P = adv._stage_tables, case.adv64._stage_tables, adv._poly
+    rng = np.random.default_rng(20 + p)
+    u = torch.as_tensor(rng.random((P.shape[0], tb["nd"])), dtype=dtype,
+                        device="cuda")
+    unbr = adv.gather_nbr(u).reshape(u.shape[0], -1)
+    smin, smax = structured.overlap_stencil_T(
+        *bounds.elements_min_max(u), adv.shape, adv.periodic, adv.masks)
+    n_cg = ms.default_sweeps(dtype)
+    u64, unbr64, smin64, smax64, P64 = _f64(u, unbr, smin, smax, P)
+    t = float(torch.tensor(0.1, dtype=dtype))
+    dt = float(torch.tensor(DT, dtype=dtype))
+    tol, wtol = (2e-4, 1e-5) if dtype == torch.float32 else (1e-10, 1e-12)
+    got = ms.mega_stage(t, dt, u, unbr, smin, smax, P, tb)
+    ho = sh.stage_ho(t, u, unbr, P, tb, dt=dt, with_lo=True)
+    torch.cuda.synchronize()
+    ref = ms.mega_stage_reference(t, dt, u64, unbr64, smin64, smax64, P64,
+                                  tb64, n_cg)
+    ho_ref = sh.stage_ho_poly_reference(t, u64, unbr64, P64, tb64, n_cg,
+                                        dt=dt, with_lo=True)
+
+    def rel(g, r):
+        return (g.double() - r).abs().max().item() / r.abs().max().item()
+
+    tols = [tol, tol]
+    if dtype == torch.float32 and dim == 3 and p == 4:
+        tols = [1e-3, 1e-3]
+    elif dtype == torch.float32 and dim == 3 and p >= 5:
+        tols = [rel(ms.mega_stage_reference(t, dt, u, unbr, smin, smax, P,
+                                            tb, n_cg), ref),
+                rel(sh.stage_ho_poly_reference(t, u, unbr, P, tb, n_cg)[0],
+                    ho_ref[0])]
+    for g, r, lim in zip([got, *ho], [ref, *ho_ref], tols + [wtol, tol]):
+        assert rel(g, r) <= lim
+    if dtype == torch.float32 and not (dim == 3 and p >= 5):
+        Ku, wdet = core.poly_stage_core_reference(t, u64, unbr64, P64, tb64, 0)
+        lost = core.jacobi_gl_inverse(Ku, wdet, tb64, n_cg - 1)
+        assert rel(lost, ho_ref[0]) > tols[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 2, 4, 5])
+@pytest.mark.parametrize("dim,n", [(3, 8), (2, 9)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_stage_ho_nodes_at_other_orders(p, dim, n, dtype):
+    """Kernel 5 at p = 1, 2, 4 and 5 against its plain version, with the
+    rule of test_stage_ho_nodes_matches_reference: f64 at 1e-10 of max|du|;
+    f32 against the f64 plain result at 1e-3, in 3D at p = 5 no farther
+    than the f32 plain result (chip_smoke.stage_limit); wdet in the working
+    type."""
+    _cuda()
+    adv = bench.build_case(n=n, order=p, dtype=dtype, device="cuda",
+                           n_steps=4, dt=DT, dim=dim).adv
+    xs = (adv.x0_nodes + 0.3 * adv.v_nodes).contiguous()
+    tb = shn.stage_ho_nodes_tables(adv.disc, dtype, "cuda")
+    rng = np.random.default_rng(30 + p)
+    u = torch.as_tensor(rng.standard_normal((xs.shape[0], adv.disc.nd)),
+                        dtype=dtype, device="cuda")
+    unbr = adv.gather_nbr(u).reshape(u.shape[0], -1)
+    n_cg = sh.default_sweeps(dtype)
+    got = shn.stage_ho_nodes(xs, adv.v_nodes, u, unbr, tb, mode=1.0)
+    torch.cuda.synchronize()
+    ref = shn.stage_ho_nodes_reference(xs, adv.v_nodes, u, unbr, tb,
+                                       mode=1.0, n_cg=n_cg)
+    tol = 1e-10
+    if dtype == torch.float32:
+        tol = 1e-3
+        plain = ref[0]
+        ref = (shn.stage_ho_nodes_reference(
+            *_f64(xs, adv.v_nodes, u, unbr),
+            shn.stage_ho_nodes_tables(adv.disc, torch.float64, "cuda"),
+            mode=1.0, n_cg=n_cg)[0], ref[1])
+        got = (got[0].double(), got[1])
+        if dim == 3 and p >= 5:
+            tol = ((plain.double() - ref[0]).abs().max().item()
+                   / ref[0].abs().max().item())
+    wtol = 1e-5 if dtype == torch.float32 else 1e-12
+    for g, r, lim in zip(got, ref, (tol, wtol)):
+        assert (g - r).abs().max().item() <= lim * r.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_gather_nbr_second_layout_on_card():
+    """Layouts on the card: a call with a second layout after the first
+    gives the second layout's answer, and again the first's."""
+    _cuda()
+    from remhos_torch.dofmaps import build_dofmaps
+    dm = build_dofmaps(3, 3)
+    rng = np.random.default_rng(13)
+    for shape, periodic in [((4, 3, 2), (False,) * 3), ((2, 3, 4), (True,) * 3),
+                            ((4, 3, 2), (False,) * 3)]:
+        u = torch.as_tensor(rng.standard_normal((24, dm.nd)), device="cuda")
+        got = gn.gather_nbr(u, gn.GatherLayout(shape, periodic,
+                                               dm.nbr_dof_local, "cuda"))
+        assert torch.equal(got, gn.gather_nbr_reference(
+            u, shape, periodic, dm.nbr_dof_local))
