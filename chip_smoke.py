@@ -17,13 +17,22 @@ It builds the CUDA kernels from the sources on first use, then:
    for bit, on the mesh, on the same shape made periodic and on a layout
    whose block size is not a multiple of 8. Limits, relative to the largest
    entry of the plain result: du (and CG's x) 2e-4 (f32) and 1e-10 (f64);
-   wdet, and geom_conv's Ku, 1e-5 (f32) and 1e-12 (f64). Each check prints
+   wdet, and geom_conv's Ku, 1e-5 (f32) and 1e-12 (f64); f32 wdet and
+   geom_conv are held to their plain versions evaluated in f64 on the same
+   inputs (the f32 plain version's dense sums of O(1) coordinates lie ~1e-5
+   from that at 24^3, its distance is printed beside; the kernels contract
+   coordinates relative to each element's first node). Each check prints
    the kernel's ms per launch (CUDA events), the plain version's, the bound
    (remhos_torch/utils/cost.py) and, for the gather, the ms of its one-call
    library equivalent (index_select), both by CUDA events over back-to-back
-   calls (taken in turns) and as device time from a trace. Then kernels 1, 2
-   and 5 at the orders p = 1, 2, 4 and 5 (3D N=24 and 2D 16x16, f32 and
-   f64; p = 1 and 5 run the core's runtime-size instantiation).
+   calls (taken in turns) and as device time from a trace. geom_conv is
+   also held and timed without its wdet output (with_wdet=False, as the
+   non-fused stage calls it), and wdet and geom_conv at 3D N=24 f32 also by
+   their device time from a trace. Then kernels 1, 2 and 5 at the orders
+   p = 1, 2, 4 and 5 (3D N=24 and 2D 16x16, f32 and f64; p = 1 and 5 run
+   the core's runtime-size instantiation), and wdet and geom_conv at p = 2
+   and 4 (mesh order 2) and at mesh orders 1 and 3 (p = 3; runtime sizes)
+   on the same meshes.
    The f32 stage kernels (1, 2, 5) are held to the plain version evaluated
    in f64 on the same inputs with the kernel's one Jacobi sweep (the plain
    version's own f32 result carries its own rounding, amplified by the
@@ -84,6 +93,8 @@ import torch
 
 from remhos_torch import bench, bounds, driver, ops, pa, structured
 from remhos_torch.config import RunConfig
+from remhos_torch.discretization import build_discretization
+from remhos_torch.mesh import make_cartesian_mesh
 from remhos_torch.operator import Advection, SolverConfig
 from remhos_torch.ops import build
 from remhos_torch.ops import gather_nbr as gn
@@ -168,6 +179,10 @@ GOLDEN_TOL = 5e-10       # the baseline prints 10 significant digits
 ORDERS = (1, 2, 4, 5)
 # f32 stage kernels in 3D at p >= 4 (`stage_limit`)
 F32_HIGH_ORDER_LIMIT = 1e-3
+# the (p, mesh order) pairs wdet and geom_conv are also held at (p=3, mesh
+# order 2: step 3's checks); p = 2 and 4 at mesh order 2 are compiled sizes
+# of their mesh geometry, mesh orders 1 and 3 its runtime sizes
+MESH_CASES = ((2, 2), (4, 2), (3, 1), (3, 3))
 
 
 def card_line():
@@ -331,20 +346,29 @@ def check_stage_ho(label, adv, adv64, dt, rng, with_lo, n_cg=None,
     return res
 
 
-def check_wdet(label, adv):
-    """wdet kernel vs plain version at the nodes x0 + 0.3 v."""
+def check_wdet(label, adv, traced=False):
+    """wdet kernel vs plain version (`hold`: in f32 the plain version
+    evaluated in f64) at the nodes x0 + 0.3 v; `traced`: also its device
+    time from a trace."""
     dtype = adv.dtype
     xs = (adv.x0_nodes + 0.3 * adv.v_nodes).contiguous()
     tb = adv._wdet_tables
     got = wd.wdet(xs, tb)
     torch.cuda.synchronize()
     ref = wd.wdet_reference(xs, tb)
+    ref64 = None
+    if dtype == torch.float32:
+        tb64 = wd.wdet_tables(adv.disc, torch.float64, adv.device)
+        ref64 = wd.wdet_reference(*f64_inputs(xs), tb64)
     torch.cuda.synchronize()
-    err, rel = compare(label, "wdet", got, ref, WDET_LIMITS[dtype])
-    res = dict(check=label, kernel="wdet", E=xs.shape[0], max_abs_err=err,
-               rel_err=rel, limit=WDET_LIMITS[dtype],
+    err, rel, prel = hold(label, "wdet", got, ref, ref64, WDET_LIMITS[dtype])
+    res = dict(check=label, kernel="wdet", E=xs.shape[0], m1=tb["m1"],
+               Q1=tb["Q1"], max_abs_err=err, rel_err=rel,
+               plain_f32_rel_err=prel, limit=WDET_LIMITS[dtype],
                ms=time_ms(lambda: wd.wdet(xs, tb), 20),
                plain_ms=time_ms(lambda: wd.wdet_reference(xs, tb), 5))
+    if traced:
+        res["trace_ms"] = traced_ms(lambda: wd.wdet(xs, tb), "wdet")
     res.update(bound(*wdet_cost(xs, tb), dtype))
     print(json.dumps(res), flush=True)
     return res
@@ -359,30 +383,88 @@ def nonfused_operator(base):
                      device=base.device)
 
 
-def check_geom_conv(label, adv, rng):
-    """geom_conv kernel vs plain version at the nodes x0 + 0.3 v, the mesh
-    velocity v and a random u: Ku and wdet, with the tables of the non-fused
-    operator `adv`."""
+def check_geom_conv(label, adv, rng, traced=False):
+    """geom_conv kernel vs plain version (`hold`: in f32 the plain version
+    evaluated in f64) at the nodes x0 + 0.3 v, the mesh velocity v and a
+    random u, with the tables of the non-fused operator `adv`: Ku and wdet,
+    then Ku without wdet (`without_wdet`: its own time, plain time and
+    bound); `traced`: also the device times from a trace."""
     dtype = adv.dtype
     tb, v = adv._gc_tables, adv.v_nodes
     xs = adv.x0_nodes + 0.3 * v
     u = torch.as_tensor(rng.random((xs.shape[0], adv.disc.nd)), dtype=dtype,
                         device=adv.device)
     got = gc.geom_conv(xs, v, u, tb, 1.0)
+    got0 = gc.geom_conv(xs, v, u, tb, 1.0, with_wdet=False)
     torch.cuda.synchronize()
     ref = gc.geom_conv_reference(xs, v, u, tb, 1.0)
+    ref64 = (None, None)
+    if dtype == torch.float32:
+        tb64 = gc.geom_conv_tables(adv.disc, torch.float64, adv.device)
+        ref64 = gc.geom_conv_reference(*f64_inputs(xs, v, u), tb64, 1.0)
     torch.cuda.synchronize()
-    err, rel = compare(label, "Ku", got[0], ref[0], KU_LIMITS[dtype])
-    _, wrel = compare(label, "wdet", got[1], ref[1], WDET_LIMITS[dtype])
-    res = dict(check=label, kernel="geom_conv", E=xs.shape[0],
-               max_abs_err=err, rel_err=rel, wdet_rel_err=wrel,
+    err, rel, prel = hold(label, "Ku", got[0], ref[0], ref64[0],
+                          KU_LIMITS[dtype])
+    _, wrel, wprel = hold(label, "wdet", got[1], ref[1], ref64[1],
+                          WDET_LIMITS[dtype])
+    err0, rel0, _ = hold(label, "Ku without wdet", got0[0], ref[0],
+                         ref64[0], KU_LIMITS[dtype])
+    if got0[1] is not None:
+        raise RuntimeError(f"{label}: geom_conv without wdet returned one")
+    kern0 = lambda: gc.geom_conv(xs, v, u, tb, 1.0, with_wdet=False)
+    res = dict(check=label, kernel="geom_conv", E=xs.shape[0], m1=tb["m1"],
+               Q1=tb["Q1"], max_abs_err=max(err, err0), rel_err=rel,
+               rel_err_without_wdet=rel0, wdet_rel_err=wrel,
+               plain_f32_rel_err=prel, wdet_plain_f32_rel_err=wprel,
                limit=KU_LIMITS[dtype], wdet_limit=WDET_LIMITS[dtype],
                ms=time_ms(lambda: gc.geom_conv(xs, v, u, tb, 1.0), 20),
                plain_ms=time_ms(
                    lambda: gc.geom_conv_reference(xs, v, u, tb, 1.0), 5))
     res.update(bound(*geom_conv_cost(xs, u, tb), dtype))
+    res["without_wdet"] = dict(
+        ms=time_ms(kern0, 20),
+        plain_ms=time_ms(lambda: gc.geom_conv_reference(
+            xs, v, u, tb, 1.0, with_wdet=False), 5),
+        **bound(*geom_conv_cost(xs, u, tb, with_wdet=False), dtype))
+    if traced:
+        res["trace_ms"] = traced_ms(
+            lambda: gc.geom_conv(xs, v, u, tb, 1.0), "geom_conv")
+        res["without_wdet"]["trace_ms"] = traced_ms(kern0, "geom_conv")
     print(json.dumps(res), flush=True)
     return res
+
+
+def mesh_order_operator(n, p, mesh_order, dim, dtype, device):
+    """A non-fused operator (-lo 3) at order p on the n^dim box of the main
+    path, with nodes of the given mesh order moved as the main path's."""
+    mesh = make_cartesian_mesh(dim, (n,) * dim, (0.0,) * dim, (1.0,) * dim,
+                               (False,) * dim, mesh_order)
+    x0 = torch.as_tensor(mesh.x, dtype=torch.float64, device=device)
+    v = driver.integrate_mesh_velocity(x0, bench.PROBLEM, mesh.bb_min,
+                                       mesh.bb_max, 0.7, 0.2 / STEPS)
+    return Advection(build_discretization(mesh, p),
+                     SolverConfig(problem=10, ho=3, lo=3, fct=2, pa=True),
+                     x0, v, dtype=dtype, device=device)
+
+
+def check_mesh_orders(dev, rng):
+    """wdet and geom_conv at MESH_CASES, 3D N=24 and 2D 16x16, f32 and f64:
+    {kernel: {key: record}}."""
+    out = {}
+    for p, mo in MESH_CASES:
+        for tag, n, dim in (("3d", N_MAIN, 3), ("2d", 16, 2)):
+            size = f"{tag} N={n}" if dim == 3 else f"{tag} {n}x{n}"
+            for prec, dtype in (("f32", torch.float32),
+                                ("f64", torch.float64)):
+                adv = mesh_order_operator(n, p, mo, dim, dtype, dev)
+                key = f"p{p}_mo{mo}_{tag}_{prec}"
+                label = f"p={p} mesh order {mo} {size} {prec}"
+                out.setdefault("wdet", {})[key] = check_wdet(label, adv)
+                out.setdefault("geom_conv", {})[key] = check_geom_conv(
+                    label, adv, rng)
+                del adv
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_stage_ho_nodes(label, adv, tb, tb64, rng, **kw):
@@ -972,9 +1054,11 @@ def main():
                 ho_checks[k2] = check_stage_ho(
                     f"{size} {prec} with_lo={with_lo}", adv, case.adv64,
                     case.dt, rng, with_lo)
-            wdet_checks[key] = check_wdet(f"{size} {prec}", adv)
+            main = key == "3d_f32"
+            wdet_checks[key] = check_wdet(f"{size} {prec}", adv, main)
             gc_checks[key] = check_geom_conv(f"{size} {prec}",
-                                             nonfused_operator(adv), rng)
+                                             nonfused_operator(adv), rng,
+                                             main)
             new_kernel_checks(tag, size, prec, adv, rng_new, new_checks)
         if dim == 3:
             ho_checks["3d_f32_ku"] = check_stage_ho(
@@ -983,6 +1067,7 @@ def main():
         del case
         torch.cuda.empty_cache()
     order_recs = check_other_orders(dev, np.random.default_rng(SEED + 2))
+    order_recs.update(check_mesh_orders(dev, np.random.default_rng(SEED + 3)))
     done("kernel checks")
 
     # 4. the main path, counted
@@ -1041,7 +1126,8 @@ def main():
             recs = order_recs[name]
             all_checks = dict(all_checks, **recs)
             more["orders"] = {k: {f: r[f] for f in (
-                "max_abs_err", "rel_err", "ms", "bound_ms", "bound_by")}
+                "max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "without_wdet") if f in r}
                 for k, r in recs.items()}
         return dict(
             name=name, route="cuda", source=source, replaces=replaces,
@@ -1069,12 +1155,16 @@ def main():
         row("wdet", "remhos_torch/ops/csrc/wdet.cu", pk + ":1130",
             rec_c["launches"]["wdet"], wdet_checks["3d_f32"],
             wdet_checks["3d_f64"], wdet_checks,
+            check_trace_ms=wdet_checks["3d_f32"]["trace_ms"],
             launches_main_path=main_counts["wdet"],
             launches_path_a=rec_a["launches"]["wdet"],
             launches_path_d=rec_path_d["launches"]["wdet"]),
         row("geom_conv", "remhos_torch/ops/csrc/geom_conv.cu", pk + ":110",
             rec_c["launches"]["geom_conv"], gc_checks["3d_f32"],
             gc_checks["3d_f64"], gc_checks,
+            check_trace_ms=gc_checks["3d_f32"]["trace_ms"],
+            without_wdet=gc_checks["3d_f32"]["without_wdet"],
+            without_wdet_f64=gc_checks["3d_f64"]["without_wdet"],
             launches_path_d=rec_path_d["launches"]["geom_conv"]),
     ]
     k5, k6, k7 = (new_checks[k] for k in ("stage_ho_nodes", "gl_cg",

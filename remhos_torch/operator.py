@@ -263,9 +263,9 @@ class Advection:
 
     def conv_volume(self, geom, u):
         """The volume convection action K u of one field, geometry fused
-        (the kernel's own wdet is not used: geom holds the stage's)."""
+        (geom holds the stage's wdet, so the kernel forms none)."""
         return geom_conv(geom["xs"], self.v_nodes, u, self._gc_tables,
-                         1.0)[0]
+                         1.0, with_wdet=False)[0]
 
     def ho_solution(self, geom, u):
         """The HO solution du_HO[E, nd] of one field at the stage geometry."""

@@ -30,8 +30,8 @@ ARCH = "arch=compute_90a,code=sm_90a"
 LIBRARIES = {
     "mega_stage": (("mega_stage.cu",), ("stage_core.cuh",)),
     "stage_ho": (("stage_ho.cu",), ("stage_core.cuh",)),
-    "wdet": (("wdet.cu",), ()),
-    "geom_conv": (("geom_conv.cu",), ()),
+    "wdet": (("wdet.cu",), ("mesh_geom.cuh", "stage_core.cuh")),
+    "geom_conv": (("geom_conv.cu",), ("mesh_geom.cuh", "stage_core.cuh")),
     "stage_ho_nodes": (("stage_ho_nodes.cu",), ("stage_core.cuh",)),
     "gl_cg": (("gl_cg.cu",), ("stage_core.cuh",)),
     "gather_nbr": (("gather_nbr.cu",), ()),
@@ -109,18 +109,21 @@ def build_all(names=None) -> dict[str, Path]:
 
 def ptxas_report(name: str) -> dict[str, str]:
     """Registers and spills of each kernel of a built library, from its
-    ptxas log: {"<scalar type> dim <d>": "<spill line>; <register line>"}.
-    The template arguments are read off the mangled entry name
-    (`...kernelIfLi3EE...` is <float, 3>; the gather's element types are
-    unsigned integers of 2, 4 or 8 bytes)."""
+    ptxas log: {"<scalar type> dim <d>[ sizes <a,b,...>]": "<spill line>;
+    <register line>"}. The template arguments are read off the mangled entry
+    name (`...kernelIfLi3ELi4ELi6EE...` is <float, 3, 4, 6>: dim 3, sizes
+    4,6, the compiled 1D sizes, 0 for the runtime-size code; the gather's
+    element types are unsigned integers of 2, 4 or 8 bytes)."""
     log = library_path(name).with_suffix(".log").read_text()
     out, key = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            t = re.search(r"I([fdtjm])(?:Li(\d)E)?", m.group(1))
+            t = re.search(r"I([fdtjm])((?:Li\d+E)*)", m.group(1))
+            ints = re.findall(r"Li(\d+)E", t.group(2)) if t else []
             key = (_ENTRY_TYPES[t.group(1)]
-                   + (f" dim {t.group(2)}" if t.group(2) else "")
+                   + (f" dim {ints[0]}" if ints else "")
+                   + (f" sizes {','.join(ints[1:])}" if ints[1:] else "")
                    if t else m.group(1))
             out[key] = ""
         elif key is not None and ("registers" in ln or "spill" in ln):

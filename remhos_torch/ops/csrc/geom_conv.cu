@@ -8,191 +8,206 @@
 //   J[d][b]  = sum_n xs[e, n, d] Gm[q, n, b]        Jacobian at point q
 //   cof, det   closed form (2x2 or 3x3); wdet[e, q] = w_q[q] det J
 //   v_q[d]   = sum_n v[e, n, d] Bm[q, n]            velocity at point q
-//   va[b]    = sum_d cof[d][b] v_q[d]               (adj J v)
+//   va[b]    = sign sum_d cof[d][b] v_q[d]          (adj J v)
 //   g[b]     = sum_j u[e, j] Gu[q, j, b]            reference gradient of u
-//   du_q     = sign * sum_b va[b] g[b]
+//   du_q     = sum_b va[b] g[b]
 //   Ku[e, i] = sum_q du_q Buw[q, i]                 Buw = w_q Bu
 // J, the cofactors, v_q, va and du_q never reach device memory: one read of
-// (xs, v, u), one write of (Ku, wdet).
+// (xs, v, u), one write of Ku and, when asked (with_wdet), of wdet.
 //
-// Layout: xs and v stay [E, nm, dim] as the mesh stores them (the TPU
-// wrapper transposes to [dim, E, nm] for its lanes; nothing obliges the
-// port to). The point tables arrive point-minor, GmT[nm, dim, Q], BmT[nm, Q]
-// and GuT[nd, dim, Q], so that the threads of a warp, which hold consecutive
-// points q, read consecutive table entries; Buw[Q, nd] is dof-minor for the
-// second phase, whose threads hold consecutive dofs.
+// Design: the MeshGeom provider (mesh_geom.cuh) feeding stage_core
+// (stage_core.cuh) with n_cg == 0 and with_face == 0. Both halves are sum
+// factorized: the geometry contracts the nodes with the 1D Gauss-Lobatto
+// tables Bm1, Gm1 axis by axis into va and w_q det J in shared memory; the
+// core's passes (shared with kernels 1, 2 and 5) form u's gradient, the
+// integrand and its transposed contraction with Bw1. The blocks are
+// persistent over tiles of te elements (the core's launch slot and grid);
+// the provider's scratch (the staged nodes, its axis-0 results) lies over
+// the core's scratch arrays, which are free until the core's first pass.
+// The core also forms the GL mass matrix's Jacobi diagonal, which n_cg == 0
+// leaves unread (a few percent of the multiply-adds).
 //
-// What bounds it on the H100: bytes. At N=24, mesh order 2, p=3 in f32 it
-// reads 12.5 MB (xs, v, u) and writes 15.5 MB (Ku, wdet), ~8 us at 3.35
-// TB/s. As written it does dense per-point dots, ~1.7 G multiply-adds
-// (nm (dim^2 + dim) + nd dim per point, plus Q per dof), ~50 us at the f32
-// FMA rate, each with a table load from L1/L2: the dots, not the bytes, set
-// this first version's time. Sum factorization of the tensor-product tables
-// would bring the arithmetic under the bytes.
+// What bounds it on the H100: at N=24, mesh order 2, p=3 in f32 it reads
+// 12.5 MB (xs, v, u) and writes 3.5 MB of Ku, plus 11.9 MB of wdet when
+// asked: 4.8 us (8.4 with wdet) at 3.35 TB/s. Its sum-factorized
+// arithmetic, ~20k multiply-adds an element (~22k with the diagonal), is
+// 0.72 GFLOP, 10.7 us at the f32 FMA rate (utils/cost.py, without the
+// diagonal): operations bound it, with and without wdet. The dense first
+// version (per-point dots over the nm nodes and nd dofs, ~1.7 G
+// multiply-adds, a table load each) ran 0.390 ms (f32), 0.607 ms (f64).
 //
-// One block takes `te` elements: their xs, v and u rows go to shared memory
-// and are read as broadcasts. Phase 1 gives one thread to each (element,
-// point): the dim*dim + 2 dim sums stay in registers, wdet goes out, du_q
-// goes to shared memory. Phase 2 gives one thread to each (element, dof) for
-// the length-Q dot with Buw. Every sum is taken by one thread in a fixed
-// order, so a result does not depend on the launch.
+// Tried and slower or less accurate (H100 80GB HBM3 at 700 W, 3D N=24,
+// p=3, chip_smoke.py step 3 on earlier states of this source): the core's
+// full layout, 78.8 KB a block in f32, 2 blocks an SM: 0.0728 ms with
+// wdet, 0.0678 without, against 0.0626 / 0.0613 with the volume-only
+// layout (62.7 KB, 3 blocks an SM); the nodes' absolute coordinates in the
+// contractions: f32 wdet 1.6e-5 of the f32 plain version (limit 1e-5),
+// where relative ones lie 3.6e-7 from the f64 evaluation. What holds it
+// now: its volume passes keep 112-168 of 256 threads busy (7 elements a
+// tile), 11 barriers a tile, 3 blocks an SM.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ops/build.py does this at first use).
 
-#include <cuda_runtime.h>
+#include "mesh_geom.cuh"
 
 namespace {
 
-constexpr int NT = 256;      // threads per block
-constexpr int TE_MAX = 8;    // elements per block, halved until they fit
-constexpr size_t SMEM_MAX = 48 * 1024;
+using namespace remhos;
 
-__device__ __forceinline__ float fmaT(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double fmaT(double a, double b, double c) {
-  return fma(a, b, c);
-}
+template <typename T, int DIM, int MT, int QT>
+struct Args {
+  CoreArgs<T> c;
+  MeshGeom<T, DIM, MT, QT, true> g;
+  CoreLayout L;
+  int o_mtab, o_va, o_scr;   // the provider's shared arrays
+  T* Ku;                     // [E, nd] out
+  T* wdet;                   // [E, Q] out, null without with_wdet
+};
 
-template <typename T, int DIM>
-__global__ void __launch_bounds__(NT)
-geom_conv_kernel(const T* __restrict__ xs, const T* __restrict__ v,
-                 const T* __restrict__ u, const T* __restrict__ GmT,
-                 const T* __restrict__ BmT, const T* __restrict__ GuT,
-                 const T* __restrict__ Buw, const T* __restrict__ w_q,
-                 T sign, T* __restrict__ Ku, T* __restrict__ wdet, int E,
-                 int nm, int nd, int Q, int te) {
+template <typename T, int DIM, int DT, int QT, int MT>
+__global__ void __launch_bounds__(NT, min_blocks<T>())
+geom_conv_kernel(const __grid_constant__ Args<T, DIM, MT, QT> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int row = nm * DIM;
-  T* s_x = reinterpret_cast<T*>(smem_raw);   // [te][nm*DIM]
-  T* s_v = s_x + te * row;                   // [te][nm*DIM]
-  T* s_u = s_v + te * row;                   // [te][nd]
-  T* s_dq = s_u + te * nd;                   // [te][Q]
-  const int e_base = blockIdx.x * te;
-  const int ne = min(te, E - e_base);
-  for (int idx = threadIdx.x; idx < ne * row; idx += NT) {
-    s_x[idx] = xs[(size_t)e_base * row + idx];
-    s_v[idx] = v[(size_t)e_base * row + idx];
-  }
-  for (int idx = threadIdx.x; idx < ne * nd; idx += NT)
-    s_u[idx] = u[(size_t)e_base * nd + idx];
-  __syncthreads();
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const CoreLayout& L = a.L;
+  const int te = a.c.te, nd = a.c.nd, Q = a.c.Q, E = a.c.E;
+  MeshGeom<T, DIM, MT, QT, true> g = a.g;
+  g.s_tab = sm + a.o_mtab;
+  g.s_va = sm + a.o_va;
+  g.s_wd = sm + L.wdet;        // the core's wdet array: volume() reads it
+  g.s_scr = sm + a.o_scr;
+  const T* s_w = sm + L.wdet;
+  const int tid = threadIdx.x;
 
-  // phase 1: one thread per (element, point)
-  for (int idx = threadIdx.x; idx < ne * Q; idx += NT) {
-    const int e = idx / Q, q = idx % Q;
-    T J[DIM][DIM], vq[DIM], g[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) {
-      vq[d] = T(0);
-      g[d] = T(0);
-#pragma unroll
-      for (int b = 0; b < DIM; ++b) J[d][b] = T(0);
+  load_tables(a.c, sm, L);
+  g.init();
+  const int ntiles = (E + te - 1) / te;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int e_base = tile * te;
+    const int ne = min(te, E - e_base);
+    const T* s_res = stage_core<T, DIM, DT, QT>(a.c, g, sm, L, e_base, ne);
+    __syncthreads();
+    const size_t g0 = (size_t)e_base * nd;
+    for (int i = tid; i < ne * nd; i += NT) a.Ku[g0 + i] = s_res[i];
+    if (a.wdet != nullptr) {
+      const size_t w0 = (size_t)e_base * Q;
+      for (int i = tid; i < ne * Q; i += NT) a.wdet[w0 + i] = s_w[i];
     }
-    const T* xe = s_x + e * row;
-    const T* ve = s_v + e * row;
-    for (int n = 0; n < nm; ++n) {
-      T gm[DIM];
-#pragma unroll
-      for (int b = 0; b < DIM; ++b)
-        gm[b] = __ldg(GmT + ((size_t)n * DIM + b) * Q + q);
-      const T bm = __ldg(BmT + (size_t)n * Q + q);
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        const T x = xe[n * DIM + d];
-#pragma unroll
-        for (int b = 0; b < DIM; ++b) J[d][b] = fmaT(x, gm[b], J[d][b]);
-        vq[d] = fmaT(ve[n * DIM + d], bm, vq[d]);
-      }
-    }
-    const T* ue = s_u + e * nd;
-    for (int j = 0; j < nd; ++j) {
-      const T uj = ue[j];
-#pragma unroll
-      for (int b = 0; b < DIM; ++b)
-        g[b] = fmaT(uj, __ldg(GuT + ((size_t)j * DIM + b) * Q + q), g[b]);
-    }
-    T det, dq;
-    if constexpr (DIM == 3) {
-      T cof[3][3];
-      cof[0][0] = J[1][1] * J[2][2] - J[1][2] * J[2][1];
-      cof[0][1] = J[1][2] * J[2][0] - J[1][0] * J[2][2];
-      cof[0][2] = J[1][0] * J[2][1] - J[1][1] * J[2][0];
-      cof[1][0] = J[0][2] * J[2][1] - J[0][1] * J[2][2];
-      cof[1][1] = J[0][0] * J[2][2] - J[0][2] * J[2][0];
-      cof[1][2] = J[0][1] * J[2][0] - J[0][0] * J[2][1];
-      cof[2][0] = J[0][1] * J[1][2] - J[0][2] * J[1][1];
-      cof[2][1] = J[0][2] * J[1][0] - J[0][0] * J[1][2];
-      cof[2][2] = J[0][0] * J[1][1] - J[0][1] * J[1][0];
-      det = J[0][0] * cof[0][0] + J[0][1] * cof[0][1] + J[0][2] * cof[0][2];
-      dq = T(0);
-#pragma unroll
-      for (int b = 0; b < 3; ++b) {
-        const T va = cof[0][b] * vq[0] + cof[1][b] * vq[1] +
-                     cof[2][b] * vq[2];
-        dq += va * g[b];
-      }
-    } else {
-      // cof = ((J11, -J10), (-J01, J00))
-      det = J[0][0] * J[1][1] - J[0][1] * J[1][0];
-      const T va0 = J[1][1] * vq[0] - J[0][1] * vq[1];
-      const T va1 = J[0][0] * vq[1] - J[1][0] * vq[0];
-      dq = va0 * g[0] + va1 * g[1];
-    }
-    wdet[(size_t)(e_base + e) * Q + q] = __ldg(w_q + q) * det;
-    s_dq[e * Q + q] = sign * dq;
-  }
-  __syncthreads();
-
-  // phase 2: one thread per (element, dof)
-  for (int idx = threadIdx.x; idx < ne * nd; idx += NT) {
-    const int e = idx / nd, i = idx % nd;
-    const T* dq = s_dq + e * Q;
-    T acc = T(0);
-    for (int q = 0; q < Q; ++q)
-      acc = fmaT(dq[q], __ldg(Buw + (size_t)q * nd + i), acc);
-    Ku[(size_t)(e_base + e) * nd + i] = acc;
+    __syncthreads();     // the next tile reuses the shared arrays
   }
 }
 
-template <typename T, int DIM>
-int launch(const void* xs, const void* v, const void* u, const void* GmT,
-           const void* BmT, const void* GuT, const void* Buw,
-           const void* w_q, double sign, void* Ku, void* wdet, int E, int nm,
-           int nd, int Q, cudaStream_t stream) {
-  if (E <= 0) return 0;
-  const size_t per_el = ((size_t)2 * nm * DIM + nd + Q) * sizeof(T);
-  int te = TE_MAX;
-  while (te > 0 && te * per_el > SMEM_MAX) te /= 2;
-  if (te == 0) return -3;
-  const int blocks = (E + te - 1) / te;
-  geom_conv_kernel<T, DIM><<<blocks, NT, te * per_el, stream>>>(
-      static_cast<const T*>(xs), static_cast<const T*>(v),
-      static_cast<const T*>(u), static_cast<const T*>(GmT),
-      static_cast<const T*>(BmT), static_cast<const T*>(GuT),
-      static_cast<const T*>(Buw), static_cast<const T*>(w_q), T(sign),
-      static_cast<T*>(Ku), static_cast<T*>(wdet), E, nm, nd, Q, te);
+template <typename T, int DIM, int DT, int QT, int MT>
+int launch_sized(const Args<T, DIM, MT, QT>& a, size_t smem,
+                 cudaStream_t stream) {
+  const void* fn = reinterpret_cast<const void*>(
+      &geom_conv_kernel<T, DIM, DT, QT, MT>);
+  int grid = 0;
+  const int rc = persistent_grid(fn, smem, (a.c.E + a.c.te - 1) / a.c.te,
+                                 &grid);
+  if (rc != 0) return rc;
+  geom_conv_kernel<T, DIM, DT, QT, MT><<<grid, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The shared memory of a tile of te elements: the core's layout, the
+// provider's scratch over the core's scratch (from L.A), then the mesh
+// tables and va. Sets the offsets in *a; returns the bytes.
+template <typename T, int DIM, int MT, int QT>
+size_t layout(Args<T, DIM, MT, QT>* a, int te) {
+  const int D = a->c.D, Q1 = a->c.Q1, m1 = a->g.m1_;
+  const int Qv = DIM == 3 ? Q1 * Q1 * Q1 : Q1 * Q1;
+  const CoreLayout L = core_layout(DIM, D, Q1, a->c.nf, te, true);
+  const int scr = al4(te * a->g.sx);
+  int o = L.A + scr > L.end ? L.A + scr : L.end;
+  a->L = L;
+  a->o_scr = L.A;
+  a->o_mtab = o;
+  o += al4(2 * Q1 * m1);
+  a->o_va = o;
+  o += al4(te * DIM * Qv);
+  return (size_t)o * sizeof(T);
+}
+
+template <typename T, int DIM, int MT, int QT>
+int launch_as(Args<T, DIM, MT, QT>& a, cudaStream_t stream) {
+  const int Q1 = a.c.Q1;
+  const int NL = DIM == 3 ? Q1 * Q1 : Q1;
+  a.c.te = choose_te(NT / NL, SMEM_BUDGET,
+                     [&](int te) { return layout(&a, te); });
+  const size_t smem = layout(&a, a.c.te);
+  if (smem > SMEM_MAX) return -3;
+  constexpr int X = DIM == 3 ? 2 : 1;
+  constexpr int DT = MT ? QT - X : 0;
+  return launch_sized<T, DIM, DT, QT, MT>(a, smem, stream);
+}
+
+template <typename T, int DIM>
+int launch(const void* xs, const void* v, const void* u, const void* sf,
+           const void* msf, const void* w_q, double sign, void* Ku,
+           void* wdet, const int* sz, cudaStream_t stream) {
+  const int E = sz[0], nm = sz[1], nd = sz[2], Q = sz[3], D = sz[4],
+            Q1 = sz[5], m1 = sz[6];
+  if (E <= 0) return 0;
+  const int V = DIM == 3 ? D * D * D : D * D;
+  if (D < 1 || D > DMAX || nd != V) return -5;
+  const int rc = check_mesh_sizes(DIM, nm, Q, m1, Q1);
+  if (rc != 0) return rc;
+  CoreArgs<T> c{};
+  c.u = static_cast<const T*>(u);
+  c.unbr = nullptr;
+  c.sf = static_cast<const T*>(sf);
+  c.bdr = nullptr;
+  c.dof_faces = nullptr;
+  c.E = E; c.nd = nd; c.Q = Q; c.nf = 2 * DIM; c.D = D; c.Q1 = Q1;
+  c.n_cg = 0;
+  c.with_face = 0;
+  c.need_ml = 0;
+  c.te = 1;
+  auto fill = [&](auto& a) {
+    a.c = c;
+    a.g.xs = static_cast<const T*>(xs);
+    a.g.v = static_cast<const T*>(v);
+    a.g.msf = static_cast<const T*>(msf);
+    a.g.w_q = static_cast<const T*>(w_q);
+    a.g.mode = static_cast<T>(sign);
+    a.g.m1_ = m1;
+    a.g.Q1_ = Q1;
+    a.g.with_det = wdet != nullptr;
+    a.g.sx = mesh_scratch(DIM, m1, Q1, true);
+    a.g.s_tab = a.g.s_va = a.g.s_wd = a.g.s_scr = nullptr;
+    a.Ku = static_cast<T*>(Ku);
+    a.wdet = static_cast<T*>(wdet);
+  };
+  // compiled where both the core's sizes and the mesh's are
+  constexpr int X = DIM == 3 ? 2 : 1;
+  switch (size_case(DIM, D, Q1) ? mesh_size_case(DIM, m1, Q1) : 0) {
+    case 3 + X: { Args<T, DIM, 3, 3 + X> a; fill(a); return launch_as(a, stream); }
+    case 4 + X: { Args<T, DIM, 3, 4 + X> a; fill(a); return launch_as(a, stream); }
+    case 5 + X: { Args<T, DIM, 3, 5 + X> a; fill(a); return launch_as(a, stream); }
+    default: { Args<T, DIM, 0, 0> a; fill(a); return launch_as(a, stream); }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// xs[E, nm, dim], v[E, nm, dim], u[E, nd], GmT[nm, dim, Q], BmT[nm, Q],
-// GuT[nd, dim, Q], Buw[Q, nd], w_q[Q], sign -> Ku[E, nd], wdet[E, Q].
-// Returns 0, a CUDA error code (> 0), or < 0 for a bad argument (-2: type
-// or dimension; -3: one element's rows exceed the shared memory).
+// xs[E, nm, dim], v[E, nm, dim], u[E, nd], sf (the core's packed 1D tables,
+// ops/tables.SF_TABLES), msf (the packed mesh tables, MESH_TABLES), w_q[Q],
+// sign -> Ku[E, nd] and, unless wdet is null, wdet[E, Q]. sizes: E, nm, nd,
+// Q, D, Q1, m1. Returns 0, a CUDA error code (> 0), or < 0 for a bad
+// argument (-1: sizes; -2: type or dimension; -3: shared memory; -5: not a
+// tensor-product element within the bounds DMAX, QMAX).
 int remhos_geom_conv(int dtype_bytes, int dim, const void* xs, const void* v,
-                     const void* u, const void* GmT, const void* BmT,
-                     const void* GuT, const void* Buw, const void* w_q,
-                     double sign, void* Ku, void* wdet, int E, int nm, int nd,
-                     int Q, void* stream) {
+                     const void* u, const void* sf, const void* msf,
+                     const void* w_q, double sign, void* Ku, void* wdet,
+                     const int* sizes, int nsizes, void* stream) {
+  if (nsizes != 7) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REMHOS_GC(T, D)                                                     \
-  return launch<T, D>(xs, v, u, GmT, BmT, GuT, Buw, w_q, sign, Ku, wdet, E, \
-                      nm, nd, Q, s)
+#define REMHOS_GC(T, D) \
+  return launch<T, D>(xs, v, u, sf, msf, w_q, sign, Ku, wdet, sizes, s)
   if (dtype_bytes == 4 && dim == 3) REMHOS_GC(float, 3);
   if (dtype_bytes == 8 && dim == 3) REMHOS_GC(double, 3);
   if (dtype_bytes == 4 && dim == 2) REMHOS_GC(float, 2);

@@ -3,8 +3,9 @@
 // Counterpart of _poly_stage_core and _mass_based_avg_core in
 // remhos_tpu/ops/pallas_kernels.py (:578, :683), which _stage_ho_poly_kernel
 // and _stage_mega_kernel share there, and of the body of _stage_ho_kernel
-// (:265); here stage_ho.cu, mega_stage.cu and stage_ho_nodes.cu share
-// stage_core() and element_sums().
+// (:265); here stage_ho.cu, mega_stage.cu, stage_ho_nodes.cu and (with
+// n_cg == 0 and no face flux, the volume action alone) geom_conv.cu share
+// stage_core(), and the first three element_sums().
 //
 // stage_core computes, for one tile of te elements (nd = D^dim dofs,
 // Q = Q1^dim volume and FQ = nf Q1^(dim-1) face points per element):
@@ -23,16 +24,22 @@
 // With n_cg == 0 it stops after step 3 and returns Ku; with with_face == 0
 // it skips the face flux (a phase ablation of kernel 5).
 //
-// Two geometry providers:
+// Three geometry providers:
 //   PolyGeom  (kernels 1 and 2): va_b, w_q det J and vn by Horner's rule
 //             from the t-polynomial coefficients P = [VA | WDET | VN]
-//             (ops/tables.py); remap sign and mode +1;
+//             (ops/tables.py); remap sign and mode +1. Bound by P's bytes.
 //   NodeGeom  (kernel 5): from the nodes xs and the nodal velocity v of the
 //             tile, staged in shared memory: the Jacobian by a length-nm dot
 //             per entry, closed-form cofactors and det J, v_q, the face
 //             tangents T1 (reference-normal sign folded in) and T2, v at the
 //             face points, the normal T1 x T2 (2D: T1 rotated); sign and
-//             mode +-1.
+//             mode +-1. The dense dots take most of kernel 5's time.
+//   MeshGeom  (kernel 4; its load() alone is kernel 3; mesh_geom.cuh): the
+//             volume part of NodeGeom sum-factorized: load() contracts the
+//             staged nodes with the 1D mesh tables axis by axis (the partial
+//             contractions shared by the dim derivative directions) into va
+//             and w_q det J in shared memory; volume() reads one point. No
+//             face geometry yet: kernel 5 can take it over once it has one.
 // A provider has load() (step 0), volume() and face() (step 2).
 //
 // What bounds the core on the H100. The first version contracted with the
@@ -298,15 +305,20 @@ struct CoreLayout {
 
 __host__ __device__ inline int al4(int n) { return (n + 3) & ~3; }
 
+// volume_only: the layout of a core run with with_face == 0, n_cg == 0 and
+// need_ml == 0 (kernel 4), which never touches un, cf, b, x and ml: they
+// take no room there, and the scratch no face room.
 __host__ __device__ inline CoreLayout core_layout(int dim, int D, int Q1,
-                                                  int nf, int te) {
+                                                  int nf, int te,
+                                                  bool volume_only = false) {
   const int V = dim == 3 ? D * D * D : D * D;
   const int Qv = dim == 3 ? Q1 * Q1 * Q1 : Q1 * Q1;
   const int DF = dim == 3 ? D : 1;              // face-dof lines per face
-  const int NFD = nf * D * DF;
+  const int NFD = volume_only ? 0 : nf * D * DF;
   const int S1 = Q1 * (dim == 3 ? D * D : D);   // one axis at the points
   const int S2 = dim == 3 ? Q1 * Q1 * D : S1;   // two axes
-  const int FT = nf * Q1 * DF;                  // a face, one axis
+  const int FT = volume_only ? 0 : nf * Q1 * DF;  // a face, one axis
+  const int VS = volume_only ? 0 : V;           // the sweeps' and ml's
   const int sA = 3 * S1 > 2 * S1 + FT ? 3 * S1 : 2 * S1 + FT;
   CoreLayout L;
   int o = 0;
@@ -315,9 +327,9 @@ __host__ __device__ inline CoreLayout core_layout(int dim, int D, int Q1,
   L.un = o; o += al4(te * NFD);
   L.wdet = o; o += al4(te * Qv);
   L.inv = o; o += al4(te * V);
-  L.b = o; o += al4(te * V);
-  L.x = o; o += al4(te * V);
-  L.ml = o; o += al4(te * V);
+  L.b = o; o += al4(te * VS);
+  L.x = o; o += al4(te * VS);
+  L.ml = o; o += al4(te * VS);
   L.ku = o; o += al4(te * V);
   L.cf = o; o += al4(te * NFD);
   L.A = o; o += al4(te * (sA > V ? sA : V));

@@ -4,114 +4,170 @@
 //   (:1130 / :1110).
 //
 // What it computes: for every element e and volume point q the Jacobian
-//   J[d][b] = sum_n xs[e, n, d] * Gm[q, n, b]   (a length-nm dot each),
+//   J[d][b] = sum_n xs[e, n, d] * Gm[q, n, b],
 // its determinant in closed form (2x2 or 3x3) and wdet[e, q] = w_q[q] det J.
 // J never reaches device memory.
 //
-// Layout: xs[E, nm, dim] as the mesh stores it (the TPU wrapper transposes
-// to [dim, E, nm] for its lanes; nothing obliges the port to). The gradient
-// table arrives as GmT[nm, dim, Q], point-minor, so that the threads of a
-// warp, which hold consecutive points q, read consecutive table entries.
+// Design: the load stage of the MeshGeom provider (mesh_geom.cuh, shared
+// with kernel 4) without the velocity: the tile's nodes go to shared memory,
+// J comes out of axis-by-axis contractions with the 1D Gauss-Lobatto tables
+// Bm1, Gm1 (~9.7k multiply-adds an element at mesh order 2 and p=3 in 3D,
+// where the dense dots took ~52k), and w_q det J lands in shared memory; the
+// block stores the tile's wdet rows, which are contiguous in wdet[E, Q]:
+// consecutive threads write consecutive points (16-byte stores where the
+// tile's rows are 16-byte aligned). One tile of te = NT / Q1^(dim-1)
+// elements per block (one thread per point line in the contraction pass),
+// ~18 KB of shared memory in f32 at p=3: several blocks are resident on an
+// SM, so one block's stores are in flight while another computes.
 //
 // What bounds it on the H100: bytes. At N=24, mesh order 2, p=3 in f32 it
-// reads 4.5 MB of xs and writes 11.9 MB of wdet, ~5 us at 3.35 TB/s, against
-// ~0.7 G multiply-adds as written (dim*dim*nm per point, ~22 us at the f32
-// FMA rate): the dense per-point dots, not the bytes, set this first
-// version's time; sum factorization of Gm would bring the arithmetic under
-// the bytes. One block takes TE elements: their xs go to shared memory (read
-// as broadcasts), one thread per (element, point) keeps the dim*dim sums in
-// registers.
+// reads 4.5 MB of xs and writes 11.9 MB of wdet, 4.9 us at 3.35 TB/s; the
+// sum-factorized arithmetic (0.31 GFLOP, 4.7 us at the f32 FMA rate) is
+// just below that (utils/cost.py). The dense first version (a length-nm
+// dot per Jacobian entry, ~0.7 G multiply-adds) ran 0.097 ms (f32), 0.122
+// ms (f64).
+//
+// Tried and slower or less accurate (H100 80GB HBM3 at 700 W, 3D N=24,
+// p=3): at least 4, 5, 6 or 8 resident blocks an SM by launch bounds
+// (fewer registers, spills): 0.0182, 0.0182, 0.0249, 0.0792 ms f32 and
+// 0.100, 0.252, 0.407, 0.612 f64 against 0.0178 and 0.0342 as shipped
+// (device-paced, tools/wdet_variants.py); the nodes' absolute coordinates
+// in the contractions: f32 wdet 1.6e-5 of the f32 plain version (limit
+// 1e-5), where relative ones lie 3.6e-7 from the f64 evaluation
+// (chip_smoke.py step 3). What holds it now: a
+// block's load, two contraction passes and store run one after another
+// between barriers, 4 blocks an SM (64 registers).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ops/build.py does this at first use).
 
-#include <cuda_runtime.h>
+#include "mesh_geom.cuh"
 
 namespace {
 
-constexpr int NT = 256;   // threads per block
-constexpr int TE = 8;     // elements per block
+using namespace remhos;
 
-__device__ __forceinline__ float fmaT(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double fmaT(double a, double b, double c) {
-  return fma(a, b, c);
-}
+template <typename T, int DIM, int MT, int QT>
+struct Args {
+  MeshGeom<T, DIM, MT, QT, false> g;
+  T* wdet;       // [E, Q] out
+  int E, Q, te;
+  int o_wd, o_scr;
+};
 
-template <typename T, int DIM>
+template <typename T, int DIM, int MT, int QT>
 __global__ void __launch_bounds__(NT)
-wdet_kernel(const T* __restrict__ xs, const T* __restrict__ GmT,
-            const T* __restrict__ w_q, T* __restrict__ wdet, int E, int nm,
-            int Q) {
+wdet_kernel(const __grid_constant__ Args<T, DIM, MT, QT> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_x = reinterpret_cast<T*>(smem_raw);     // [TE][nm*DIM]
-  const int e_base = blockIdx.x * TE;
-  const int ne = min(TE, E - e_base);
-  const int row = nm * DIM;
-  for (int idx = threadIdx.x; idx < ne * row; idx += NT)
-    s_x[idx] = xs[(size_t)e_base * row + idx];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  MeshGeom<T, DIM, MT, QT, false> g = a.g;
+  g.s_tab = sm;
+  g.s_wd = sm + a.o_wd;
+  g.s_scr = sm + a.o_scr;
+  g.init();
+  const int e_base = blockIdx.x * a.te;
+  const int ne = min(a.te, a.E - e_base);
+  g.load(e_base, ne);
   __syncthreads();
-
-  for (int idx = threadIdx.x; idx < ne * Q; idx += NT) {
-    const int e = idx / Q, q = idx % Q;
-    T J[DIM][DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d)
-#pragma unroll
-      for (int b = 0; b < DIM; ++b) J[d][b] = T(0);
-    const T* xe = s_x + e * row;
-    for (int n = 0; n < nm; ++n) {
-      T g[DIM];
-#pragma unroll
-      for (int b = 0; b < DIM; ++b)
-        g[b] = __ldg(GmT + ((size_t)n * DIM + b) * Q + q);
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        const T x = xe[n * DIM + d];
-#pragma unroll
-        for (int b = 0; b < DIM; ++b) J[d][b] = fmaT(x, g[b], J[d][b]);
-      }
-    }
-    T det;
-    if constexpr (DIM == 3) {
-      det = J[0][0] * (J[1][1] * J[2][2] - J[1][2] * J[2][1]) +
-            J[0][1] * (J[1][2] * J[2][0] - J[1][0] * J[2][2]) +
-            J[0][2] * (J[1][0] * J[2][1] - J[1][1] * J[2][0]);
-    } else {
-      det = J[0][0] * J[1][1] - J[0][1] * J[1][0];
-    }
-    wdet[(size_t)(e_base + e) * Q + q] = __ldg(w_q + q) * det;
+  // the tile's rows are contiguous in wdet: ne * Q entries from e_base * Q
+  const int n = ne * a.Q;
+  const size_t o = (size_t)e_base * a.Q;
+  T* out = a.wdet + o;
+  const T* s_wd = g.s_wd;
+  constexpr int VEC = 16 / sizeof(T);
+  if ((reinterpret_cast<size_t>(out) | (size_t)n * sizeof(T)) % 16 == 0) {
+    const uint4* src = reinterpret_cast<const uint4*>(s_wd);
+    uint4* dst = reinterpret_cast<uint4*>(out);
+    for (int i = threadIdx.x; i < n / VEC; i += NT) dst[i] = src[i];
+  } else {
+    for (int i = threadIdx.x; i < n; i += NT) out[i] = s_wd[i];
   }
 }
 
-template <typename T, int DIM>
-int launch(const void* xs, const void* GmT, const void* w_q, void* wdet,
-           int E, int nm, int Q, cudaStream_t stream) {
-  if (E <= 0) return 0;
-  const size_t smem = (size_t)TE * nm * DIM * sizeof(T);
-  if (smem > 48 * 1024) return -3;
-  const int blocks = (E + TE - 1) / TE;
-  wdet_kernel<T, DIM><<<blocks, NT, smem, stream>>>(
-      static_cast<const T*>(xs), static_cast<const T*>(GmT),
-      static_cast<const T*>(w_q), static_cast<T*>(wdet), E, nm, Q);
+// The shared memory of a tile of te elements: the mesh tables, wd, the
+// provider's scratch. Sets the offsets in *a; returns the bytes.
+template <typename T, int DIM, int MT, int QT>
+size_t layout(Args<T, DIM, MT, QT>* a, int te) {
+  const int m1 = a->g.m1_, Q1 = a->g.Q1_;
+  int o = al4(2 * Q1 * m1);
+  a->o_wd = o;
+  o += al4(te * a->Q);
+  a->o_scr = o;
+  o += al4(te * a->g.sx);
+  return (size_t)o * sizeof(T);
+}
+
+template <typename T, int DIM, int MT, int QT>
+int launch_as(Args<T, DIM, MT, QT>& a, cudaStream_t stream) {
+  const int Q1 = a.g.Q1_;
+  const int NL = DIM == 3 ? Q1 * Q1 : Q1;
+  a.te = choose_te(NT / NL, SMEM_BUDGET,
+                   [&](int te) { return layout(&a, te); });
+  const size_t smem = layout(&a, a.te);
+  if (smem > SMEM_MAX) return -3;
+  const void* fn = reinterpret_cast<const void*>(&wdet_kernel<T, DIM, MT, QT>);
+  if (smem > 48 * 1024) {
+    const int rc = allow_smem(fn, smem);
+    if (rc != 0) return rc;
+  }
+  const int blocks = (a.E + a.te - 1) / a.te;
+  wdet_kernel<T, DIM, MT, QT><<<blocks, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int DIM>
+int launch(const void* xs, const void* msf, const void* w_q, void* wdet,
+           int E, int nm, int Q, int m1, int Q1, cudaStream_t stream) {
+  if (E <= 0) return 0;
+  const int rc = check_mesh_sizes(DIM, nm, Q, m1, Q1);
+  if (rc != 0) return rc;
+  auto fill = [&](auto& a) {
+    a.g.xs = static_cast<const T*>(xs);
+    a.g.v = nullptr;
+    a.g.msf = static_cast<const T*>(msf);
+    a.g.w_q = static_cast<const T*>(w_q);
+    a.g.mode = T(1);
+    a.g.m1_ = m1;
+    a.g.Q1_ = Q1;
+    a.g.with_det = 1;
+    a.g.sx = mesh_scratch(DIM, m1, Q1, false);
+    a.g.s_tab = a.g.s_va = a.g.s_wd = a.g.s_scr = nullptr;
+    a.wdet = static_cast<T*>(wdet);
+    a.E = E;
+    a.Q = Q;
+  };
+  constexpr int X = DIM == 3 ? 2 : 1;
+  switch (mesh_size_case(DIM, m1, Q1)) {
+    case 3 + X: { Args<T, DIM, 3, 3 + X> a; fill(a); return launch_as(a, stream); }
+    case 4 + X: { Args<T, DIM, 3, 4 + X> a; fill(a); return launch_as(a, stream); }
+    case 5 + X: { Args<T, DIM, 3, 5 + X> a; fill(a); return launch_as(a, stream); }
+    default: { Args<T, DIM, 0, 0> a; fill(a); return launch_as(a, stream); }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// xs[E, nm, dim], GmT[nm, dim, Q], w_q[Q] -> wdet[E, Q]. Returns 0, a CUDA
-// error code (> 0), or < 0 for a bad argument.
-int remhos_wdet(int dtype_bytes, int dim, const void* xs, const void* GmT,
-                const void* w_q, void* wdet, int E, int nm, int Q,
+// xs[E, nm, dim], msf (the packed mesh tables, ops/tables.MESH_TABLES),
+// w_q[Q] -> wdet[E, Q]; sizes: E, nm, Q, m1, Q1 (m1 nodes and Q1 points
+// per axis). Returns 0, a CUDA error code (> 0), or < 0 for a bad argument
+// (-1: sizes; -2: type or dimension; -3: shared memory; -5: not a
+// tensor-product element within DMAX, QMAX).
+int remhos_wdet(int dtype_bytes, int dim, const void* xs, const void* msf,
+                const void* w_q, void* wdet, const int* sizes, int nsizes,
                 void* stream) {
+  if (nsizes != 5) return -1;
+  const int E = sizes[0], nm = sizes[1], Q = sizes[2], m1 = sizes[3],
+            Q1 = sizes[4];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype_bytes == 4 && dim == 3) return launch<float, 3>(xs, GmT, w_q, wdet, E, nm, Q, s);
-  if (dtype_bytes == 8 && dim == 3) return launch<double, 3>(xs, GmT, w_q, wdet, E, nm, Q, s);
-  if (dtype_bytes == 4 && dim == 2) return launch<float, 2>(xs, GmT, w_q, wdet, E, nm, Q, s);
-  if (dtype_bytes == 8 && dim == 2) return launch<double, 2>(xs, GmT, w_q, wdet, E, nm, Q, s);
+#define REMHOS_WD(T, D) \
+  return launch<T, D>(xs, msf, w_q, wdet, E, nm, Q, m1, Q1, s)
+  if (dtype_bytes == 4 && dim == 3) REMHOS_WD(float, 3);
+  if (dtype_bytes == 8 && dim == 3) REMHOS_WD(double, 3);
+  if (dtype_bytes == 4 && dim == 2) REMHOS_WD(float, 2);
+  if (dtype_bytes == 8 && dim == 2) REMHOS_WD(double, 2);
+#undef REMHOS_WD
   return -2;
 }
 

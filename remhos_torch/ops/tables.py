@@ -13,10 +13,12 @@ Counterparts of `stage_ho_tables` and `build_poly_tables` in
 
 Every dense table is stored input-index-major ([K, L] for an L-long output
 contracted over K). The plain versions contract with the dense tables; the
-stage kernels (kernels 1, 2 and 5) contract axis by axis with their 1D
-factors (`sum_factor_tables`): every dense table of the fused family is a
-Kronecker product of one 1D table per axis (axis 0 fastest), because the
-fused stage runs only on tensor-product elements.
+stage kernels (kernels 1, 2 and 5, and kernel 4's volume action) contract
+axis by axis with their 1D factors (`sum_factor_tables`): every dense table
+of the fused family is a Kronecker product of one 1D table per axis (axis 0
+fastest), because the fused stage runs only on tensor-product elements. So
+are the mesh tables Bm and Gm, whose 1D factors (`mesh_factor_tables`)
+kernels 3 and 4 contract the nodes with.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ from .. import geometry as geo
 # order of the 1D tables in the packed `sf` block the stage kernels stage in
 # shared memory (csrc/stage_core.cuh reads them in this order)
 SF_TABLES = ("B1", "G1", "Bw1", "Bgl1", "Bgl21", "Bf1", "wBf1", "A1")
+# order of the 1D mesh tables in the packed `msf` block kernels 3 and 4 stage
+# (csrc/mesh_geom.cuh)
+MESH_TABLES = ("Bm1", "Gm1")
 
 
 def poly_layout(dim, Q, FQ):
@@ -104,6 +109,43 @@ def sum_factor_tables(disc):
         A1=np.linalg.solve(B.bernstein_vals(p, unodes),
                            B.lagrange_vals(gl, unodes)),
         D=D, Q1=Q1)
+
+
+def mesh_factor_tables(disc):
+    """The 1D factors of the mesh tables (host numpy, float64): with m1 =
+    mesh order + 1 Gauss-Lobatto nodes and Q1 Gauss-Legendre points per
+    axis, Bm1, Gm1 [Q1, m1]: the Lagrange values and derivatives at the
+    volume points (Bm = Bm1 x ... x Bm1; Gm[..., b] has Gm1 on axis b).
+    Raises ValueError unless they rebuild disc.Bm and disc.Gm (kernels 3
+    and 4 contract with them axis by axis)."""
+    dim = disc.dim
+    Q, nm = np.asarray(disc.Bm).shape
+    m1 = round(nm ** (1.0 / dim))
+    Q1 = round(Q ** (1.0 / dim))
+    if m1 ** dim != nm or Q1 ** dim != Q:
+        raise ValueError("the mesh geometry kernels need tensor-product "
+                         "elements with one 1D rule on every axis")
+    q1 = B.gauss_legendre(Q1)[0]
+    gll = B.gauss_lobatto(m1)
+    Bm1, Gm1 = B.lagrange_vals(gll, q1), B.lagrange_grads(gll, q1)
+    Bm = B.tensor_mixed([Bm1] * dim)
+    Gm = B.tensor_mixed_grads([Bm1] * dim, [Gm1] * dim)
+    for got, want in ((Bm, disc.Bm), (Gm, disc.Gm)):
+        want = np.asarray(want, np.float64)
+        if np.abs(got - want).max() > 1e-12 * np.abs(want).max():
+            raise ValueError("the mesh tables are not Kronecker products of "
+                             "the Gauss-Lobatto Lagrange 1D tables")
+    return dict(Bm1=Bm1, Gm1=Gm1, m1=m1, Q1=Q1)
+
+
+def mesh_factor_block(disc, dtype, device):
+    """The packed block `msf` = [Bm1 | Gm1] ([Q1, m1] each, row-major, in
+    MESH_TABLES order) that kernels 3 and 4 stage in shared memory, and the
+    sizes m1, Q1."""
+    f = mesh_factor_tables(disc)
+    msf = np.concatenate([f[k].ravel() for k in MESH_TABLES])
+    return dict(msf=torch.as_tensor(msf, dtype=dtype, device=device),
+                m1=f["m1"], Q1=f["Q1"])
 
 
 def stage_ho_tables(disc, dtype, device):
@@ -269,17 +311,19 @@ def table_shapes(tb, extra=()):
 INT_NAMES = ("bdr", "dof_faces", "cls")
 
 
-def check_tables(tb, extra=(), key="checked"):
+def check_tables(tb, extra=(), key="checked", shapes=None):
     """Check the static tables once and record it: tb[key] = (dtype,
-    device). Every float table has the dtype of GuT (float32 or float64),
+    device). Every float table has the dtype of w_q (float32 or float64),
     the int tables are int32, all on one device, contiguous, with the
-    shapes of `table_shapes`. Raises TypeError or ValueError as the
-    wrappers' operand checks do."""
-    dtype, device = tb["GuT"].dtype, tb["GuT"].device
+    shapes of `table_shapes` (or `shapes`, {name: shape}, for the tables of
+    kernels 3 and 4). Raises TypeError or ValueError as the wrappers'
+    operand checks do."""
+    dtype, device = tb["w_q"].dtype, tb["w_q"].device
     if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the stage tables are {dtype}, not float32 or "
-                        "float64")
-    for name, shape in table_shapes(tb, extra).items():
+        raise TypeError(f"the tables are {dtype}, not float32 or float64")
+    if shapes is None:
+        shapes = table_shapes(tb, extra)
+    for name, shape in shapes.items():
         x = tb[name]
         if x is None:
             continue
@@ -289,7 +333,7 @@ def check_tables(tb, extra=(), key="checked"):
         if x.dtype != want:
             raise TypeError(f"{name} is {x.dtype}, must be {want}")
         if x.device != device:
-            raise ValueError(f"{name} is on {x.device}, GuT on {device}")
+            raise ValueError(f"{name} is on {x.device}, w_q on {device}")
         if device.type == "cuda" and not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     tb[key] = (dtype, device)

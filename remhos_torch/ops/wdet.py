@@ -2,10 +2,11 @@
 and plain PyTorch version.
 
 `wdet` is the port of `fused_wdet` (remhos_tpu/ops/pallas_kernels.py:1130):
-the Jacobian at every volume quadrature point by a length-nm dot against
-the mesh gradient table, its closed-form determinant, times the quadrature
-weight; J never reaches memory. The kernel is `csrc/wdet.cu` (CUDA C++,
-sm_90a), built by nvcc at first use and called through ctypes.
+the Jacobian at every volume quadrature point, its closed-form determinant,
+times the quadrature weight; J never reaches memory. The kernel is
+`csrc/wdet.cu` (CUDA C++, sm_90a): the load stage of the sum-factorized
+mesh geometry of `csrc/mesh_geom.cuh` (J by axis-by-axis contractions with
+the 1D mesh tables), built by nvcc at first use and called through ctypes.
 
 On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor,
 and only then, it runs `wdet_reference`.
@@ -20,60 +21,68 @@ import torch
 
 from .. import geometry as geo
 from . import build
+from . import stage_core as core
+from .tables import check_tables, mesh_factor_block
 
-ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
+_P = ctypes.c_void_p
+ARGTYPES = [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int, _P]
 
 
 def wdet_tables(disc, dtype, device):
-    """The kernel's static tables: Gm[Q, nm, dim] (the plain version reads
-    it), the same point-minor as GmT[nm, dim, Q] (the kernel reads it) and
-    w_q[Q]. nm comes from the mesh order, not from the solution order."""
-    Gm = np.asarray(disc.Gm, np.float64)
-
+    """The static tables: Gm[Q, nm, dim] (the plain version reads it), the
+    packed 1D mesh tables `msf` (`tables.mesh_factor_block`: the kernel
+    reads them), w_q[Q] and the sizes m1, Q1. nm comes from the mesh order,
+    not from the solution order. Raises ValueError where the mesh tables
+    are not Kronecker products. Checked once here (`tables.check_tables`)."""
     def F(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
 
-    return dict(Gm=F(Gm), GmT=F(Gm.transpose(1, 2, 0)), w_q=F(disc.w_q))
+    tb = dict(Gm=F(np.asarray(disc.Gm, np.float64)), w_q=F(disc.w_q),
+              **mesh_factor_block(disc, dtype, device))
+    Q, nm, dim = tb["Gm"].shape
+    check_tables(tb, shapes=dict(Gm=(Q, nm, dim), w_q=(Q,),
+                                 msf=(2 * tb["Q1"] * tb["m1"],)))
+    return tb
 
 
 def wdet_reference(xs, tables):
-    """Plain PyTorch version, on any device: w_q det J [E, Q]."""
+    """Plain PyTorch version, on any device: w_q det J [E, Q], from the dense
+    Gm (a length-nm dot per Jacobian entry)."""
     return tables["w_q"][None, :] * geo.volume_detj(xs, tables["Gm"])
 
 
+def _launcher(tables):
+    """The C entry bound once per table dict, with the tables' pointers and
+    the size array (E, nm, Q, m1, Q1; a launch writes E)."""
+    lau = tables.get("launcher")
+    if lau is None:
+        lib = build.bind(build.load("wdet"), "remhos_wdet", ARGTYPES)
+        Q, nm, _ = tables["Gm"].shape
+        sizes = (ctypes.c_int * 5)(0, nm, Q, tables["m1"], tables["Q1"])
+        lau = tables["launcher"] = (lib, lib.remhos_wdet, sizes,
+                                    tables["msf"].data_ptr(),
+                                    tables["w_q"].data_ptr())
+    return lau
+
+
 def wdet(xs, tables):
-    """wdet[E, Q] = w_q det J at the volume rule for nodes xs[E, nm, dim]."""
-    GmT, w_q = tables["GmT"], tables["w_q"]
-    if xs.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"wdet takes float32 or float64, got {xs.dtype}")
-    if xs.dim() != 3 or xs.shape[2] not in (2, 3):
-        raise ValueError(f"xs must be [E, nm, 2 or 3], got {tuple(xs.shape)}")
-    E, nm, dim = xs.shape
-    Q = w_q.shape[0]
-    if tuple(GmT.shape) != (nm, dim, Q):
-        raise ValueError(f"GmT must be {(nm, dim, Q)}, got "
-                         f"{tuple(GmT.shape)}")
-    for name, x in (("GmT", GmT), ("w_q", w_q)):
-        if x.dtype != xs.dtype:
-            raise TypeError(f"{name} is {x.dtype}, must be {xs.dtype}")
-        if x.device != xs.device:
-            raise ValueError(f"{name} is on {x.device}, xs on {xs.device}")
-    if xs.device.type == "cpu":
+    """wdet[E, Q] = w_q det J at the volume rule for nodes xs[E, nm, dim];
+    `tables` from `wdet_tables`. Per call only xs is checked."""
+    Q, nm, dim = tables["Gm"].shape
+    E = xs.shape[0] if xs.dim() == 3 else -1
+    core.check_operands("wdet", ("xs",), (xs,), ((E, nm, dim),), tables)
+    device = xs.device
+    if device.type == "cpu":
         return wdet_reference(xs, tables)
-    if xs.device.type != "cuda":
-        raise ValueError(f"wdet runs on cuda or cpu, not {xs.device}")
-    for name, x in (("xs", xs), ("GmT", GmT), ("w_q", w_q)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    out = torch.empty((E, Q), dtype=xs.dtype, device=xs.device)
-    lib = build.bind(build.load("wdet"), "remhos_wdet", ARGTYPES)
-    rc = build.call_on(xs.device, lib.remhos_wdet, xs.element_size(), dim,
-                       xs.data_ptr(), GmT.data_ptr(), w_q.data_ptr(),
-                       out.data_ptr(), E, nm, Q)
-    build.check(lib, rc, "wdet")
+    lib, fn, sizes, msf, w_q = _launcher(tables)
+    sizes[0] = E
+    out = xs.new_empty((E, Q))
+    rc = build.call_on(device, fn, xs.element_size(), dim, xs.data_ptr(),
+                       msf, w_q, out.data_ptr(), sizes, 5)
+    if rc:
+        build.check(lib, rc, "wdet")
     wdet.launches += 1
     return out
 

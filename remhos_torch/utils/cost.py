@@ -5,7 +5,8 @@ Bytes count each input read once (the operands and the static tables the
 kernel reads) and each output written once. Operations count 2 per
 multiply-add with every tensor-product table contraction at its
 sum-factorized size (the tables are tensor products of 1D ones: n1 = p + 1
-dofs, m1 = mesh order + 1 nodes and q1 points per direction), plus the
+dofs, m1 = mesh order + 1 nodes and q1 points per direction; kernels 3 and
+4 share the partial contractions of a gradient, `gradient_macs`), plus the
 pointwise work. Where the work depends on the data (gl_cg's masked
 iterations, the gather's reads), the caller passes what this run's data
 takes. `bound` turns (bytes, flops) into the least time: the larger of
@@ -105,36 +106,55 @@ def stage_cost(tb, P, n_cg, kind="mega", with_lo=False):
     return nbytes, E * (2 * mac + pointwise)
 
 
+def gradient_macs(n, q, dim):
+    """Multiply-adds of all dim reference derivatives of one field from n^dim
+    values to q^dim points, axis by axis with the partial contractions
+    shared (kernels 3 and 4, csrc/mesh_geom.cuh and the core): along axis k
+    < dim - 1 the k + 2 partials with at most one derivative table, along
+    the last axis the dim derivatives."""
+    mac = sum((k + 2) * q ** (k + 1) * n ** (dim - k - 1) * n
+              for k in range(dim - 1))
+    return mac + dim * q ** dim * n
+
+
 def wdet_cost(xs, tables):
-    """(bytes, flops) of kernel 3: xs and the tables read once, wdet written
-    once; the dim*dim Jacobian entries as sum-factorized contractions from
-    m1^dim nodes to Q points, then the closed-form determinant."""
+    """(bytes, flops) of kernel 3: xs and the kernel's tables (the packed 1D
+    mesh tables and w_q) read once, wdet written once; the dim*dim Jacobian
+    entries as `gradient_macs` of each coordinate from m1^dim nodes to Q
+    points, then the closed-form determinant times w_q."""
     E, nm, dim = xs.shape
-    Q = tables["w_q"].shape[0]
-    m1, q1 = _root(nm, dim), _root(Q, dim)
+    m1, q1 = tables["m1"], tables["Q1"]
+    Q = q1 ** dim
+    assert m1 ** dim == nm, "the nodes are not the tables' mesh order"
     itemsize = xs.element_size()
-    nbytes = (xs.numel() + tables["GmT"].numel() + Q + E * Q) * itemsize
+    nbytes = (xs.numel() + tables["msf"].numel() + Q + E * Q) * itemsize
     det = 14 if dim == 3 else 3
-    return nbytes, E * (2 * dim * dim * tensor_macs(m1, q1, dim)
-                        + (det + 1) * Q)
+    return nbytes, E * (2 * dim * gradient_macs(m1, q1, dim) + (det + 1) * Q)
 
 
-def geom_conv_cost(xs, u, tables):
-    """(bytes, flops) of kernel 4: xs, v, u and the kernel's tables read
-    once, Ku and wdet written once; the dim*dim Jacobian entries and the dim
-    velocity components as sum-factorized contractions from m1^dim nodes to
-    Q points, the dim reference gradients of u from nd dofs to Q points and
-    Ku back from Q points to nd dofs, then the cofactor algebra at every
-    point."""
+def geom_conv_cost(xs, u, tables, with_wdet=True):
+    """(bytes, flops) of kernel 4: xs, v, u and the kernel's tables (the
+    packed 1D factors of the core and of the mesh, w_q) read once, Ku
+    written once and wdet only `with_wdet`; the dim*dim Jacobian entries
+    (`gradient_macs` of each coordinate) and the dim velocity components as
+    sum-factorized contractions from m1^dim nodes to Q points, the dim
+    reference gradients of u from nd dofs to Q points and Ku back from Q
+    points to nd dofs, then the cofactor algebra at every point, with the
+    determinant and w_q only `with_wdet`."""
     E, nm, dim = xs.shape
-    nd, Q = u.shape[1], tables["w_q"].shape[0]
-    m1, n1, q1 = _root(nm, dim), _root(nd, dim), _root(Q, dim)
+    nd = u.shape[1]
+    m1, q1 = tables["m1"], tables["Q1"]
+    Q, n1 = q1 ** dim, _root(nd, dim)
+    assert m1 ** dim == nm, "the nodes are not the tables' mesh order"
     itemsize = xs.element_size()
-    tb = sum(tables[k].numel() for k in ("GmT", "BmT", "GuT", "Buw", "w_q"))
-    nbytes = (2 * xs.numel() + u.numel() + tb + E * nd + E * Q) * itemsize
-    mac = ((dim * dim + dim) * tensor_macs(m1, q1, dim)
-           + (dim + 1) * tensor_macs(n1, q1, dim))
+    tb = sum(tables[k].numel() for k in ("sf", "msf", "w_q"))
+    nbytes = (2 * xs.numel() + u.numel() + tb + E * nd
+              + (E * Q if with_wdet else 0)) * itemsize
+    mac = (dim * gradient_macs(m1, q1, dim) + dim * tensor_macs(m1, q1, dim)
+           + gradient_macs(n1, q1, dim) + tensor_macs(n1, q1, dim))
     pointwise = (55 if dim == 3 else 14) * Q
+    if not with_wdet:
+        pointwise -= (6 if dim == 3 else 4) * Q     # det J and w_q det J
     return nbytes, E * (2 * mac + pointwise)
 
 

@@ -109,7 +109,7 @@ def _make_stage_prefix(adv, dtype):
             else:
                 u_nbr = adv.gather_nbr(u)
                 Ku, _ = geom_conv(geom["xs"], adv.v_nodes, u, adv._gc_tables,
-                                  1.0)
+                                  1.0, with_wdet=False)
                 contrib = pam.face_full_apply(u[:, adv.bdr_dofs], u_nbr,
                                               adv.Bface, geom["wvn"])
                 du_HO = asm.scatter_face_add(Ku, contrib, adv.bdr_dofs)

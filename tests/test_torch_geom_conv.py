@@ -9,7 +9,9 @@ tensors, i.e. the plain version `geom_conv_reference`, through the wrapper.
 Tolerances, relative to the largest entry of the JAX result: f64 1e-12 (the
 same sums in another order; the JAX package's own check is 1e-14 absolute at
 4^3, tests/test_foundations.py:165), f32 1e-5 (a few hundred f32 roundings
-of O(1) terms).
+of O(1) terms). `with_wdet=False` leaves Ku bit for bit as it is and
+returns no wdet; `Advection.conv_volume`, which asks for none, still equals
+the JAX package's composition.
 """
 
 import numpy as np
@@ -74,11 +76,30 @@ def test_geom_conv_matches_pallas_kernel(shape, p, mesh_order, sign, dtype):
     assert _rel(wt, wj) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("shape,p,mesh_order", CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_geom_conv_without_wdet_keeps_ku(shape, p, mesh_order, dtype):
+    """with_wdet=False: the same Ku, bit for bit on the CPU, and None for
+    wdet; the plain version takes the same flag."""
+    _, td, xs, v, u = _inputs(shape, p, mesh_order, 4)
+    tables = gc.geom_conv_tables(td, dtype, "cpu")
+    args = [convert.tensor(a, dtype) for a in (xs, v, u)]
+    K1, w1 = gc.geom_conv(*args, tables, -1.0)
+    K0, w0 = gc.geom_conv(*args, tables, -1.0, with_wdet=False)
+    assert w1 is not None and w0 is None
+    assert torch.equal(K0, K1)
+    Kr, wr = gc.geom_conv_reference(*args, tables, -1.0, with_wdet=False)
+    assert wr is None and torch.equal(Kr, K1)
+
+
 @pytest.mark.parametrize("shape,p,mesh_order", CASES[:1] + CASES[3:4])
 def test_geom_conv_matches_conv_action(shape, p, mesh_order):
     """The XLA composition of the JAX package: va from volume_detj_va, then
-    pa.conv_action; and the port's own conv_action on the same va."""
+    pa.conv_action; the port's own conv_action on the same va; and the
+    non-fused operator's `conv_volume` (geom_conv without wdet) at the same
+    nodes."""
     from remhos_torch import pa
+    from remhos_torch.operator import Advection, SolverConfig
     jd, td, xs, v, u = _inputs(shape, p, mesh_order, 2)
     v_q = jgeo.interp_nodes(jnp.asarray(v), jnp.asarray(jd.Bm))
     detJ, va = jgeo.volume_detj_va(jnp.asarray(xs), jnp.asarray(jd.Gm), v_q,
@@ -93,6 +114,10 @@ def test_geom_conv_matches_conv_action(shape, p, mesh_order):
     assert _rel(wt, jd.w_q[None, :] * np.asarray(detJ)) <= 1e-12
     Kc = pa.conv_action(t(u), t(va), t(td.Gu), t(Bu_w))
     assert _rel(Kc, Kj) <= 1e-12
+    adv = Advection(td, SolverConfig(problem=10, ho=3, lo=3, fct=2, pa=True),
+                    td.mesh.x, v, dtype=torch.float64, device="cpu")
+    Kv = adv.conv_volume(dict(xs=t(xs)), t(u))
+    assert _rel(Kv, Kj) <= 1e-12
 
 
 def test_geom_conv_refuses_bad_operands():

@@ -16,6 +16,8 @@ import torch
 
 from remhos_torch import bench, bounds, driver, structured
 from remhos_torch.config import RunConfig
+from remhos_torch.discretization import build_discretization
+from remhos_torch.mesh import make_cartesian_mesh
 from remhos_torch.operator import Advection, SolverConfig
 from remhos_torch import ops
 from remhos_torch.ops import gather_nbr as gn
@@ -122,8 +124,18 @@ def _golden_row(name):
 
 def _nonfused_operator(shape, dtype):
     """A non-fused operator on the card: p=3 on an n^dim box with the
-    benchmark's mesh motion, or the operator of a named golden row (the
-    `remap-cube3d-*pa` rows: their own mesh, p=2)."""
+    benchmark's mesh motion; (dim, n, p, mesh order): order p on an n^dim
+    box of that mesh order with a smooth mesh velocity; or the operator of a
+    named golden row (the `remap-cube3d-*pa` rows: their own mesh, p=2)."""
+    if isinstance(shape, tuple) and len(shape) == 4:
+        dim, n, p, mesh_order = shape
+        mesh = make_cartesian_mesh(dim, (n,) * dim, (0.0,) * dim,
+                                   (1.0,) * dim, (False,) * dim, mesh_order)
+        x0 = mesh.x
+        v = 0.1 * np.sin(3.0 * x0) * np.cos(2.0 * x0[..., ::-1])
+        return Advection(build_discretization(mesh, p),
+                         SolverConfig(problem=10, ho=3, lo=3, fct=2, pa=True),
+                         x0, v, dtype=dtype, device="cuda")
     if isinstance(shape, str):
         name = "float32" if dtype == torch.float32 else "float64"
         return driver.build_operator(RunConfig(
@@ -137,7 +149,11 @@ def _nonfused_operator(shape, dtype):
                      base.v_nodes, dtype=dtype, device="cuda")
 
 
-SHAPES = [(3, 5), (2, 9), "remap-cube3d-m3pa"]
+# (dim, n) at p=3, a golden row, then (dim, n, p, mesh order): p = 1 and 5
+# and mesh orders 1 and 3 run the kernels' runtime sizes
+SHAPES = [(3, 5), (2, 9), "remap-cube3d-m3pa",
+          (3, 5, 1, 2), (3, 4, 5, 2), (3, 4, 3, 1), (3, 4, 3, 3),
+          (2, 9, 1, 2), (2, 9, 5, 2), (2, 8, 3, 1), (2, 8, 3, 3)]
 
 
 @pytest.mark.gpu
@@ -145,9 +161,9 @@ SHAPES = [(3, 5), (2, 9), "remap-cube3d-m3pa"]
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
 def test_wdet_matches_reference(shape, dtype, tol):
-    """The wdet kernel vs its plain version on moved nodes; 125 and 81
-    elements leave a ragged last tile of its 8-element blocks, and the
-    golden row's mesh gives it p=2."""
+    """The wdet kernel vs its plain version on moved nodes; 125, 81 and 64
+    elements leave a ragged last tile, the golden row's mesh gives it p=2,
+    and the 4-tuples other orders and mesh orders (runtime sizes)."""
     _cuda()
     adv = _nonfused_operator(shape, dtype)
     xs = (adv.x0_nodes + 0.3 * adv.v_nodes).contiguous()
@@ -164,11 +180,13 @@ def test_wdet_matches_reference(shape, dtype, tol):
 @pytest.mark.parametrize("dtype,tol,wtol", [(torch.float64, 1e-12, 1e-12),
                                             (torch.float32, 1e-5, 1e-5)])
 @pytest.mark.parametrize("sign", [1.0, -1.0])
-def test_geom_conv_matches_reference(shape, dtype, tol, wtol, sign):
+@pytest.mark.parametrize("with_wdet", [True, False])
+def test_geom_conv_matches_reference(shape, dtype, tol, wtol, sign,
+                                     with_wdet):
     """The geom_conv kernel vs its plain version on moved nodes, the mesh
-    velocity and a random u: Ku and wdet; 125 and 81 elements leave a ragged
-    last block, and the golden row's mesh gives it p=2. Tolerances as in
-    chip_smoke.py."""
+    velocity and a random u: Ku and (with_wdet) wdet, else None; ragged last
+    tiles, the golden row's p=2 and the runtime sizes as in
+    test_wdet_matches_reference. Tolerances as in chip_smoke.py."""
     _cuda()
     adv = _nonfused_operator(shape, dtype)
     xs = adv.x0_nodes + 0.3 * adv.v_nodes
@@ -176,11 +194,12 @@ def test_geom_conv_matches_reference(shape, dtype, tol, wtol, sign):
     u = torch.as_tensor(rng.random((xs.shape[0], adv.disc.nd)), dtype=dtype,
                         device="cuda")
     before = gc.geom_conv.launches
-    got = gc.geom_conv(xs, adv.v_nodes, u, adv._gc_tables, sign)
+    got = gc.geom_conv(xs, adv.v_nodes, u, adv._gc_tables, sign, with_wdet)
     torch.cuda.synchronize()
     assert gc.geom_conv.launches == before + 1
     ref = gc.geom_conv_reference(xs, adv.v_nodes, u, adv._gc_tables, sign)
-    for g, r, lim in zip(got, ref, (tol, wtol)):
+    assert (got[1] is None) == (not with_wdet)
+    for g, r, lim in list(zip(got, ref, (tol, wtol)))[:1 + with_wdet]:
         assert (g - r).abs().max().item() <= lim * r.abs().max().item()
     with pytest.raises(ValueError, match="contiguous"):
         gc.geom_conv(xs, adv.v_nodes, u.T.contiguous().T, adv._gc_tables,

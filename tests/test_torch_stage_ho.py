@@ -150,8 +150,8 @@ def test_wdet_reference_matches_jax_fused_wdet(shape, mesh_order, uniform):
     xs = x0 + 0.37 * v
     wj = pk.fused_wdet(jnp.asarray(xs), jd, interpret=True)
     tables = wd.wdet_tables(td, torch.float64, "cpu")
-    assert tables["GmT"].shape == ((mesh_order + 1) ** len(shape),
-                                   len(shape), len(td.w_q))
+    assert tables["m1"] == mesh_order + 1
+    assert tables["msf"].shape == (2 * tables["Q1"] * tables["m1"],)
     before = wd.wdet.launches
     wt = wd.wdet(convert.tensor(xs), tables)
     assert wd.wdet.launches == before           # CPU: plain version only

@@ -4,7 +4,10 @@ on the CPU.
 - The 1D factor tables of `ops.tables.sum_factor_tables` (what the
   sum-factorized CUDA core reads) rebuild every dense stage table by
   Kronecker products, axis 0 fastest, to 1e-13 of the table's largest entry
-  in f64: dim 2 and 3, p = 1..4, mesh orders 1 and 2.
+  in f64: dim 2 and 3, p = 1..5, mesh orders 1, 2 and 3; so do the 1D mesh
+  tables of `ops.tables.mesh_factor_tables` (what kernels 3 and 4 read)
+  with the dense mesh tables Bm and Gm, and a table that is not a
+  Kronecker product is refused.
 - `Advection.geometry(t)` of the non-fused stage issues no `aten::bmm`
   (the per-point dot products are elementwise products summed over the
   last axis), with `-lo 3` and with `-lo 4` (the subcell weights); its
@@ -17,6 +20,8 @@ on the CPU.
   gives the second layout's answer, an in-place change of a tensor table is
   seen, and the first layout's answer comes back.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -65,7 +70,7 @@ def _close(got, want):
     assert np.abs(got - want).max() <= REL * np.abs(want).max()
 
 
-@pytest.mark.parametrize("mesh_order", [1, 2])
+@pytest.mark.parametrize("mesh_order", [1, 2, 3])
 @pytest.mark.parametrize("p", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("shape", [(2, 2, 2), (3, 2)], ids=str)
 def test_factor_tables_rebuild_the_dense_tables(shape, p, mesh_order):
@@ -93,6 +98,26 @@ def test_factor_tables_rebuild_the_dense_tables(shape, p, mesh_order):
     packed = np.concatenate([f[k].ravel() for k in tbl.SF_TABLES])
     _close(tb["sf"], packed)
     assert tb["checked"] == (torch.float64, torch.device("cpu"))
+    # the mesh tables of kernels 3 and 4
+    m = tbl.mesh_factor_tables(disc)
+    assert (m["m1"], m["Q1"]) == (mesh_order + 1, f["Q1"])
+    Bm1, Gm1 = m["Bm1"], m["Gm1"]
+    _close(_kron([Bm1] * dim), disc.Bm)
+    for b in range(dim):
+        _close(_kron([Gm1 if a == b else Bm1 for a in range(dim)]),
+               disc.Gm[:, :, b])
+    block = tbl.mesh_factor_block(disc, torch.float64, "cpu")
+    _close(block["msf"], np.concatenate([Bm1.ravel(), Gm1.ravel()]))
+
+
+def test_mesh_factor_tables_refuse_a_non_kronecker_table():
+    disc = _disc((2, 2, 2), 2)
+    Gm = disc.Gm.copy()
+    Gm[3, 5, 1] += 1e-6
+    with pytest.raises(ValueError, match="Kronecker"):
+        tbl.mesh_factor_tables(dataclasses.replace(disc, Gm=Gm))
+    with pytest.raises(ValueError, match="tensor-product"):
+        tbl.mesh_factor_tables(dataclasses.replace(disc, Bm=disc.Bm[:, :-1]))
 
 
 def _nonfused(shape, lo, ho):
