@@ -13,12 +13,14 @@ It builds the CUDA kernels from the sources on first use, then:
    step 9): the mega stage; the HO stage with and without its LO
    output and once with n_cg == 0; wdet; geom_conv; the HO stage from the
    nodes (kernel 5) with its defaults, n_cg=0, with_face=False and mode=-1;
-   the element-local GL CG (kernel 6); the neighbour gather (kernel 7), bit
-   for bit, on the mesh, on the same shape made periodic and on a layout
-   whose block size is not a multiple of 8. Limits, relative to the largest
-   entry of the plain result: du (and CG's x) 2e-4 (f32) and 1e-10 (f64);
-   wdet, and geom_conv's Ku, 1e-5 (f32) and 1e-12 (f64); f32 wdet and
-   geom_conv are held to their plain versions evaluated in f64 on the same
+   the element-local GL CG (kernel 6) with its defaults, with every 7th
+   right-hand side row 0 and with n_iter=0; the neighbour gather (kernel
+   7), bit for bit, on the mesh, on the same shape made periodic and on a
+   layout whose block size is not a multiple of 8. Limits, relative to the
+   largest entry of the plain result: du (and CG's x) 2e-4 (f32) and 1e-10
+   (f64); wdet, and geom_conv's Ku, 1e-5 (f32) and 1e-12 (f64); f32 wdet
+   (of kernels 3, 4 and 5) and geom_conv are held to their plain versions
+   evaluated in f64 on the same
    inputs (the f32 plain version's dense sums of O(1) coordinates lie ~1e-5
    from that at 24^3, its distance is printed beside; the kernels contract
    coordinates relative to each element's first node). Each check prints
@@ -28,11 +30,12 @@ It builds the CUDA kernels from the sources on first use, then:
    calls (taken in turns) and as device time from a trace. geom_conv is
    also held and timed without its wdet output (with_wdet=False, as the
    non-fused stage calls it), and wdet and geom_conv at 3D N=24 f32 also by
-   their device time from a trace. Then kernels 1, 2 and 5 at the orders
-   p = 1, 2, 4 and 5 (3D N=24 and 2D 16x16, f32 and f64; p = 1 and 5 run
-   the core's runtime-size instantiation), and wdet and geom_conv at p = 2
-   and 4 (mesh order 2) and at mesh orders 1 and 3 (p = 3; runtime sizes)
-   on the same meshes.
+   their device time from a trace. Then kernels 1, 2, 5 and 6 at the
+   orders p = 1, 2, 4 and 5 (3D N=24 and 2D 16x16, f32 and f64; p = 1 and 5
+   run the core's runtime-size instantiation), and wdet and geom_conv at
+   p = 2 and 4 (mesh order 2) and at mesh orders 1 and 3 (p = 3; runtime
+   sizes) on the same meshes, kernel 5 with its four options at mesh
+   orders 1 and 3.
    The f32 stage kernels (1, 2, 5) are held to the plain version evaluated
    in f64 on the same inputs with the kernel's one Jacobi sweep (the plain
    version's own f32 result carries its own rounding, amplified by the
@@ -448,9 +451,12 @@ def mesh_order_operator(n, p, mesh_order, dim, dtype, device):
 
 
 def check_mesh_orders(dev, rng):
-    """wdet and geom_conv at MESH_CASES, 3D N=24 and 2D 16x16, f32 and f64:
-    {kernel: {key: record}}."""
+    """wdet and geom_conv at MESH_CASES, 3D N=24 and 2D 16x16, f32 and f64,
+    and kernel 5 with its variants at the mesh orders other than 2:
+    {kernel: {key: record}}. Kernel 5 draws from its own stream: kernels 3
+    and 4 see the inputs they saw before its checks existed."""
     out = {}
+    rng5 = np.random.default_rng(SEED + 4)
     for p, mo in MESH_CASES:
         for tag, n, dim in (("3d", N_MAIN, 3), ("2d", 16, 2)):
             size = f"{tag} N={n}" if dim == 3 else f"{tag} {n}x{n}"
@@ -462,6 +468,8 @@ def check_mesh_orders(dev, rng):
                 out.setdefault("wdet", {})[key] = check_wdet(label, adv)
                 out.setdefault("geom_conv", {})[key] = check_geom_conv(
                     label, adv, rng)
+                if mo != 2:
+                    stage_ho_nodes_variants(key, label, adv, rng5, out)
                 del adv
         torch.cuda.empty_cache()
     return out
@@ -470,8 +478,9 @@ def check_mesh_orders(dev, rng):
 def check_stage_ho_nodes(label, adv, tb, tb64, rng, **kw):
     """Kernel 5 vs plain version (`hold`; tb64: the f64 tables) at the nodes
     x0 + 0.3 v, the mesh velocity v, a random u and its trace: du (Ku with
-    n_cg=0) and wdet; kw are the kernel's options (mode, n_cg,
-    with_face)."""
+    n_cg=0) and wdet (in f32 against the plain version evaluated in f64, as
+    wdet and geom_conv: the kernel's geometry is theirs); kw are the
+    kernel's options (mode, n_cg, with_face)."""
     dtype = adv.dtype
     v = adv.v_nodes
     xs = (adv.x0_nodes + 0.3 * v).contiguous()
@@ -490,12 +499,13 @@ def check_stage_ho_nodes(label, adv, tb, tb64, rng, **kw):
     torch.cuda.synchronize()
     err, rel, prel = hold(label, "du", got[0], ref[0], ref64[0],
                           LIMITS[dtype])
-    _, wrel, _ = hold(label, "wdet", got[1], ref[1], None,
-                      WDET_LIMITS[dtype])
+    _, wrel, wprel = hold(label, "wdet", got[1], ref[1], ref64[1],
+                          WDET_LIMITS[dtype])
     res = dict(check=label, kernel="stage_ho_nodes", E=u.shape[0],
-               mode=kw["mode"], n_cg=n, with_face=kw["with_face"],
-               max_abs_err=err, rel_err=rel, wdet_rel_err=wrel,
-               plain_f32_rel_err=prel,
+               m1=tb["m1"], mode=kw["mode"], n_cg=n,
+               with_face=kw["with_face"], max_abs_err=err, rel_err=rel,
+               wdet_rel_err=wrel, plain_f32_rel_err=prel,
+               wdet_plain_f32_rel_err=wprel,
                limit=LIMITS[dtype], wdet_limit=WDET_LIMITS[dtype])
     res.update(
         ms=time_ms(lambda: shn.stage_ho_nodes(xs, v, u, unbr, tb, **kw), 20),
@@ -507,28 +517,41 @@ def check_stage_ho_nodes(label, adv, tb, tb64, rng, **kw):
     return res
 
 
-def check_gl_cg(label, adv, tb, rng):
+def check_gl_cg(label, adv, tb, rng, zero_rows=False, n_iter=16):
     """Kernel 6 vs plain version: a random right-hand side and wdet at the
     nodes x0 + 0.3 v (det J varies inside the elements, so the GL mass
-    matrix is not diagonal). The bound counts the iterations each element
-    takes on this data (from the plain version)."""
+    matrix is not diagonal). `zero_rows`: every 7th row of the right-hand
+    side is 0 (rr0 = 0: never live); `n_iter`: the iterations (0: x = 0).
+    The bound counts the iterations each element takes on this data (from
+    the plain version)."""
     dtype = adv.dtype
     xs = (adv.x0_nodes + 0.3 * adv.v_nodes).contiguous()
     wdet = wd.wdet_reference(xs, adv._wdet_tables)
     rhs = torch.as_tensor(rng.standard_normal((xs.shape[0], adv.disc.nd)),
                           dtype=dtype, device=adv.device)
-    got = cg.gl_cg(rhs, wdet, tb)
+    if zero_rows:
+        rhs[::7] = 0.0
+    got = cg.gl_cg(rhs, wdet, tb, n_iter=n_iter)
     torch.cuda.synchronize()
-    ref, its = cg.gl_cg_reference(rhs, wdet, tb, with_iterations=True)
+    ref, its = cg.gl_cg_reference(rhs, wdet, tb, n_iter=n_iter,
+                                  with_iterations=True)
     torch.cuda.synchronize()
-    err, rel = compare(label, "x", got, ref, LIMITS[dtype])
-    res = dict(check=label, kernel="gl_cg", E=rhs.shape[0], max_abs_err=err,
-               rel_err=rel, limit=LIMITS[dtype],
+    if n_iter == 0 or zero_rows:
+        rows = slice(None) if n_iter == 0 else slice(None, None, 7)
+        if float(got[rows].abs().max()) != 0.0:
+            raise RuntimeError(f"{label}: gl_cg's zero rows are not 0")
+    if n_iter == 0:
+        err = rel = 0.0
+    else:
+        err, rel = compare(label, "x", got, ref, LIMITS[dtype])
+    res = dict(check=label, kernel="gl_cg", E=rhs.shape[0], n_iter=n_iter,
+               zero_rows=zero_rows, max_abs_err=err, rel_err=rel,
+               limit=LIMITS[dtype],
                iterations_mean=float(its.double().mean()),
                iterations_max=int(its.max()),
-               ms=time_ms(lambda: cg.gl_cg(rhs, wdet, tb), 20),
-               plain_ms=time_ms(lambda: cg.gl_cg_reference(rhs, wdet, tb),
-                                5))
+               ms=time_ms(lambda: cg.gl_cg(rhs, wdet, tb, n_iter=n_iter), 20),
+               plain_ms=time_ms(lambda: cg.gl_cg_reference(
+                   rhs, wdet, tb, n_iter=n_iter), 5))
     res.update(bound(*gl_cg_cost(rhs, wdet, tb, its), dtype))
     print(json.dumps(res), flush=True)
     return res
@@ -656,8 +679,11 @@ def order_checks(label, adv, adv64, dt, rng):
         ref64 = ref64() if dtype == torch.float32 else [None] * len(ref)
         names = ("du", "wdet", "du_LO")[:len(ref)]
         limits = (lim_du, WDET_LIMITS[dtype], LIMITS[dtype])
+        # wdet in the working type, but kernel 5's in f32 against the f64
+        # evaluation (`check_stage_ho_nodes`)
         errs = {k: hold(f"{label} {name}", k, g, r,
-                        None if k == "wdet" else r64, lim)
+                        None if k == "wdet" and name != "stage_ho_nodes"
+                        else r64, lim)
                 for k, g, r, r64, lim in zip(names, got, ref, ref64, limits)}
         rec = dict(check=label, kernel=name, E=u.shape[0], n_cg=n_cg,
                    max_abs_err=max(errs[k][0] for k in names if k != "wdet"),
@@ -673,17 +699,20 @@ def order_checks(label, adv, adv64, dt, rng):
 
 
 def check_other_orders(dev, rng):
-    """order_checks at ORDERS, 3D N=24 and 2D 16x16, f32 and f64:
-    {kernel: {key: record}}."""
+    """order_checks and kernel 6 at ORDERS, 3D N=24 and 2D 16x16, f32 and
+    f64: {kernel: {key: record}}. Kernel 6 draws from its own stream."""
     out = {}
+    rng6 = np.random.default_rng(SEED + 5)
     for p in ORDERS:
         for tag, n, dim in (("3d", N_MAIN, 3), ("2d", 16, 2)):
             case = bench.build_case(n, p, torch.float32, dev, n_steps=STEPS,
                                     dim=dim)
             size = f"{tag} N={n}" if dim == 3 else f"{tag} {n}x{n}"
             for prec, adv in (("f32", case.adv), ("f64", case.adv64)):
-                recs = order_checks(f"p={p} {size} {prec}", adv, case.adv64,
-                                    case.dt, rng)
+                label = f"p={p} {size} {prec}"
+                recs = order_checks(label, adv, case.adv64, case.dt, rng)
+                recs["gl_cg"] = check_gl_cg(label, adv, adv._stage_tables,
+                                            rng6)
                 for k, r in recs.items():
                     out.setdefault(k, {})[f"p{p}_{tag}_{prec}"] = r
             del case
@@ -691,21 +720,37 @@ def check_other_orders(dev, rng):
     return out
 
 
-def new_kernel_checks(tag, size, prec, adv, rng, out):
-    """Kernels 5-7 against their plain versions on one operator: kernel 5
-    with its defaults, n_cg=0, with_face=False and mode=-1; kernel 6;
-    kernel 7. Results go into out[kernel][key]."""
-    key = f"{tag}_{prec}"
+# kernel 5's options beside its defaults (`stage_ho_nodes_variants`)
+NODES_VARIANTS = (("n_cg0", dict(n_cg=0)), ("noface", dict(with_face=False)),
+                  ("mode-1", dict(mode=-1.0)))
+# kernel 6's edge cases beside its defaults (`new_kernel_checks`)
+CG_VARIANTS = (("zero_rows", dict(zero_rows=True)), ("n_iter0", dict(n_iter=0)))
+
+
+def stage_ho_nodes_variants(key, label, adv, rng, out):
+    """Kernel 5 on operator `adv` with its defaults and NODES_VARIANTS, into
+    out["stage_ho_nodes"][key(_variant)]."""
     tb = shn.stage_ho_nodes_tables(adv.disc, adv.dtype, adv.device)
     tb64 = shn.stage_ho_nodes_tables(adv.disc, torch.float64, adv.device)
     k5 = out.setdefault("stage_ho_nodes", {})
-    k5[key] = check_stage_ho_nodes(f"{size} {prec}", adv, tb, tb64, rng)
-    for opt, kw in (("n_cg0", dict(n_cg=0)), ("noface", dict(with_face=False)),
-                    ("mode-1", dict(mode=-1.0))):
-        k5[f"{key}_{opt}"] = check_stage_ho_nodes(
-            f"{size} {prec} {opt}", adv, tb, tb64, rng, **kw)
-    out.setdefault("gl_cg", {})[key] = check_gl_cg(f"{size} {prec}", adv, tb,
-                                                   rng)
+    k5[key] = check_stage_ho_nodes(label, adv, tb, tb64, rng)
+    for opt, kw in NODES_VARIANTS:
+        k5[f"{key}_{opt}"] = check_stage_ho_nodes(f"{label} {opt}", adv, tb,
+                                                  tb64, rng, **kw)
+
+
+def new_kernel_checks(tag, size, prec, adv, rng, out):
+    """Kernels 5-7 against their plain versions on one operator: kernel 5
+    with its defaults and NODES_VARIANTS; kernel 6 with its defaults and
+    CG_VARIANTS; kernel 7. Results go into out[kernel][key]."""
+    key = f"{tag}_{prec}"
+    stage_ho_nodes_variants(key, f"{size} {prec}", adv, rng, out)
+    tb = adv._stage_tables
+    k6 = out.setdefault("gl_cg", {})
+    k6[key] = check_gl_cg(f"{size} {prec}", adv, tb, rng)
+    for opt, kw in CG_VARIANTS:
+        k6[f"{key}_{opt}"] = check_gl_cg(f"{size} {prec} {opt}", adv, tb,
+                                         rng, **kw)
     out.setdefault("gather_nbr", {})[key] = check_gather_nbr(
         f"{size} {prec}", adv, rng)
 
@@ -1067,7 +1112,9 @@ def main():
         del case
         torch.cuda.empty_cache()
     order_recs = check_other_orders(dev, np.random.default_rng(SEED + 2))
-    order_recs.update(check_mesh_orders(dev, np.random.default_rng(SEED + 3)))
+    for k, recs in check_mesh_orders(
+            dev, np.random.default_rng(SEED + 3)).items():
+        order_recs.setdefault(k, {}).update(recs)
     done("kernel checks")
 
     # 4. the main path, counted
@@ -1173,11 +1220,15 @@ def main():
     kernels += [
         row("stage_ho_nodes", "remhos_torch/ops/csrc/stage_ho_nodes.cu",
             pk + ":490", tl["stage_ho_nodes"], k5["3d_f32"], k5["3d_f64"], k5,
+            options_ms={o: {p: k5[f"3d_{p}_{o}"]["ms"] for p in ("f32", "f64")}
+                        for o, _ in NODES_VARIANTS},
             microbench_ms=tools["microbench"]["fused"],
             kernelbench_ms=tools["kernelbench"]),
         row("gl_cg", "remhos_torch/ops/csrc/gl_cg.cu", pk + ":209",
             tl["gl_cg"], k6["3d_f32"], k6["3d_f64"], k6,
             iterations_mean=k6["3d_f32"]["iterations_mean"],
+            options_ms={o: {p: k6[f"3d_{p}_{o}"]["ms"] for p in ("f32", "f64")}
+                        for o, _ in CG_VARIANTS},
             microbench_ms=tools["microbench"]["gl_cg kernel"],
             microbench_mass_solve_gl_ms=tools["microbench"]["mass_solve_gl"]),
         row("gather_nbr", "remhos_torch/ops/csrc/gather_nbr.cu",

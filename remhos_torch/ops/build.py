@@ -32,7 +32,8 @@ LIBRARIES = {
     "stage_ho": (("stage_ho.cu",), ("stage_core.cuh",)),
     "wdet": (("wdet.cu",), ("mesh_geom.cuh", "stage_core.cuh")),
     "geom_conv": (("geom_conv.cu",), ("mesh_geom.cuh", "stage_core.cuh")),
-    "stage_ho_nodes": (("stage_ho_nodes.cu",), ("stage_core.cuh",)),
+    "stage_ho_nodes": (("stage_ho_nodes.cu",),
+                       ("mesh_geom.cuh", "stage_core.cuh")),
     "gl_cg": (("gl_cg.cu",), ("stage_core.cuh",)),
     "gather_nbr": (("gather_nbr.cu",), ()),
 }

@@ -1,6 +1,11 @@
 // The sum-factorized mesh geometry from the nodes: a geometry provider of
-// stage_core.cuh (kernel 4, geom_conv.cu) whose load stage alone is kernel 3
-// (wdet.cu).
+// stage_core.cuh (kernel 4, geom_conv.cu, the volume part; kernel 5,
+// stage_ho_nodes.cu, the volume and the face part) whose load stage alone
+// is kernel 3 (wdet.cu).
+//
+// Counterpart of the geometry inside _geom_conv_kernel (:55),
+// _stage_ho_kernel (:265) and _wdet_kernel (:1110) of
+// remhos_tpu/ops/pallas_kernels.py.
 //
 // For one tile of elements, from the nodes xs (and the nodal velocity v)
 // staged in shared memory, it computes at the Q1^dim volume points
@@ -9,14 +14,19 @@
 // then, at every point, the closed-form cofactors cof[d][b],
 //   va[b]   = mode sum_d cof[d][b] v_q[d]    (with v) and
 //   wd      = w_q det J                      (with_det),
-// into shared memory: va [te][dim][Qv], wd [te][Qv]. volume() reads one
-// point of them, as the core's pointwise pass asks.
+// into shared memory: va [te][dim][Qv], wd [te][Qv]; with the face part, at
+// the Q1^(dim-1) points of each of the nf faces
+//   T1, T2  = the face's tangents (3D; 2D: T1), from its nodes,
+//   vn      = mode sign v . (T1 x T2)        (2D: v . (T1_1, -T1_0)),
+// into vn [te][nf Qf]. volume() and face() read one point, as the core's
+// passes ask.
 //
 // The mesh elements are tensor products too (remhos_torch/discretization.py:
 // Bm and Gm are tensor_mixed of the 1D Gauss-Lobatto Lagrange tables Bm1,
 // Gm1 [Q1, m1], m1 = mesh order + 1; ops/tables.mesh_factor_tables), so J
 // and v_q come out of axis-by-axis contractions instead of a length-nm dot
-// per entry (NodeGeom's, stage_core.cuh):
+// with a table load per entry and point (kernel 5's first geometry,
+// 0.29 of its 0.43 ms at p=3, f32, 24^3):
 //   pass 0, one thread per (element, node line along axis 0, point q0): for
 //     each coordinate d, x contracted with Bm1 and with Gm1 along axis 0
 //     (XB, XG) and v with Bm1 (VB), [te][a][d][m1^(dim-1)][Q1]; the nodes
@@ -28,15 +38,30 @@
 //     feeds the three derivative directions; then along the last axis, point
 //     by point, J[d][0] = XGB Bm1, J[d][1] = XBG Bm1, J[d][2] = XBB Gm1, v_q =
 //     VBB Bm1 and the pointwise algebra (2D: XG Bm1, XB Gm1, VB Bm1).
+// The face part (face_pass, beside pass 0) uses that the nodes are
+// Gauss-Lobatto: a face's trace is its m1^(dim-1) nodes (index 0 or m1 - 1
+// along the normal axis), so the tangents are axis contractions of those
+// nodes, Gm1 along the tangent's axis and Bm1 along the other. One thread
+// per (element, face, point q0 along the face's first axis) keeps the
+// axis-0 partials in registers and walks the points along the second. The
+// face descriptors (ops/tables.face_descriptors, checked against the dense
+// face tables when they are made) give each face its normal axis, side,
+// tangent axes and reference-normal sign.
 // At mesh order 2 and p=3 in 3D (Q = 216, nm = 27) this is ~13k
-// multiply-adds an element for J and v_q, where the dense dots take ~70k.
-// The 1D tables live in shared memory, staged once per block; a table row
-// read inside a pass is the same for the whole warp (a broadcast) and each
-// feeds dim^2 + dim multiply-adds. The sizes (m1, Q1) are template
-// parameters MT, QT for mesh order 2 at the compiled orders of the core
-// (p = 2..4); MT = QT = 0 runs the same code with runtime sizes up to DMAX,
-// QMAX. Plain FMA in the working type, every sum in a fixed order; no
+// multiply-adds an element for J and v_q and ~9k for the face tangents and
+// velocities, where the dense dots take ~70k and ~52k. The 1D tables live
+// in shared memory, staged once per block; a table row read inside a pass
+// is the same for the whole warp (a broadcast) and each feeds dim^2 + dim
+// multiply-adds. The sizes (m1, Q1) are template parameters MT, QT for mesh
+// order 2 at the compiled orders of the core (p = 2..4); MT = QT = 0 runs
+// the same code with runtime sizes up to DMAX, QMAX (they spill: kernel 4
+// at mesh order 3 in f64 is no faster than its plain version); kernel 5
+// also takes MT = 3, QT = 0 (mesh order 2 beside the core's runtime
+// sizes). Plain FMA in the working type, every sum in a fixed order; no
 // tensor cores, no TF32.
+//
+// What bounds its kernels on the H100, and what was tried: the head notes
+// of wdet.cu, geom_conv.cu and stage_ho_nodes.cu.
 
 #pragma once
 
@@ -54,9 +79,15 @@ __host__ __device__ inline int mesh_scratch(int dim, int m1, int Q1,
   return (vel ? 2 : 1) * nm * dim + na * dim * nlm * Q1;
 }
 
-// VEL: with the velocity and va (kernel 4); without, J and w_q det J alone
-// (kernel 3).
-template <typename T, int DIM, int MT, int QT, bool VEL>
+// The entries of a face descriptor (ops/tables.face_descriptors): the
+// normal axis k, the side (0: the low end, node 0 along k; 1: the high end,
+// node m1 - 1), the axes of the first and second tangent (3D: (k+1)%3,
+// (k+2)%3; 2D: 1 - k and -1) and the reference-normal sign (+-1).
+constexpr int FACE_DESC = 5;
+
+// VEL: with the velocity and va (kernels 4 and 5); without, J and w_q det J
+// alone (kernel 3). FACE (kernel 5, with VEL): also vn at the face points.
+template <typename T, int DIM, int MT, int QT, bool VEL, bool FACE = false>
 struct MeshGeom {
   static constexpr int MM = MT ? MT : DMAX;    // register extents
   static constexpr int QM = QT ? QT : QMAX;
@@ -64,7 +95,10 @@ struct MeshGeom {
   const T* v;      // [E, nm, DIM] (VEL)
   const T* msf;    // [Bm1 | Gm1], [Q1, m1] each (ops/tables.MESH_TABLES)
   const T* w_q;    // [Q]
-  T mode;          // the volume sign: va is mode adj(J) v
+  const int* fdesc;  // [nf][FACE_DESC] the face descriptors (FACE; null:
+                     // no face geometry, the core runs with_face == 0)
+  T mode;          // the volume sign and flux mode: va is mode adj(J) v,
+                   // vn mode v . n
   int m1_, Q1_;
   int with_det;    // also w_q det J into s_wd
   int sx;          // per-element stride of the scratch (mesh_scratch)
@@ -73,6 +107,7 @@ struct MeshGeom {
   T* s_va;         // [te][DIM][Qv]
   T* s_wd;         // [te][Qv]
   T* s_scr;        // [te][sx] scratch
+  T* s_vn;         // [te][nf Qf] (FACE)
 
   __device__ __forceinline__ int m1() const { return MT ? MT : m1_; }
   __device__ __forceinline__ int Q1() const { return QT ? QT : Q1_; }
@@ -151,6 +186,9 @@ struct MeshGeom {
           if constexpr (vel) pe[2 * sa + d * sd] = av;
         }
       }
+    }
+    if constexpr (FACE) {
+      if (fdesc != nullptr) face_pass(ne);
     }
     __syncthreads();
 
@@ -286,9 +324,127 @@ struct MeshGeom {
     wd = with_det ? s_wd[e * Qv + q] : T(1);
   }
 
-  // No face geometry yet (kernel 4 runs the core with with_face == 0, which
-  // never asks): a zero normal velocity, so no upwind flux.
-  __device__ __forceinline__ T face(int, int, int) const { return T(0); }
+  // vn = mode v . n at every face point of the tile's ne elements into
+  // s_vn, from the staged nodes (called by load(), beside pass 0). One
+  // thread per (element, face, point q0 along the face's first in-face
+  // axis a0, the lower of its two: the face points are numbered q0 + Q1 q1,
+  // a0 fastest, as the dense face tables and the core number them). The
+  // face's nodes are the m1^(DIM-1) with index 0 (or m1 - 1) along the
+  // normal axis (Gauss-Lobatto nodes: the trace of the element's
+  // interpolant is theirs). 3D: the partial contractions along a0 at q0
+  // (x with Bm1 and Gm1, v with Bm1) stay in registers; then at each q1
+  // along a1: the derivatives along a0 and a1, v, the normal sign T1 x T2
+  // with T1, T2 the derivatives along the descriptor's tangent axes, vn.
+  // 2D: the derivative along the face's axis, rotated. Coordinates relative
+  // to the element's first node, as in pass 0.
+  __device__ __forceinline__ void face_pass(int ne) const {
+    constexpr int NF = 2 * DIM;
+    const int m1 = this->m1(), Q1 = this->Q1();
+    const int Qf = DIM == 3 ? Q1 * Q1 : Q1;
+    const int per = NF * Q1;
+    const T* Bt = s_tab;
+    const T* Gt = s_tab + Q1 * m1;
+    auto stride = [&](int ax) {
+      return ax == 0 ? 1 : (ax == 1 ? m1 : m1 * m1);
+    };
+    for (int idx = threadIdx.x; idx < ne * per; idx += NT) {
+      const int e = idx / per, r = idx - e * per;
+      const int f = r / Q1, q0 = r - f * Q1;
+      const int* fd = fdesc + f * FACE_DESC;
+      const int k = __ldg(fd), side = __ldg(fd + 1);
+      const int t1 = __ldg(fd + 2), t2 = __ldg(fd + 3);
+      const T sgn = mode * static_cast<T>(__ldg(fd + 4));
+      const int a0 = DIM == 3 ? min(t1, t2) : t1;
+      const int base = side ? (m1 - 1) * stride(k) : 0;
+      const int s0 = stride(a0);
+      const T* xe = s_scr + e * sx;                 // the staged nodes
+      const T* ve = xe + (DIM == 3 ? m1 * m1 * m1 : m1 * m1) * DIM;
+      T* vn = s_vn + (e * NF + f) * Qf + q0;
+      T b0[MM], g0[MM];
+#pragma unroll
+      for (int i = 0; i < MM; ++i)
+        if (i < m1) {
+          b0[i] = Bt[q0 * m1 + i];
+          g0[i] = Gt[q0 * m1 + i];
+        }
+      if constexpr (DIM == 3) {
+        const int s1 = stride(max(t1, t2));
+        const bool swap = t1 > t2;       // T1 along a1
+        T pb[MM][DIM], pg[MM][DIM], pv[MM][DIM];
+#pragma unroll
+        for (int i1 = 0; i1 < MM; ++i1)
+          if (i1 < m1) {
+#pragma unroll
+            for (int d = 0; d < DIM; ++d) {
+              T ab = T(0), ag = T(0), av = T(0);
+#pragma unroll
+              for (int i0 = 0; i0 < MM; ++i0)
+                if (i0 < m1) {
+                  const int n = (base + i0 * s0 + i1 * s1) * DIM + d;
+                  const T x = xe[n] - xe[d];
+                  ab = fmaT(x, b0[i0], ab);
+                  ag = fmaT(x, g0[i0], ag);
+                  av = fmaT(ve[n], b0[i0], av);
+                }
+              pb[i1][d] = ab;
+              pg[i1][d] = ag;
+              pv[i1][d] = av;
+            }
+          }
+#pragma unroll
+        for (int q1 = 0; q1 < QM; ++q1)
+          if (q1 < Q1) {
+            T d0[DIM], d1[DIM], vq[DIM];
+#pragma unroll
+            for (int d = 0; d < DIM; ++d) {
+              T a = T(0), b = T(0), c = T(0);
+#pragma unroll
+              for (int i1 = 0; i1 < MM; ++i1)
+                if (i1 < m1) {
+                  const T bq = Bt[q1 * m1 + i1];
+                  a = fmaT(pg[i1][d], bq, a);
+                  b = fmaT(pb[i1][d], Gt[q1 * m1 + i1], b);
+                  c = fmaT(pv[i1][d], bq, c);
+                }
+              d0[d] = swap ? b : a;      // T1
+              d1[d] = swap ? a : b;      // T2
+              vq[d] = c;
+            }
+            const T n0 = d0[1] * d1[2] - d0[2] * d1[1];
+            const T n1 = d0[2] * d1[0] - d0[0] * d1[2];
+            const T n2 = d0[0] * d1[1] - d0[1] * d1[0];
+            vn[Q1 * q1] = sgn * (vq[0] * n0 + vq[1] * n1 + vq[2] * n2);
+          }
+      } else {
+        T tx[2], vq[2];
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          T ag = T(0), av = T(0);
+#pragma unroll
+          for (int i0 = 0; i0 < MM; ++i0)
+            if (i0 < m1) {
+              const int n = (base + i0 * s0) * 2 + d;
+              ag = fmaT(xe[n] - xe[d], g0[i0], ag);
+              av = fmaT(ve[n], b0[i0], av);
+            }
+          tx[d] = ag;
+          vq[d] = av;
+        }
+        vn[0] = sgn * (vq[0] * tx[1] - vq[1] * tx[0]);
+      }
+    }
+  }
+
+  // The upwind normal velocity at face point fq of tile element e (FACE;
+  // without, kernel 4 runs the core with with_face == 0, which never asks).
+  __device__ __forceinline__ T face(int e, int, int fq) const {
+    if constexpr (FACE) {
+      const int Q1 = this->Q1();
+      return s_vn[e * 2 * DIM * (DIM == 3 ? Q1 * Q1 : Q1) + fq];
+    } else {
+      return T(0);
+    }
+  }
 };
 
 // The instantiation of the provider for (m1, Q1): Q1 for mesh order 2 (m1 =

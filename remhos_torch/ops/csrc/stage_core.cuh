@@ -5,7 +5,9 @@
 // and _stage_mega_kernel share there, and of the body of _stage_ho_kernel
 // (:265); here stage_ho.cu, mega_stage.cu, stage_ho_nodes.cu and (with
 // n_cg == 0 and no face flux, the volume action alone) geom_conv.cu share
-// stage_core(), and the first three element_sums().
+// stage_core(), the first two element_sums(), and gl_cg.cu (kernel 6) its
+// passes: axis_pass, chain_dd (steps 4 and 6), gl_mass_action (step 5's
+// M_gl x) and warp_sum.
 //
 // stage_core computes, for one tile of te elements (nd = D^dim dofs,
 // Q = Q1^dim volume and FQ = nf Q1^(dim-1) face points per element):
@@ -24,22 +26,19 @@
 // With n_cg == 0 it stops after step 3 and returns Ku; with with_face == 0
 // it skips the face flux (a phase ablation of kernel 5).
 //
-// Three geometry providers:
+// Two geometry providers:
 //   PolyGeom  (kernels 1 and 2): va_b, w_q det J and vn by Horner's rule
 //             from the t-polynomial coefficients P = [VA | WDET | VN]
 //             (ops/tables.py); remap sign and mode +1. Bound by P's bytes.
-//   NodeGeom  (kernel 5): from the nodes xs and the nodal velocity v of the
-//             tile, staged in shared memory: the Jacobian by a length-nm dot
-//             per entry, closed-form cofactors and det J, v_q, the face
-//             tangents T1 (reference-normal sign folded in) and T2, v at the
-//             face points, the normal T1 x T2 (2D: T1 rotated); sign and
-//             mode +-1. The dense dots take most of kernel 5's time.
-//   MeshGeom  (kernel 4; its load() alone is kernel 3; mesh_geom.cuh): the
-//             volume part of NodeGeom sum-factorized: load() contracts the
-//             staged nodes with the 1D mesh tables axis by axis (the partial
-//             contractions shared by the dim derivative directions) into va
-//             and w_q det J in shared memory; volume() reads one point. No
-//             face geometry yet: kernel 5 can take it over once it has one.
+//   MeshGeom  (kernels 4 and 5; its load() alone is kernel 3;
+//             mesh_geom.cuh): from the nodes xs and the nodal velocity v of
+//             the tile, sum-factorized on the 1D mesh tables: load()
+//             contracts the staged nodes axis by axis into va and w_q det J
+//             at the volume points and (kernel 5) vn at the face points, in
+//             shared memory; volume() and face() read one point. It took
+//             the place of kernel 5's dense NodeGeom (a length-nm dot with
+//             a table load per Jacobian or tangent entry at every point:
+//             0.29 of that kernel's 0.43 ms at p=3, f32, 24^3).
 // A provider has load() (step 0), volume() and face() (step 2).
 //
 // What bounds the core on the H100. The first version contracted with the
@@ -118,51 +117,13 @@ __device__ __forceinline__ double fmaT(double a, double b, double c) {
   return fma(a, b, c);
 }
 
-// ---------------------------------------------------------------------------
-// Dense helpers (kernel 6, gl_cg.cu): arrays [len][TE], tables in global
-// memory.
-
-// out[l][e] = sum_k in[k][e] * W[k*L + l] for l < L and the tile's TE
-// elements. Each thread owns one output l for EPT consecutive elements,
-// keeps their accumulators in registers and reads each W entry once.
-template <typename T, int TE, int EPT>
-__device__ __forceinline__ void contract_ept(const T* __restrict__ in, int K,
-                                             const T* __restrict__ W, int L,
-                                             T* __restrict__ out) {
-  constexpr int G = TE / EPT;
-  for (int idx = threadIdx.x; idx < L * G; idx += NT) {
-    const int l = idx % L;
-    const int e0 = (idx / L) * EPT;
-    T acc[EPT];
+// The sum of v over the 32 lanes of a warp, in a fixed order (a butterfly):
+// every lane gets it.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
-    for (int i = 0; i < EPT; ++i) acc[i] = T(0);
-    const T* col = W + l;
-    const T* row = in + e0;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const T w = __ldg(col + (size_t)k * L);
-#pragma unroll
-      for (int i = 0; i < EPT; ++i) acc[i] = fmaT(row[k * TE + i], w, acc[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < EPT; ++i) out[l * TE + e0 + i] = acc[i];
-  }
-}
-
-template <typename T, int TE>
-__device__ __forceinline__ void contract(const T* __restrict__ in, int K,
-                                         const T* __restrict__ W, int L,
-                                         T* __restrict__ out) {
-  int ept = 1;
-  while (ept < TE && (TE / ept) * L > NT) ept *= 2;
-  switch (ept) {
-    case 1: if constexpr (TE >= 1) contract_ept<T, TE, 1>(in, K, W, L, out); break;
-    case 2: if constexpr (TE >= 2) contract_ept<T, TE, 2>(in, K, W, L, out); break;
-    case 4: if constexpr (TE >= 4) contract_ept<T, TE, 4>(in, K, W, L, out); break;
-    case 8: if constexpr (TE >= 8) contract_ept<T, TE, 8>(in, K, W, L, out); break;
-    case 16: if constexpr (TE >= 16) contract_ept<T, TE, 16>(in, K, W, L, out); break;
-    default: if constexpr (TE >= 32) contract_ept<T, TE, 32>(in, K, W, L, out); break;
-  }
+  for (int o = 16; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 // out[e] = sum_{j < n} f(j, e) for e < te, one warp per element, fixed
@@ -173,15 +134,9 @@ __device__ __forceinline__ void element_sums(int te, int n, F f, T* out) {
   for (int e = warp; e < te; e += NWARPS) {
     T s = T(0);
     for (int j = lane; j < n; j += 32) s += f(j, e);
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
+    s = warp_sum(s);
     if (lane == 0) out[e] = s;
   }
-}
-
-template <typename T, int TE, typename F>
-__device__ __forceinline__ void element_sum(int n, F f, T* out) {
-  element_sums<T>(TE, n, f, out);
 }
 
 // ---------------------------------------------------------------------------
@@ -307,10 +262,12 @@ __host__ __device__ inline int al4(int n) { return (n + 3) & ~3; }
 
 // volume_only: the layout of a core run with with_face == 0, n_cg == 0 and
 // need_ml == 0 (kernel 4), which never touches un, cf, b, x and ml: they
-// take no room there, and the scratch no face room.
+// take no room there, and the scratch no face room. with_ml false: ml takes
+// no room (a run with need_ml == 0).
 __host__ __device__ inline CoreLayout core_layout(int dim, int D, int Q1,
                                                   int nf, int te,
-                                                  bool volume_only = false) {
+                                                  bool volume_only = false,
+                                                  bool with_ml = true) {
   const int V = dim == 3 ? D * D * D : D * D;
   const int Qv = dim == 3 ? Q1 * Q1 * Q1 : Q1 * Q1;
   const int DF = dim == 3 ? D : 1;              // face-dof lines per face
@@ -318,7 +275,8 @@ __host__ __device__ inline CoreLayout core_layout(int dim, int D, int Q1,
   const int S1 = Q1 * (dim == 3 ? D * D : D);   // one axis at the points
   const int S2 = dim == 3 ? Q1 * Q1 * D : S1;   // two axes
   const int FT = volume_only ? 0 : nf * Q1 * DF;  // a face, one axis
-  const int VS = volume_only ? 0 : V;           // the sweeps' and ml's
+  const int VS = volume_only ? 0 : V;           // the sweeps'
+  const int MS = with_ml ? VS : 0;              // ml's
   const int sA = 3 * S1 > 2 * S1 + FT ? 3 * S1 : 2 * S1 + FT;
   CoreLayout L;
   int o = 0;
@@ -329,7 +287,7 @@ __host__ __device__ inline CoreLayout core_layout(int dim, int D, int Q1,
   L.inv = o; o += al4(te * V);
   L.b = o; o += al4(te * VS);
   L.x = o; o += al4(te * VS);
-  L.ml = o; o += al4(te * VS);
+  L.ml = o; o += al4(te * MS);
   L.ku = o; o += al4(te * V);
   L.cf = o; o += al4(te * NFD);
   L.A = o; o += al4(te * (sA > V ? sA : V));
@@ -352,13 +310,19 @@ __device__ __forceinline__ Tab1D<T> tab1d(const T* s, int D, int Q1) {
                   s + 6 * n, s + 7 * n};
 }
 
-// Stage the packed 1D tables in shared memory (once per block; the caller
-// places the barrier).
+// Stage the packed 1D tables sf in shared memory at dst (once per block;
+// the caller places the barrier).
+template <typename T>
+__device__ __forceinline__ void stage_tables(const T* sf, int D, int Q1,
+                                             T* dst) {
+  const int n = 7 * Q1 * D + D * D;
+  for (int i = threadIdx.x; i < n; i += NT) dst[i] = __ldg(sf + i);
+}
+
 template <typename T>
 __device__ __forceinline__ void load_tables(const CoreArgs<T>& a, T* sm,
                                             const CoreLayout& L) {
-  const int n = 7 * a.Q1 * a.D + a.D * a.D;
-  for (int i = threadIdx.x; i < n; i += NT) sm[L.tab + i] = __ldg(a.sf + i);
+  stage_tables(a.sf, a.D, a.Q1, sm + L.tab);
 }
 
 // One contraction pass over the tile along axis AX of arrays [n2][n1][n0]
@@ -421,6 +385,115 @@ struct Store {
   }
 };
 
+// x contracted with the D x D table tab1 along every axis, for the te
+// elements of arrays [te][D^DIM]: the forward use of tab1 (T(m, k) =
+// tab1[m*D + k]) or, with TR, the transposed one. The passes go through the
+// scratch sA, sB ([te][D^DIM] each) with a barrier after each but the last,
+// whose store is `last` (store(o, e, off, value), off < D^DIM).
+template <typename T, int DIM, int DM, bool TR, typename St>
+__device__ __forceinline__ void chain_dd(int te, int D, const T* x,
+                                         const T* tab1, T* sA, T* sB,
+                                         St last) {
+  const int V = DIM == 3 ? D * D * D : D * D;
+  const int n2 = DIM == 3 ? D : 1;
+  const T* in0[1] = {x};
+  const T* tb0[1] = {tab1};
+  T* oA[1] = {sA};
+  axis_pass<T, 0, DM, DM, TR, 1>(te, D, D, n2, D, in0, V, tb0,
+                                 Store<T, 1>{oA, V});
+  __syncthreads();
+  const T* in1[1] = {sA};
+  if constexpr (DIM == 3) {
+    T* oB[1] = {sB};
+    axis_pass<T, 1, DM, DM, TR, 1>(te, D, D, D, D, in1, V, tb0,
+                                   Store<T, 1>{oB, V});
+    __syncthreads();
+    const T* in2[1] = {sB};
+    axis_pass<T, 2, DM, DM, TR, 1>(te, D, D, D, D, in2, V, tb0, last);
+  } else {
+    axis_pass<T, 1, DM, DM, TR, 1>(te, D, D, 1, D, in1, V, tb0, last);
+  }
+}
+
+// The GL mass action M_gl x = Bgl^T (wdet (Bgl x)) for the te elements of x
+// [te][D^DIM], wdet w [te][Q1^DIM], Bgl the 1D table [Q1][D]: Bgl forward
+// along every axis but the last; along the last one forward, times wdet
+// and back in one pass (one thread per point line holds the line in
+// registers); then back along the other axes. Scratch: sA [te][S1], sB and
+// sC [te][S2] (S1 = Q1 D^(DIM-1); S2 = Q1^2 D in 3D, S1 in 2D). A barrier
+// after each pass but the last, whose store is `last` (store(o, e, off,
+// value), off < D^DIM).
+template <typename T, int DIM, int DM, int QM, typename St>
+__device__ __forceinline__ void gl_mass_action(int te, int D, int Q1,
+                                               const T* x, const T* w,
+                                               const T* Bgl, T* sA, T* sB,
+                                               T* sC, St last) {
+  const int V = DIM == 3 ? D * D * D : D * D;
+  const int Qv = DIM == 3 ? Q1 * Q1 * Q1 : Q1 * Q1;
+  const int S1 = Q1 * (DIM == 3 ? D * D : D);
+  const int S2 = DIM == 3 ? Q1 * Q1 * D : S1;
+  const int NL = DIM == 3 ? Q1 * Q1 : Q1;       // point lines, last axis
+  const int n2 = DIM == 3 ? D : 1;
+  const T* tab[1] = {Bgl};
+  {
+    const T* in[1] = {x};
+    T* out[1] = {sA};
+    axis_pass<T, 0, DM, QM, false, 1>(te, D, D, n2, Q1, in, V, tab,
+                                      Store<T, 1>{out, S1});
+  }
+  __syncthreads();
+  const T* ylast = sA;               // [NL][D] per element
+  if constexpr (DIM == 3) {
+    const T* in[1] = {sA};
+    T* out[1] = {sB};
+    axis_pass<T, 1, DM, QM, false, 1>(te, Q1, D, D, Q1, in, S1, tab,
+                                      Store<T, 1>{out, S2});
+    __syncthreads();
+    ylast = sB;
+  }
+  {
+    const int ies = DIM == 3 ? S2 : S1;
+    for (int idx = threadIdx.x; idx < te * NL; idx += NT) {
+      const int e = idx / NL, l = idx - e * NL;
+      T xl[DM], y[QM];
+#pragma unroll
+      for (int k = 0; k < DM; ++k)
+        if (k < D) xl[k] = ylast[e * ies + l + NL * k];
+#pragma unroll
+      for (int q = 0; q < QM; ++q)
+        if (q < Q1) {
+          T acc = T(0);
+#pragma unroll
+          for (int k = 0; k < DM; ++k)
+            if (k < D) acc = fmaT(xl[k], Bgl[q * D + k], acc);
+          y[q] = acc * w[e * Qv + l + NL * q];
+        }
+#pragma unroll
+      for (int k = 0; k < DM; ++k)
+        if (k < D) {
+          T acc = T(0);
+#pragma unroll
+          for (int q = 0; q < QM; ++q)
+            if (q < Q1) acc = fmaT(y[q], Bgl[q * D + k], acc);
+          sC[e * ies + l + NL * k] = acc;
+        }
+    }
+  }
+  __syncthreads();
+  if constexpr (DIM == 3) {
+    const T* in[1] = {sC};
+    T* out[1] = {sA};
+    axis_pass<T, 1, QM, DM, true, 1>(te, Q1, Q1, D, D, in, S2, tab,
+                                     Store<T, 1>{out, S1});
+    __syncthreads();
+    const T* in0[1] = {sA};
+    axis_pass<T, 0, QM, DM, true, 1>(te, Q1, D, D, D, in0, S1, tab, last);
+  } else {
+    const T* in0[1] = {sC};
+    axis_pass<T, 0, QM, DM, true, 1>(te, Q1, D, 1, D, in0, S1, tab, last);
+  }
+}
+
 // Step 2's geometry from the t-polynomial coefficients P[E, width] (layout
 // ops/tables.poly_layout): va_b, w_q det J and vn by Horner's rule at t.
 template <typename T, int DIM>
@@ -461,123 +534,6 @@ struct PolyGeom {
 #pragma unroll
     for (int k = NKN - 2; k >= 0; --k) vn = __ldg(Pe + k * FQ + fq) + t * vn;
     return vn;
-  }
-};
-
-// Step 2's geometry from the nodes xs and the nodal velocity v[E, nm, DIM]
-// (kernel 5). The tile's rows go to shared memory (s_x, s_v: [te][nm*DIM])
-// and are read as broadcasts; the point tables are point-minor, so the
-// threads of a warp, which hold consecutive points, read consecutive
-// entries. The sums are geom_conv.cu's, in its order.
-template <typename T, int DIM>
-struct NodeGeom {
-  const T* xs;     // [E, nm, DIM]
-  const T* v;      // [E, nm, DIM]
-  const T* GmT;    // [nm, DIM, Q]
-  const T* BmT;    // [nm, Q]
-  const T* GT1;    // [nm, FQ] first tangent, reference-normal sign folded in
-  const T* GT2;    // [nm, FQ] second tangent (3D)
-  const T* BmfT;   // [nm, FQ]
-  const T* w_q;    // [Q]
-  T* s_x;          // [te][nm*DIM] shared
-  T* s_v;
-  T mode;          // +1 remap, -1 transport: the volume sign and flux mode
-  int nm, Q, FQ;
-
-  __device__ __forceinline__ void load(int e_base, int ne) const {
-    const int n = ne * nm * DIM;
-    const size_t g0 = (size_t)e_base * nm * DIM;
-    for (int idx = threadIdx.x; idx < n; idx += NT) {
-      s_x[idx] = xs[g0 + idx];
-      s_v[idx] = v[g0 + idx];
-    }
-  }
-
-  __device__ __forceinline__ void volume(int e, int, int q, T* va,
-                                         T& wd) const {
-    T J[DIM][DIM], vq[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) {
-      vq[d] = T(0);
-#pragma unroll
-      for (int b = 0; b < DIM; ++b) J[d][b] = T(0);
-    }
-    const T* xe = s_x + e * nm * DIM;
-    const T* ve = s_v + e * nm * DIM;
-    for (int n = 0; n < nm; ++n) {
-      T gm[DIM];
-#pragma unroll
-      for (int b = 0; b < DIM; ++b)
-        gm[b] = __ldg(GmT + ((size_t)n * DIM + b) * Q + q);
-      const T bm = __ldg(BmT + (size_t)n * Q + q);
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        const T x = xe[n * DIM + d];
-#pragma unroll
-        for (int b = 0; b < DIM; ++b) J[d][b] = fmaT(x, gm[b], J[d][b]);
-        vq[d] = fmaT(ve[n * DIM + d], bm, vq[d]);
-      }
-    }
-    T det;
-    if constexpr (DIM == 3) {
-      T cof[3][3];
-      cof[0][0] = J[1][1] * J[2][2] - J[1][2] * J[2][1];
-      cof[0][1] = J[1][2] * J[2][0] - J[1][0] * J[2][2];
-      cof[0][2] = J[1][0] * J[2][1] - J[1][1] * J[2][0];
-      cof[1][0] = J[0][2] * J[2][1] - J[0][1] * J[2][2];
-      cof[1][1] = J[0][0] * J[2][2] - J[0][2] * J[2][0];
-      cof[1][2] = J[0][1] * J[2][0] - J[0][0] * J[2][1];
-      cof[2][0] = J[0][1] * J[1][2] - J[0][2] * J[1][1];
-      cof[2][1] = J[0][2] * J[1][0] - J[0][0] * J[1][2];
-      cof[2][2] = J[0][0] * J[1][1] - J[0][1] * J[1][0];
-      det = J[0][0] * cof[0][0] + J[0][1] * cof[0][1] + J[0][2] * cof[0][2];
-#pragma unroll
-      for (int b = 0; b < 3; ++b)
-        va[b] = mode * (cof[0][b] * vq[0] + cof[1][b] * vq[1] +
-                        cof[2][b] * vq[2]);
-    } else {
-      // cof = ((J11, -J10), (-J01, J00))
-      det = J[0][0] * J[1][1] - J[0][1] * J[1][0];
-      va[0] = mode * (J[1][1] * vq[0] - J[0][1] * vq[1]);
-      va[1] = mode * (J[0][0] * vq[1] - J[1][0] * vq[0]);
-    }
-    wd = __ldg(w_q + q) * det;
-  }
-
-  __device__ __forceinline__ T face(int e, int, int fq) const {
-    constexpr int NT_ = DIM - 1;    // tangents per face point
-    T tan[NT_][DIM], vf[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) {
-      vf[d] = T(0);
-#pragma unroll
-      for (int k = 0; k < NT_; ++k) tan[k][d] = T(0);
-    }
-    const T* xe = s_x + e * nm * DIM;
-    const T* ve = s_v + e * nm * DIM;
-    for (int n = 0; n < nm; ++n) {
-      T gt[NT_];
-      gt[0] = __ldg(GT1 + (size_t)n * FQ + fq);
-      if constexpr (DIM == 3) gt[1] = __ldg(GT2 + (size_t)n * FQ + fq);
-      const T bm = __ldg(BmfT + (size_t)n * FQ + fq);
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        const T x = xe[n * DIM + d];
-#pragma unroll
-        for (int k = 0; k < NT_; ++k) tan[k][d] = fmaT(x, gt[k], tan[k][d]);
-        vf[d] = fmaT(ve[n * DIM + d], bm, vf[d]);
-      }
-    }
-    T vn;
-    if constexpr (DIM == 3) {
-      const T n0 = tan[0][1] * tan[1][2] - tan[0][2] * tan[1][1];
-      const T n1 = tan[0][2] * tan[1][0] - tan[0][0] * tan[1][2];
-      const T n2 = tan[0][0] * tan[1][1] - tan[0][1] * tan[1][0];
-      vn = vf[0] * n0 + vf[1] * n1 + vf[2] * n2;
-    } else {
-      vn = vf[0] * tan[0][1] + vf[1] * -tan[0][0];
-    }
-    return mode * vn;
   }
 };
 
@@ -893,130 +849,31 @@ __device__ __forceinline__ T* stage_core(const CoreArgs<T>& a, const G& g,
   if (a.n_cg == 0) return s_ku;
   __syncthreads();
 
-  // One forward A-type chain: out = (x contracted with tab along every
-  // axis), the last store done by `last`. TR: transposed table use.
-  auto chain_dd = [&](const T* src, const T* tab1, bool tr, auto last) {
-    // D^dim -> D^dim through A and B
-    const T* in0[1] = {src};
-    const T* tb0[1] = {tab1};
-    T* oA[1] = {sA};
-    T* oB[1] = {sB};
-    const int n2 = DIM == 3 ? D : 1;
-    if (tr)
-      axis_pass<T, 0, DM, DM, true, 1>(te, D, D, n2, D, in0, V, tb0,
-                                       Store<T, 1>{oA, V});
-    else
-      axis_pass<T, 0, DM, DM, false, 1>(te, D, D, n2, D, in0, V, tb0,
-                                        Store<T, 1>{oA, V});
-    __syncthreads();
-    const T* in1[1] = {sA};
-    if constexpr (DIM == 3) {
-      if (tr)
-        axis_pass<T, 1, DM, DM, true, 1>(te, D, D, D, D, in1, V, tb0,
-                                         Store<T, 1>{oB, V});
-      else
-        axis_pass<T, 1, DM, DM, false, 1>(te, D, D, D, D, in1, V, tb0,
-                                          Store<T, 1>{oB, V});
-      __syncthreads();
-      const T* in2[1] = {sB};
-      if (tr)
-        axis_pass<T, 2, DM, DM, true, 1>(te, D, D, D, D, in2, V, tb0, last);
-      else
-        axis_pass<T, 2, DM, DM, false, 1>(te, D, D, D, D, in2, V, tb0, last);
-    } else {
-      if (tr)
-        axis_pass<T, 1, DM, DM, true, 1>(te, D, D, 1, D, in1, V, tb0, last);
-      else
-        axis_pass<T, 1, DM, DM, false, 1>(te, D, D, 1, D, in1, V, tb0, last);
-    }
-  };
-
   // 4. b = Ku A (A[k, l] = prod A1[k_a, l_a]: the transposed use of A1),
   // and x = D^-1 b
-  chain_dd(s_ku, tb.A, true, [&](int, int e, int off, T v) {
-    const int i = e * V + off;
-    s_b[i] = v;
-    s_x[i] = s_inv[i] * v;
-  });
+  chain_dd<T, DIM, DM, true>(te, D, s_ku, tb.A, sA, sB,
+                             [&](int, int e, int off, T v) {
+                               const int i = e * V + off;
+                               s_b[i] = v;
+                               s_x[i] = s_inv[i] * v;
+                             });
   __syncthreads();
 
-  // 5. Jacobi sweeps x += D^-1 (b - M_gl x), M_gl x = Bgl^T (wdet (Bgl x)),
-  // Bgl along every axis; along the last one forward, times wdet and back
-  // in one pass
+  // 5. Jacobi sweeps x += D^-1 (b - M_gl x)
   for (int it = 0; it < a.n_cg; ++it) {
-    const int n2 = DIM == 3 ? D : 1;
-    {
-      const T* in[1] = {s_x};
-      const T* tab[1] = {tb.Bgl};
-      T* out[1] = {sA};
-      axis_pass<T, 0, DM, QM, false, 1>(te, D, D, n2, Q1, in, V, tab,
-                                        Store<T, 1>{out, S1});
-    }
-    __syncthreads();
-    const T* ylast = sA;               // [NL][D] per element
-    if constexpr (DIM == 3) {
-      const T* in[1] = {sA};
-      const T* tab[1] = {tb.Bgl};
-      T* out[1] = {sB};
-      axis_pass<T, 1, DM, QM, false, 1>(te, Q1, D, D, Q1, in, S1, tab,
-                                        Store<T, 1>{out, S2});
-      __syncthreads();
-      ylast = sB;
-    }
-    {
-      const int ies = DIM == 3 ? S2 : S1;
-      for (int idx = tid; idx < te * NL; idx += NT) {
-        const int e = idx / NL, l = idx - e * NL;
-        T xl[DM], y[QM];
-#pragma unroll
-        for (int k = 0; k < DM; ++k)
-          if (k < D) xl[k] = ylast[e * ies + l + NL * k];
-#pragma unroll
-        for (int q = 0; q < QM; ++q)
-          if (q < Q1) {
-            T acc = T(0);
-#pragma unroll
-            for (int k = 0; k < DM; ++k)
-              if (k < D) acc = fmaT(xl[k], tb.Bgl[q * D + k], acc);
-            y[q] = acc * s_w[e * Qv + l + NL * q];
-          }
-#pragma unroll
-        for (int k = 0; k < DM; ++k)
-          if (k < D) {
-            T acc = T(0);
-#pragma unroll
-            for (int q = 0; q < QM; ++q)
-              if (q < Q1) acc = fmaT(y[q], tb.Bgl[q * D + k], acc);
-            sC[e * ies + l + NL * k] = acc;
-          }
-      }
-    }
-    __syncthreads();
-    auto update = [&](int, int e, int off, T v) {
-      const int i = e * V + off;
-      s_x[i] = s_x[i] + s_inv[i] * (s_b[i] - v);
-    };
-    if constexpr (DIM == 3) {
-      const T* in[1] = {sC};
-      const T* tab[1] = {tb.Bgl};
-      T* out[1] = {sA};
-      axis_pass<T, 1, QM, DM, true, 1>(te, Q1, Q1, D, D, in, S2, tab,
-                                       Store<T, 1>{out, S1});
-      __syncthreads();
-      const T* in0[1] = {sA};
-      axis_pass<T, 0, QM, DM, true, 1>(te, Q1, D, D, D, in0, S1, tab, update);
-    } else {
-      const T* in0[1] = {sC};
-      const T* tab[1] = {tb.Bgl};
-      axis_pass<T, 0, QM, DM, true, 1>(te, Q1, D, 1, D, in0, S1, tab, update);
-    }
+    gl_mass_action<T, DIM, DM, QM>(te, D, Q1, s_x, s_w, tb.Bgl, sA, sB, sC,
+                                   [&](int, int e, int off, T v) {
+                                     const int i = e * V + off;
+                                     s_x[i] = s_x[i] + s_inv[i] * (s_b[i] - v);
+                                   });
     __syncthreads();
   }
 
   // 6. du_HO = x A^T (AT[k, l] = prod A1[l_a, k_a]: the forward use of A1)
-  chain_dd(s_x, tb.A, false, [&](int, int e, int off, T v) {
-    s_ku[e * V + off] = v;
-  });
+  chain_dd<T, DIM, DM, false>(te, D, s_x, tb.A, sA, sB,
+                              [&](int, int e, int off, T v) {
+                                s_ku[e * V + off] = v;
+                              });
   return s_ku;
 }
 

@@ -12,9 +12,11 @@ place of du_HO; `with_face=False` leaves the face flux out (both phase
 ablations). `mode` is +1 (remap) or -1 (transport) and is also the volume
 sign. The port's `stage_ho` (kernel 2) is the same stage with the geometry
 as polynomials in t; this one derives it from the nodes at every call. The
-kernel is `csrc/stage_ho_nodes.cu` (CUDA C++, sm_90a, on the core of
-`csrc/stage_core.cuh` that kernels 1 and 2 share), built by nvcc at first
-use and called through ctypes.
+kernel is `csrc/stage_ho_nodes.cu` (CUDA C++, sm_90a): the sum-factorized
+mesh geometry of `csrc/mesh_geom.cuh` (kernels 3 and 4's, with its face
+part: tangents and v . n from each face's nodes, as `face_descriptors`
+describe them) feeding the core of `csrc/stage_core.cuh` that kernels 1
+and 2 share, built by nvcc at first use and called through ctypes.
 
 The TPU wrapper's `block_e` and its VMEM budget choose a TPU tiling; the
 port's tile is fixed at compile time, so neither is carried over.
@@ -35,14 +37,14 @@ from .. import geometry as geo
 from . import stage_core as core
 from .geom_conv import geom_conv_reference, geom_conv_tables
 from .stage_core import default_sweeps
-from .tables import check_tables, stage_ho_tables
+from .tables import check_tables, face_descriptors, stage_ho_tables
 
 ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
             ctypes.c_int, ctypes.c_double, ctypes.POINTER(ctypes.c_int),
             ctypes.c_int, ctypes.c_void_p]
 # the kernel's geometry tables, after the core's operands
-GEOM_TABLES = ("GmT", "BmT", "GT1", "GT2", "BmfT", "w_q")
-# pointer order of Args in csrc/stage_ho_nodes.cu
+GEOM_TABLES = ("msf", "fdesc", "w_q")
+# pointer order of the C interface of csrc/stage_ho_nodes.cu
 OPERANDS = (core.CORE_OPERANDS + ("xs", "v") + GEOM_TABLES
             + ("du", "wdet"))
 # the record of the one-time check of the geometry tables
@@ -51,49 +53,39 @@ CHECKED = "checked_nodes"
 
 def stage_ho_nodes_tables(disc, dtype, device):
     """The static tables, made once: `ops.tables.stage_ho_tables` (the
-    core's: GuT, Buw, Bface, SBf, A, AT, Bgl*, Bu, bdr, dof_faces, w_q)
-    plus the geometry's, point-minor as the kernel reads them: GmT[nm, dim,
-    Q] and BmT[nm, Q] (`geom_conv_tables`'), GT1[nm, FQ] (the first face
-    tangent with the reference-normal sign folded in), GT2[nm, FQ] (the
-    second, 3D only; None in 2D) and BmfT[nm, FQ]. The plain version reads
-    the face tangents as `face_tan` = (Gt[nf, Qf, nm, dim-1], sign[nf]).
-    Unpadded, face data per face through bdr: no block-diagonal tables."""
-    ft = geo.face_tangent_tables(disc.Gmf, disc.n_ref)
-    if ft is None:
-        raise NotImplementedError(
-            "the stage from the nodes needs axis-aligned reference normals "
-            "(ROADMAP.md Queue 1, item 12)")
-    Gt, sgn = ft
+    core's: the 1D factors sf, the dense tables of the plain version, bdr,
+    dof_faces, w_q) plus the geometry's. The kernel reads the packed 1D
+    mesh tables msf (`tables.mesh_factor_block`) and the face descriptors
+    fdesc[nf, 5] (`tables.face_descriptors`, which raises unless they and
+    msf rebuild the dense face tables); the plain version reads the dense
+    GmT[nm, dim, Q] and BmT[nm, Q] (`geom_conv_tables`'), BmfT[nm, FQ] and
+    the face tangents as `face_tan` = (Gt[nf, Qf, nm, dim-1], sign[nf])."""
+    fdesc = face_descriptors(disc)     # raises without axis-aligned normals
+    Gt, sgn = geo.face_tangent_tables(disc.Gmf, disc.n_ref)
     nf, Qf, nm, _ = Gt.shape
-    FQ = nf * Qf
 
     def F(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
 
-    def point_minor(a):
-        """[nf, Qf, nm] -> [nm, nf*Qf]."""
-        return np.asarray(a, np.float64).transpose(2, 0, 1).reshape(nm, FQ)
-
     tb = stage_ho_tables(disc, dtype, device)
     gc = geom_conv_tables(disc, dtype, device)
-    tb.update(GmT=gc["GmT"], BmT=gc["BmT"],
-              GT1=F(point_minor(Gt[..., 0] * sgn[:, None, None])),
-              GT2=F(point_minor(Gt[..., 1])) if disc.dim == 3 else None,
-              BmfT=F(point_minor(disc.Bmf)),
+    tb.update(GmT=gc["GmT"], BmT=gc["BmT"], msf=gc["msf"], m1=gc["m1"],
+              BmfT=F(np.asarray(disc.Bmf, np.float64).transpose(2, 0, 1)
+                     .reshape(nm, nf * Qf)),
+              fdesc=torch.as_tensor(fdesc, device=device),
               face_tan=(F(Gt), F(sgn)), nm=nm)
     check_tables(tb, geometry_shapes(tb), key=CHECKED)
     return tb
 
 
 def geometry_shapes(tb):
-    """The shapes of kernel 5's geometry tables."""
-    nm, dim, Q = tb["nm"], tb["dim"], tb["Q"]
-    FQ = tb["nf"] * tb["Qf"]
-    shapes = dict(GmT=(nm, dim, Q), BmT=(nm, Q), GT1=(nm, FQ), BmfT=(nm, FQ))
-    if dim == 3:
-        shapes["GT2"] = (nm, FQ)
-    return shapes
+    """The shapes of kernel 5's geometry tables (the kernel's and the plain
+    version's)."""
+    nm, dim, Q, m1, Q1 = (tb[k] for k in ("nm", "dim", "Q", "m1", "Q1"))
+    nf = tb["nf"]
+    return dict(GmT=(nm, dim, Q), BmT=(nm, Q), BmfT=(nm, nf * tb["Qf"]),
+                msf=(2 * Q1 * m1,), fdesc=(nf, 5))
 
 
 def stage_ho_nodes_reference(xs, v, u, u_nbr, tables, *, mode, n_cg,
@@ -151,7 +143,7 @@ def stage_ho_nodes(xs, v, u, u_nbr, tables, *, mode, n_cg=None,
     lau = core.Launcher.get(
         "stage_ho_nodes", "remhos_stage_ho_nodes", ARGTYPES, tb, OPERANDS,
         core.CORE_OPERANDS[3:] + GEOM_TABLES,
-        core.core_sizes(tb, E, n_cg) + [nm, 1])
+        core.core_sizes(tb, E, n_cg) + [nm, 1, tb["m1"]])
     lau(u.device, (u.element_size(), dim),
         (u, u_nbr, None, xs, v, du, wdet), (float(mode),), E, n_cg, nm,
         int(bool(with_face)))

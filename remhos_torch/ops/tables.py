@@ -148,6 +148,76 @@ def mesh_factor_block(disc, dtype, device):
                 m1=f["m1"], Q1=f["Q1"])
 
 
+def face_descriptors(disc):
+    """The face descriptors of kernel 5's face geometry (host numpy): int32
+    fdesc[nf, 5] = (normal axis k, side (0: the low end, 1: the high end),
+    the axis of the first tangent, of the second (3D: (k+1)%3, (k+2)%3; 2D:
+    1 - k and -1), the reference-normal sign of
+    `geometry.face_tangent_tables`: +-1, in 2D times -1 where k != 0).
+
+    The face's nodes are the mesh nodes with index 0 (side 0) or m1 - 1
+    (side 1) along k, and its points are numbered with the lower in-face
+    axis fastest. Raises ValueError unless the descriptors and the 1D mesh
+    tables Bm1, Gm1 (`mesh_factor_tables`) rebuild the dense face tables of
+    the plain version to 1e-13 of their largest entry in f64: the first
+    tangent with the sign folded in and the second (3D), both from
+    disc.Gmf, and disc.Bmf (`face_factor_rebuild`)."""
+    ft = geo.face_tangent_tables(disc.Gmf, disc.n_ref)
+    if ft is None:
+        raise NotImplementedError(
+            "the stage from the nodes needs axis-aligned reference normals "
+            "(ROADMAP.md Queue 1, item 12)")
+    Gt, sgn = ft
+    n_ref = np.asarray(disc.n_ref)
+    dim = n_ref.shape[1]
+    k = np.abs(n_ref).argmax(axis=1)
+    side = (np.take_along_axis(n_ref, k[:, None], 1)[:, 0] > 0).astype(int)
+    if dim == 3:
+        t1, t2 = (k + 1) % 3, (k + 2) % 3
+    else:
+        t1, t2 = 1 - k, -np.ones_like(k)
+    fdesc = np.stack([k, side, t1, t2, np.rint(sgn).astype(int)],
+                     axis=1).astype(np.int32)
+    rebuilt = face_factor_rebuild(fdesc, mesh_factor_tables(disc))
+    want = dict(GT1=Gt[..., 0] * sgn[:, None, None], Bmf=disc.Bmf)
+    if dim == 3:
+        want["GT2"] = Gt[..., 1]
+    for name, w in want.items():
+        w = np.asarray(w, np.float64)
+        got = rebuilt[name]
+        if (got.shape != w.shape or
+                np.abs(got - w).max() > 1e-13 * np.abs(w).max()):
+            raise ValueError(f"the face table {name} is not the face "
+                             "descriptors' rebuild from the 1D mesh tables")
+    return fdesc
+
+
+def face_factor_rebuild(fdesc, mesh_tables):
+    """The dense face tables [nf, Qf, nm] that the descriptors fdesc and
+    the 1D mesh tables (`mesh_factor_tables`) stand for: GT1 (the first
+    tangent's derivative table, sign folded in), GT2 (3D) and Bmf. Per face
+    a Kronecker product, axis 0 fastest: along the normal axis the one-hot
+    row of the face's node, along the tangent axis Gm1, along the other
+    in-face axis Bm1."""
+    Bm1, Gm1, m1 = (mesh_tables[k] for k in ("Bm1", "Gm1", "m1"))
+    dim = 3 if fdesc[0, 3] >= 0 else 2
+    out = {"GT1": [], "GT2": [], "Bmf": []}
+    for k, side, t1, t2, sign in fdesc:
+        end = np.zeros((1, m1))
+        end[0, m1 - 1 if side else 0] = 1.0
+
+        def table(deriv):
+            return B.tensor_mixed([end if a == k else
+                                   (Gm1 if a == deriv else Bm1)
+                                   for a in range(dim)])
+
+        out["GT1"].append(sign * table(t1))
+        if dim == 3:
+            out["GT2"].append(table(t2))
+        out["Bmf"].append(table(-1))
+    return {n: np.stack(v) for n, v in out.items() if v}
+
+
 def stage_ho_tables(disc, dtype, device):
     """Static tables of the stage kernels (built once per Advection): the
     dense tables of the plain versions, the packed 1D factors `sf` the
@@ -308,7 +378,7 @@ def table_shapes(tb, extra=()):
     return shapes
 
 
-INT_NAMES = ("bdr", "dof_faces", "cls")
+INT_NAMES = ("bdr", "dof_faces", "cls", "fdesc")
 
 
 def check_tables(tb, extra=(), key="checked", shapes=None):

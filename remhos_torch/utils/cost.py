@@ -160,22 +160,22 @@ def geom_conv_cost(xs, u, tables, with_wdet=True):
 
 def stage_ho_nodes_cost(xs, u, tb, n_cg, with_face=True):
     """(bytes, flops) of kernel 5: xs, v, u (u_nbr with the face flux) and
-    the tables it reads, du and wdet written once. The volume geometry is
-    kernel 4's; the face part adds, per face, the dim-1
-    tangents and the velocity at the face points from the face's m1^(dim-1)
-    nodes (Gauss-Lobatto: the trace is a subset of the nodes), the normal
-    and v . n; then the core's face flux and mass inverse."""
+    the tables it reads (the packed 1D factors sf and msf, w_q; with the
+    face flux the face descriptors and the face index tables), du and wdet
+    written once. The volume geometry is kernel 4's; the face part adds,
+    per face, the dim-1 tangents and the velocity at the face points from
+    the face's m1^(dim-1) nodes (Gauss-Lobatto: the trace is a subset of
+    the nodes), the normal and v . n; then the core's face flux and mass
+    inverse."""
     E, nm, dim = xs.shape
     nd, Q, Qf, nf, fd = (tb[k] for k in ("nd", "Q", "Qf", "nf", "fd"))
     FQ = nf * Qf
     m1, q1 = _root(nm, dim), _root(Q, dim)
-    names = ["GuT", "Buw", "GmT", "BmT", "w_q"]
+    names = ["sf", "msf", "w_q"]
     reads = 2 * xs.numel() + u.numel()
     if with_face:
-        names += ["Bface", "SBf", "GT1", "GT2", "BmfT", "bdr", "dof_faces"]
+        names += ["fdesc", "bdr", "dof_faces"]
         reads += E * nf * fd
-    if n_cg > 0:
-        names += ["A", "AT", "BglT", "Bgl", "Bgl2"]
     itemsize = u.element_size()
     nbytes = ((reads + E * nd + E * Q) * itemsize
               + _nbytes(tb[k] for k in names))
@@ -191,10 +191,10 @@ def stage_ho_nodes_cost(xs, u, tb, n_cg, with_face=True):
 
 def gl_cg_cost(rhs, wdet, tables, iterations):
     """(bytes, flops) of kernel 6: rhs and wdet read once, the result
-    written once, the tables read once; per element b = rhs A, the diagonal
-    and x A^T, and per iteration in which the element is live (`iterations`
-    [E], what this run's data takes) the two Bgl contractions, the three
-    dots and the updates."""
+    written once, the 1D tables sf read once; per element b = rhs A, the
+    diagonal and x A^T, and per iteration in which the element is live
+    (`iterations` [E], what this run's data takes) the two Bgl
+    contractions, the three dots and the updates."""
     E, nd = rhs.shape
     Q = wdet.shape[1]
     dim = next(d for d in (3, 2, 1) if round(nd ** (1 / d)) ** d == nd
@@ -203,7 +203,7 @@ def gl_cg_cost(rhs, wdet, tables, iterations):
     vol = tensor_macs(n1, q1, dim)
     its = int(iterations.sum())
     nbytes = ((2 * rhs.numel() + wdet.numel()) * rhs.element_size()
-              + _nbytes(tables[k] for k in ("A", "AT", "BglT", "Bgl", "Bgl2")))
+              + _nbytes([tables["sf"]]))
     mac = E * (2 * tensor_macs(n1, n1, dim) + vol) + its * 2 * vol
     pointwise = E * 8 * nd + its * (Q + 13 * nd)
     return nbytes, 2 * mac + pointwise

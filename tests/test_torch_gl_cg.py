@@ -135,3 +135,58 @@ def test_gl_cg_refuses_bad_operands():
         cg.gl_cg(t(rhs), t(wdet)[:, :-1], tables)
     with pytest.raises(ValueError, match="n_iter"):
         cg.gl_cg(t(rhs), t(wdet), tables, n_iter=-1)
+
+
+def test_tables_are_checked_once(monkeypatch):
+    """The first call with a table dict checks its tables (recorded under
+    gl_cg.CHECKED); a second call does not check them again, and a bad
+    operand is still refused after it. A new dict with a bad table is
+    refused at its first call."""
+    _, td, wdet, rhs, _ = _setup((6, 6))
+    t = convert.tensor
+    tables = tbl.stage_ho_tables(td, torch.float64, "cpu")
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(kw.get("key"))
+        return tbl.check_tables(*args, **kw)
+
+    monkeypatch.setattr(cg, "check_tables", counted)
+    first = cg.gl_cg(t(rhs), t(wdet), tables)
+    assert calls == [cg.CHECKED]
+    assert tables[cg.CHECKED] == (torch.float64, torch.device("cpu"))
+    assert torch.equal(cg.gl_cg(t(rhs), t(wdet), tables), first)
+    assert calls == [cg.CHECKED]
+    with pytest.raises(ValueError, match="wdet must be"):
+        cg.gl_cg(t(rhs), t(wdet)[:, :-1], tables)
+    with pytest.raises(TypeError, match="must be torch.float64"):
+        cg.gl_cg(t(rhs), t(wdet, torch.float32), tables)
+    bad = {k: v for k, v in tables.items() if k != cg.CHECKED}
+    bad["sf"] = bad["sf"][:-1]
+    with pytest.raises(ValueError, match="sf must be"):
+        cg.gl_cg(t(rhs), t(wdet), bad)
+
+
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_gl_cg_matches_pallas_kernel_at_other_orders(p, dtype):
+    """As test_gl_cg_matches_pallas_kernel at p = 2 and 4 (2D 6x6): the
+    kernel's tables come from the 1D factors at every order."""
+    shape = (6, 6)
+    args = (2, shape, (0.0, 0.0), (1.0, 1.0), (False, False), 2)
+    jd = jbuild(jmesh(*args), p)
+    td = build_discretization(make_cartesian_mesh(*args), p)
+    _, _, _, _, curved = _setup(shape)
+    x0 = jd.mesh.x
+    bend = 0.1 / shape[0] * np.sin(7.3 * x0.sum(axis=-1, keepdims=True)
+                                    + 0.4 + np.arange(2))
+    xs = x0 + curved[:, None, None] * bend
+    wdet = np.asarray(wd.wdet_reference(
+        convert.tensor(xs), wd.wdet_tables(td, torch.float64, "cpu")))
+    rhs = np.random.default_rng(p).standard_normal((x0.shape[0], jd.nd))
+    jdt, tol = PREC[dtype]
+    out_j = pk.fused_gl_cg(jnp.asarray(rhs, jdt), jnp.asarray(wdet, jdt), jd,
+                           interpret=True)
+    out_t = cg.gl_cg(convert.tensor(rhs, dtype), convert.tensor(wdet, dtype),
+                     tbl.stage_ho_tables(td, dtype, "cpu"))
+    assert _rel(out_t, out_j) <= tol

@@ -141,7 +141,7 @@ def test_import_pulls_in_no_jax():
             "remhos_torch.ops.gather_nbr, remhos_torch.utils.cost, "
             "remhos_torch.utils.trace, remhos_torch.utils.fom, "
             "remhos_torch.tools.microbench, remhos_torch.tools.kernelbench, "
-            "remhos_torch.tools.wdet_variants; "
+            "remhos_torch.tools.kernel_variants; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('remhos_tpu')]; "
             "assert not bad, bad")

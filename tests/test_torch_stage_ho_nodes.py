@@ -16,6 +16,8 @@ the largest entry of the JAX result:
   cofactor expansion, to the same limits.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -140,3 +142,35 @@ def test_stage_ho_nodes_refuses_bad_operands():
     with pytest.raises(ValueError, match="xs must be"):
         shn.stage_ho_nodes(t(xs)[..., :1], t(v), t(u), t(unbr), tables,
                            mode=1)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("table", ["Gmf first tangent", "Gmf second tangent",
+                                   "Bmf"])
+def test_tables_refuse_face_tables_off_the_descriptors(shape, table):
+    """The kernel reads the face geometry as face descriptors and the 1D
+    mesh tables; stage_ho_nodes_tables raises where the plain version's
+    dense face tables are not their rebuild (a perturbed entry of the first
+    face's tangent or trace table; 2D faces have no second tangent, so
+    there the perturbed column is one the tangent does not read and the
+    tables are taken)."""
+    _, td, *_ = _setup(shape)
+    dim = len(shape)
+    fdesc = shn.stage_ho_nodes_tables(td, torch.float64, "cpu")["fdesc"]
+    k, _, t1, t2, _ = fdesc[0].tolist()
+    if table == "Bmf":
+        Bmf = td.Bmf.copy()
+        Bmf[0, 2, 3] += 1e-6
+        disc = dataclasses.replace(td, Bmf=Bmf)
+    else:
+        axis = t1 if table == "Gmf first tangent" else (t2 if dim == 3 else k)
+        Gmf = td.Gmf.copy()
+        Gmf[0, 2, 3, axis] += 1e-6
+        disc = dataclasses.replace(td, Gmf=Gmf)
+    if dim == 2 and table == "Gmf second tangent":
+        shn.stage_ho_nodes_tables(disc, torch.float64, "cpu")
+        return
+    name = {"Bmf": "Bmf", "Gmf first tangent": "GT1",
+            "Gmf second tangent": "GT2"}[table]
+    with pytest.raises(ValueError, match=f"face table {name} is not"):
+        shn.stage_ho_nodes_tables(disc, torch.float64, "cpu")

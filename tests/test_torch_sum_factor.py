@@ -35,6 +35,7 @@ from remhos_tpu.mesh import make_cartesian_mesh as jmesh
 from remhos_tpu.operator import Advection as JAdvection
 from remhos_tpu.operator import SolverConfig as JConfig
 
+from remhos_torch import geometry as geo
 from remhos_torch.discretization import build_discretization
 from remhos_torch.dofmaps import build_dofmaps
 from remhos_torch.mesh import make_cartesian_mesh
@@ -108,6 +109,51 @@ def test_factor_tables_rebuild_the_dense_tables(shape, p, mesh_order):
                disc.Gm[:, :, b])
     block = tbl.mesh_factor_block(disc, torch.float64, "cpu")
     _close(block["msf"], np.concatenate([Bm1.ravel(), Gm1.ravel()]))
+
+
+@pytest.mark.parametrize("p", [1, 3, 5])
+@pytest.mark.parametrize("mesh_order", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(2, 2, 2), (3, 2)], ids=str)
+def test_face_descriptors_rebuild_the_dense_face_tables(shape, mesh_order, p):
+    """Kernel 5's face descriptors with the 1D mesh tables rebuild the
+    plain version's dense face tables: per face the Kronecker product of the
+    one-hot row of the face's node along the normal axis, Gm1 along the
+    tangent's axis and Bm1 along the other in-face axis (axis 0 fastest):
+    the first tangent with the reference-normal sign, the second (3D) and
+    Bmf, to 1e-13 in f64. The conventions of geometry.face_tangent_tables:
+    tangent axes (k+1)%3, (k+2)%3 (2D: 1 - k), the sign of n_ref, times -1
+    in 2D where k != 0."""
+    disc = _disc(shape, p, mesh_order)
+    dim = len(shape)
+    tb = shn.stage_ho_nodes_tables(disc, torch.float64, "cpu")
+    fdesc = tb["fdesc"]
+    assert fdesc.dtype == torch.int32 and tuple(fdesc.shape) == (2 * dim, 5)
+    m = tbl.mesh_factor_tables(disc)
+    m1, Bm1, Gm1 = m["m1"], m["Bm1"], m["Gm1"]
+    assert m1 == mesh_order + 1
+    Gt, sgn = geo.face_tangent_tables(disc.Gmf, disc.n_ref)
+    for f, (k, side, t1, t2, sign) in enumerate(fdesc.tolist()):
+        n_ref = np.zeros(dim)
+        n_ref[k] = 1.0 if side else -1.0
+        assert np.array_equal(disc.n_ref[f], n_ref)
+        end = np.zeros((1, m1))
+        end[0, m1 - 1 if side else 0] = 1.0
+
+        def dense(deriv):
+            return _kron([end if a == k else (Gm1 if a == deriv else Bm1)
+                          for a in range(dim)])
+
+        if dim == 3:
+            assert (t1, t2) == ((k + 1) % 3, (k + 2) % 3)
+            assert sign == n_ref[k]
+            _close(dense(t2), Gt[f, ..., 1])
+        else:
+            assert (t1, t2) == (1 - k, -1)
+            assert sign == n_ref[k] * (1 if k == 0 else -1)
+        _close(sign * dense(t1), Gt[f, ..., 0] * sgn[f])
+        _close(dense(-1), disc.Bmf[f])
+    # the kernel's packed 1D mesh tables
+    _close(tb["msf"], np.concatenate([Bm1.ravel(), Gm1.ravel()]))
 
 
 def test_mesh_factor_tables_refuse_a_non_kronecker_table():
