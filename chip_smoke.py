@@ -76,6 +76,26 @@ It builds the CUDA kernels from the sources on first use, then:
    each cheap remap -pa golden row outside the -lo 5 family (its own mesh,
    p=2, f64), then runs the row in f64 on the card against
    goldens/reference_goldens.json (5e-10 relative on mass and max u);
+   then the entry points of the port:
+   a. the benchmark record, `bench.main_dual` in this process at full width
+      (N=24, p=3, 320 steps, best of 4 windows, with the p=4 leg, the f64
+      leg, the 40-step f32-vs-f64 cross check, the sweep (24|32) x (3|4)
+      and its peak, and the phase FOMs): it must be verified, every leg
+      must have run (`legs_skipped` only "shardmap:unported") and kernel 1
+      must have launched 3 x 320 x 4 times over the timed windows;
+   b. path E, transport at full width through driver.run: periodic-cube
+      refined to 24^3, p=3, problem 0, `-ho 3 -lo 5 -fct 2 -pa` in f32 with
+      the Kahan combine and the full closure (the mesh is all periodic),
+      dt = 0.0025, 100 steps; gates on the relative mass loss, the
+      closure's injection and u within [min u0, max u0] to f32 round-off;
+      then `-ho 2 -lo 4` in f64 for 20 steps (the transport subcell
+      weights). No kernel may launch: the JAX package routes transport
+      through no Pallas kernel either;
+   c. the four transport -pa golden rows in f64 on the card through
+      `remhos_torch.tools.run_goldens` (5e-10), no kernel launched;
+   d. the command line, `python -m remhos_torch` in a subprocess on the
+      transport-ballsjacks-m3pa row: its `Final mass u` and `Max value u`
+      lines against the golden at 5e-10;
 10. prints one JSON line per result, the wall seconds of each step and a
     `kernels` line;
 11. ends with {"ok": true, "device": {...}}.
@@ -85,6 +105,8 @@ failure raises and exits nonzero; without CUDA it exits 2 and prints no
 result.
 """
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -94,7 +116,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from remhos_torch import bench, bounds, driver, ops, pa, structured
+from remhos_torch import bench, bounds, driver, ops, pa
+from remhos_torch import structured
 from remhos_torch.config import RunConfig
 from remhos_torch.discretization import build_discretization
 from remhos_torch.mesh import make_cartesian_mesh
@@ -109,7 +132,7 @@ from remhos_torch.ops import stage_core as core
 from remhos_torch.ops import stage_ho_nodes as shn
 from remhos_torch.ops import wdet as wd
 from remhos_torch.ops.stage_core import as_dtype
-from remhos_torch.tools import kernelbench, microbench
+from remhos_torch.tools import kernelbench, microbench, run_goldens
 from remhos_torch.utils import fom
 from remhos_torch.utils import trace as trc
 from remhos_torch.utils.cost import (bound, gather_nbr_cost,
@@ -177,6 +200,25 @@ D_LIMITS = dict(mass_loss_u_rel=1e-8, max_u=1.0 + 1e-10, min_steps=20)
 MEASURE_STEPS = 10
 GOLDEN_ROWS = ("remap-cube3d-m3pa", "remap-cube3d-m4pa")
 GOLDEN_TOL = 5e-10       # the baseline prints 10 significant digits
+# step 9a: the record's knobs (bench.py's defaults, named); its budget leaves
+# the script inside its time limit
+RECORD_ENV = dict(BENCH_N=str(N_MAIN), BENCH_P=str(ORDER),
+                  BENCH_STEPS=str(STEPS), BENCH_REPS="4",
+                  BENCH_BUDGET_S="600")
+# path E: transport at full width, f32, closure on (all periodic)
+PATH_E = dict(mesh="periodic-cube", rs_levels=3, order=ORDER, problem=0,
+              ho=3, lo=5, fct=2, pa=True, dtype="float32", dt=0.0025,
+              t_final=1.0, max_tsteps=100, verbose=False)
+# f32: bench.verify's bounds tolerance, path A's mass and injection limits
+E_LIMITS = dict(mass_loss_u_rel=1e-6, closure_injected_rel=1e-4,
+                bounds=1e-5)
+PATH_E64 = dict(PATH_E, ho=2, lo=4, dtype="float64", max_tsteps=20)
+E64_LIMITS = dict(mass_loss_u_rel=1e-12, bounds=1e-10)
+TRANSPORT_ROWS = ("transport-ballsjacks-m3pa", "transport-ballsjacks-m4pa",
+                  "transport-cube-m3pa", "transport-cube-m4pa")
+CLI_ROW = "transport-ballsjacks-m3pa"
+CLI_ARGV = ("-m", "periodic-square", "-p", "5", "-rs", "3", "-dt", "0.004",
+            "-tf", "0.8", "-ho", "2", "-lo", "3", "-fct", "2", "-pa")
 # the orders kernels 1, 2 and 5 are also held at (p=3: step 3's checks);
 # p = 2-4 are compiled sizes of the core, p = 1 and 5 its runtime sizes
 ORDERS = (1, 2, 4, 5)
@@ -839,9 +881,7 @@ def run_golden_rows(device, rng, wdet_checks, gc_checks):
     gives wdet and geom_conv another shape than paths A-D (its own mesh,
     p=2), so both are first held against their plain versions on the row's
     own operator; the checks go into `wdet_checks` and `gc_checks`."""
-    path = Path(__file__).resolve().parent / "goldens" / \
-        "reference_goldens.json"
-    rows = {r["name"]: r for r in json.loads(path.read_text())["runs"]}
+    rows = golden_rows()
     recs = []
     for name in GOLDEN_ROWS:
         row = rows[name]
@@ -964,7 +1004,7 @@ def measurement_phase(device, rng):
                            f"expected {want} mega_stage launches")
     main = dict(check="main path: phases and trace, 3d N=%d f32" % N_MAIN,
                 **{k: rec[k] for k in (
-                    "ms_per_stage", "MDOF_stages_per_s", "kernel_us_per_stage",
+                    "ms_per_stage", "value", "kernel_us_per_stage",
                     "glue_us_per_stage", "glue_breakdown_us", "idle_share",
                     "idle_share_untraced", "trace_kernel_events",
                     "hbm_bytes_per_stage_model",
@@ -1013,6 +1053,113 @@ def measurement_phase(device, rng):
                           trace_kernel_events=seven,
                           trace_ms=tools["trace_ms"])), flush=True)
     return main, nonfused, tools
+
+
+def golden_rows():
+    path = Path(__file__).resolve().parent / "goldens" / \
+        "reference_goldens.json"
+    return {r["name"]: r for r in json.loads(path.read_text())["runs"]}
+
+
+def run_record(device):
+    """Step 9a: the benchmark record at full width, in this process."""
+    ops.reset_launch_counts()
+    rec = bench.main_dual(device=device, env=RECORD_ENV)
+    steps, reps = int(RECORD_ENV["BENCH_STEPS"]), int(RECORD_ENV["BENCH_REPS"])
+    print(json.dumps(rec), flush=True)
+    want = bench.STAGES * steps * reps
+    problems = []
+    if rec["verified"] is not True:
+        problems.append("not verified")
+    if rec["legs_skipped"] != ["shardmap:unported"]:
+        problems.append(f"legs skipped: {rec['legs_skipped']}")
+    if rec["kernels"]["mega_stage"] != want:
+        problems.append(f"kernel 1 launched {rec['kernels']['mega_stage']} "
+                        f"times over the windows, expected {want}")
+    if not isinstance(rec.get("f32_vs_f64_40step_rel"), float):
+        problems.append("no 40-step cross check")
+    if len(rec.get("sweep", ())) != 4 or "fom" not in rec or \
+            rec.get("p4_value") is None or rec.get("f64_value") is None:
+        problems.append("a leg is missing from the record")
+    if problems:
+        raise RuntimeError(f"benchmark record: {'; '.join(problems)}")
+    return rec
+
+
+def run_transport_path(path, cfg_kw, limits, device):
+    """Path E: one transport driver.run with its gates; no kernel may
+    launch."""
+    cfg = RunConfig(device=str(device), **cfg_kw)
+    ops.reset_launch_counts()
+    res = driver.run(cfg)
+    n = expect_counts(path, {})
+    mass0 = res.final_mass_u + res.mass_loss_u
+    u0_min, u0_max = res.u0_min, res.u0_max
+    rec = dict(path=path, dtype=cfg.dtype, ho=cfg.ho, lo=cfg.lo,
+               steps=res.steps, dt=res.dt, wall_s=res.timers["wall_s"],
+               ms_per_step=1e3 * res.timers["wall_s"] / res.steps,
+               mass_loss_u_rel=res.mass_loss_u / abs(mass0),
+               closure_injected_rel=res.mass_closure_injected_rel,
+               u0_min=u0_min, u0_max=u0_max, min_u=res.min_u,
+               max_u=res.max_u, cg_solves=res.cg_solves,
+               cg_iterations=res.cg_iterations, launches=n, limits=limits)
+    print(json.dumps(rec), flush=True)
+    gate(path, "steps", res.steps, cfg.max_tsteps, least=True)
+    gate(path, "max_u", res.max_u, u0_max + limits["bounds"])
+    gate(path, "min_u", res.min_u, u0_min - limits["bounds"], least=True)
+    for name in ("mass_loss_u_rel", "closure_injected_rel"):
+        if name in limits:
+            gate(path, name, rec[name], limits[name])
+    return rec
+
+
+def run_transport_goldens(device):
+    """Step 9c: the transport -pa golden rows through the golden runner (its
+    report of the rows the port does not run is left out here)."""
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = run_goldens.main(["--device", str(device), "--only",
+                               *TRANSPORT_ROWS])
+    n = expect_counts("transport golden rows", {})
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        if line.startswith(("PASS", "FAIL")):
+            print(line, flush=True)
+    rec = json.loads(lines[-1])
+    if rc != 0 or sorted(rec["matched"]) != sorted(TRANSPORT_ROWS):
+        raise RuntimeError(f"transport golden rows: {rec['matched']} "
+                           f"matched, {rec['failed']} failed")
+    return dict(matched=rec["matched"], not_ported=len(rec["not_ported"]),
+                launches=n)
+
+
+def run_cli():
+    """Step 9d: `python -m remhos_torch` on the card, held against its
+    golden row."""
+    row = golden_rows()[CLI_ROW]
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "remhos_torch", *CLI_ARGV],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parent)
+    if out.returncode != 0:
+        raise RuntimeError(f"the command line exited {out.returncode}:\n"
+                           f"{out.stderr[-3000:]}")
+    got = {}
+    for line in out.stdout.splitlines():
+        for key in ("Final mass u", "Max value u"):
+            if line.startswith(key + ":"):
+                got[key] = float(line.split(":")[1])
+    rec = dict(check="python -m remhos_torch " + " ".join(CLI_ARGV),
+               golden=CLI_ROW, wall_s=time.perf_counter() - t0, **got)
+    print(json.dumps(rec), flush=True)
+    for key, want in (("Final mass u", row["mass"]),
+                      ("Max value u", row["max"])):
+        v = got.get(key)
+        if v is None or not abs(v - want) <= GOLDEN_TOL * abs(want):
+            raise RuntimeError(f"the command line: {key} {v} is not the "
+                               f"golden {want:.10g}")
+    return rec
 
 
 def check_vb_stage(device):
@@ -1158,6 +1305,19 @@ def main():
     # 9. the cheap golden rows of the non-fused stage
     run_golden_rows(dev, rng, wdet_checks, gc_checks)
     done("golden rows")
+    # 9a. the benchmark record
+    record = run_record(dev)
+    torch.cuda.empty_cache()
+    done("record")
+    # 9b. path E: transport at full width, f32; then -ho 2 -lo 4 in f64
+    run_transport_path("E", PATH_E, E_LIMITS, dev)
+    run_transport_path("E f64 -ho 2 -lo 4", PATH_E64, E64_LIMITS, dev)
+    torch.cuda.empty_cache()
+    done("path E")
+    # 9c. the transport golden rows; 9d. the command line
+    run_transport_goldens(dev)
+    run_cli()
+    done("transport golden rows and the command line")
     print(json.dumps({"seconds": seconds,
                       "trace_retakes": trc.capture_counted.retakes}),
           flush=True)
@@ -1191,7 +1351,8 @@ def main():
     kernels = [
         row("mega_stage", "remhos_torch/ops/csrc/mega_stage.cu", pk + ":889",
             main_counts["mega_stage"], checks["3d_f32"], checks["3d_f64"],
-            checks, ms=kernel_ms),
+            checks, ms=kernel_ms,
+            launches_record_windows=record["kernels"]["mega_stage"]),
         row("stage_ho", "remhos_torch/ops/csrc/stage_ho.cu", pk + ":809",
             rec_a["launches"]["stage_ho"], ho_checks["3d_f32_lo"],
             ho_checks["3d_f64_lo"], ho_checks,

@@ -1,5 +1,5 @@
-"""remhos_torch: the Remhos remap path in PyTorch, with hand-written CUDA
-kernels for Hopper (sm_90a).
+"""remhos_torch: Remhos's partial-assembly remap and transport paths in
+PyTorch, with hand-written CUDA kernels for Hopper (sm_90a).
 
 The package is a port of `remhos_tpu` (JAX/Pallas on a TPU), which stays in
 the repository as the reference. Module names mirror the JAX package so a

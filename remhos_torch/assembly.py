@@ -1,7 +1,7 @@
 """Face gather and scatter of the DG face terms: the `remhos_tpu.assembly`
 subset the partial-assembly path uses. The assembled operators of that
 module (element mass and convection matrices, `bdrInt`) belong to the
-assembled path (ROADMAP.md Queue 1, item 10)."""
+assembled path (ROADMAP.md Queue 1, item 4)."""
 
 from __future__ import annotations
 

@@ -1,31 +1,60 @@
-"""The verified remap benchmark case on the GPU: the port of the main-path
-parts of bench.py.
+"""The verified remap benchmark on the GPU: the port of bench.py.
 
-The case is bench.py's: a 3D Cartesian N^3 mesh, order p=3, remap problem
-10, `-ho 3 -lo 5 -fct 2 -pa`, RK3-SSP with the Kahan-compensated combine,
-the state in f32 pinned by the incremental mass closure every step and one
-full f64 closure at the end. A run is verified before any number is
-reported, with bench.py's budgets and tolerances unchanged:
+The case is bench.py's: a 3D Cartesian N^3 mesh, order p, remap problem 10,
+`-ho 3 -lo 5 -fct 2 -pa`, RK3-SSP with the Kahan-compensated combine; in
+f32 the state is pinned by the mass closure (BENCH_CLOSURE: "1" the
+incremental closure every step and one full f64 closure at the end, "full"
+the full closure every step, "0" none); in f64 it runs without closures. A
+run is verified before any number is reported, with bench.py's budgets and
+tolerances unchanged:
 
 - `verify`: mass conservation of the closed state, the closure's injected
   mass against its drift budget, and no overshoot or undershoot;
 - `cross_precision_check`: the f32 state after 2 steps against 2 f64 steps,
-  which catches a silently degenerate f32 hot path.
+  which catches a silently degenerate f32 hot path; the dual record adds
+  the same check after BENCH_STEPS_F64 (40) steps.
 
-A check that did not run is reported as skipped, never as passed.
+A check that did not run is recorded as skipped and leaves `verified` not
+true: bench.py drops its 40-step check without a word when a leg is
+missing (bench.py:762); here it is recorded.
 
 The figure of merit keeps the reference's stage counting (remhos.cpp:
-1340-1347): MDOF * RK-stages / s.
+1340-1347): MDOF * RK-stages / s, over the best of BENCH_REPS windows after
+one warm-up window. Each window is one pass of the step loop with a
+`torch.cuda.synchronize` on either side. The loop is a Python loop that the
+host drives, one launch at a time: bench.py's argument for its window (one
+`lax.scan` dispatch amortizes a fixed latency) does not carry over, and the
+window's wall includes the host's work.
+
+    python -m remhos_torch.bench          (main_dual unless BENCH_DUAL=0)
+
+Knobs, read by `knobs()` with bench.py's names and defaults: BENCH_N (24),
+BENCH_P (3), BENCH_STEPS (320), BENCH_DT (0.2/steps), BENCH_REPS (4),
+BENCH_DUAL, BENCH_P4, BENCH_CROSSCHECK, BENCH_VERIFY, BENCH_DTYPE
+(float32), BENCH_CLOSURE (1|full|0), BENCH_PHASES, BENCH_TRACE,
+BENCH_BUDGET_S (1100), BENCH_SWEEP, BENCH_SWEEP_FULL, BENCH_PEAK_VERIFY,
+BENCH_STEPS_F64 (40), BENCH_STEPS_SWEEP (80), BENCH_CROSSDUMP. The TPU's
+BENCH_PALLAS=0 (the plain version on the device, which the port does not
+offer on the card), BENCH_POLY_BF16=1 and BENCH_SHARDED > 0 raise
+ValueError naming their ROADMAP.md item. The legs of the dual record take
+their sizes as function arguments; nothing here writes os.environ.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
+import json
+import os
+import subprocess
+import sys
 import time
+import traceback
 
 import numpy as np
 import torch
 
+from . import ops
 from . import problems as prob
 from . import resolve_device, synchronize
 from . import steppers as st
@@ -34,9 +63,81 @@ from .driver import integrate_mesh_velocity, project_bernstein
 from .geometry import lumped_mass_poly
 from .mesh import make_cartesian_mesh
 from .operator import Advection, SolverConfig
+from .utils import cost
 
 STAGES = 3          # RK3: the FOM counts stages (remhos.cpp:1340-1347)
 PROBLEM = 10
+# the reference's dev-machine run on the stage-counting basis
+# (remhos_tests.cpp:53-58: 2.56M dofs, 5 steps, RK3, 5.537 s):
+# 2.56 * 5 * 3 / 5.537 = 6.935 MDOF*stages/s. Not a TPU or GPU number.
+BASELINE_FOM = 6.935
+# bench.py's sweep grid (N, p); BENCH_SWEEP_FULL adds (48, 3)
+SWEEP_POINTS = ((24, 3), (32, 3), (24, 4), (32, 4))
+# seconds a dual-record leg may take at the default sizes, from its build
+# through its checks: a leg is skipped (and listed in `legs_skipped`) when
+# less of BENCH_BUDGET_S is left. These are estimates with margin; the
+# record's `leg_wall_s` gives each leg's measured seconds.
+LEG_COST_S = dict(p4=60.0, float64=40.0, sweep=60.0, peak=60.0,
+                  phases=150.0)
+
+
+def _env_on(env, name, default="1"):
+    return env.get(name, default) not in ("0", "false", "")
+
+
+def knobs(env=None) -> dict:
+    """The BENCH_* knobs of `env` (os.environ) with bench.py's defaults.
+    Raises ValueError for the TPU-only knobs."""
+    env = os.environ if env is None else env
+    if not _env_on(env, "BENCH_PALLAS"):
+        raise ValueError(
+            "BENCH_PALLAS=0 asks for the plain version on the device; the "
+            "port runs its kernels on the card (the plain versions are the "
+            "CPU's and the tests' references), ROADMAP.md Queue 2")
+    if _env_on(env, "BENCH_POLY_BF16", "0"):
+        raise ValueError("BENCH_POLY_BF16=1: the bf16 P16 stream is not "
+                         "ported (ROADMAP.md Queue 2, item 2)")
+    if int(env.get("BENCH_SHARDED", "0")) > 0:
+        raise ValueError("BENCH_SHARDED: sharding over several devices is "
+                         "not ported (ROADMAP.md Queue 1, item 10)")
+    steps = int(env.get("BENCH_STEPS", "320"))
+    closure = env.get("BENCH_CLOSURE", "1")
+    if closure not in ("1", "full", "0"):
+        raise ValueError(f"BENCH_CLOSURE={closure!r}: 1, full or 0")
+    dtype = env.get("BENCH_DTYPE", "float32")
+    if dtype not in ("float32", "float64"):
+        raise ValueError(f"BENCH_DTYPE={dtype!r}: float32 or float64")
+    return dict(
+        n=int(env.get("BENCH_N", "24")), p=int(env.get("BENCH_P", "3")),
+        steps=steps, dt=float(env.get("BENCH_DT") or 0.2 / steps),
+        reps=max(1, int(env.get("BENCH_REPS", "4"))),
+        dtype=dtype, closure=closure,
+        dual=_env_on(env, "BENCH_DUAL"), p4=_env_on(env, "BENCH_P4"),
+        crosscheck=_env_on(env, "BENCH_CROSSCHECK"),
+        verify=_env_on(env, "BENCH_VERIFY"),
+        phases=_env_on(env, "BENCH_PHASES"),
+        trace=_env_on(env, "BENCH_TRACE"),
+        budget_s=float(env.get("BENCH_BUDGET_S", "1100")),
+        sweep=_env_on(env, "BENCH_SWEEP"),
+        sweep_full=_env_on(env, "BENCH_SWEEP_FULL", "0"),
+        peak_verify=_env_on(env, "BENCH_PEAK_VERIFY"),
+        steps_f64=int(env.get("BENCH_STEPS_F64", "40")),
+        steps_sweep=int(env.get("BENCH_STEPS_SWEEP", "80")),
+        crossdump=env.get("BENCH_CROSSDUMP", ""))
+
+
+def device_line(device) -> str:
+    """The card's name and power limit as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` gives them; "cpu" on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    lines = out.stdout.strip().splitlines()
+    return lines[min(device.index or 0, len(lines) - 1)]
 
 
 @dataclasses.dataclass
@@ -53,6 +154,7 @@ class Case:
     closure_inc: object = None
     sig: np.ndarray = None
     mlk32: torch.Tensor = None
+    u_final: torch.Tensor = None   # the state after the last timed window
 
     @property
     def ndofs(self) -> int:
@@ -60,11 +162,13 @@ class Case:
 
 
 def build_case(n=24, order=3, dtype=torch.float32, device=None,
-               n_steps=320, dt=None, dim=3) -> Case:
+               n_steps=320, dt=None, dim=3, closure="1") -> Case:
     """bench.build_case (bench.py:128-208) on `device` (None -> CUDA).
 
-    dtype float32: the production case, with the mass closures. float64:
-    the reference-precision case, with neither (as bench.py runs it)."""
+    dtype float32: the production case, with the mass closure of
+    `closure` ("1": incremental every step and one full at the end; "full":
+    the full closure every step; "0": none). float64: the
+    reference-precision case, with neither (as bench.py runs it)."""
     device = resolve_device(device)
     mesh = make_cartesian_mesh(dim, (n,) * dim, (0.0,) * dim, (1.0,) * dim,
                                (False,) * dim)
@@ -83,16 +187,18 @@ def build_case(n=24, order=3, dtype=torch.float32, device=None,
     case = Case(disc=disc, adv=adv64, adv64=adv64, step=None, u0=u0,
                 u0_64=u0, dt=dt, n_steps=n_steps)
     if dtype == torch.float32:
-        # conservative mass closure, pinned to the mass of the f32-cast
-        # initial state in the f32-mlk metric so the loop starts closed
-        mlk, sig = lumped_mass_poly(x0, v, disc)
-        case.mlk32 = mlk.to(dtype)
-        case.sig = sig.cpu().numpy()
         case.u0 = u0.to(dtype)
-        m0 = float(case.mlk32[0].double().reshape(-1)
-                   @ case.u0.double().reshape(-1))
-        case.closure = st.make_mass_closure(case.mlk32, case.sig, m0)
-        case.closure_inc = st.make_mass_closure_inc(case.mlk32)
+        if closure != "0":
+            # conservative mass closure, pinned to the mass of the f32-cast
+            # initial state in the f32-mlk metric so the loop starts closed
+            mlk, sig = lumped_mass_poly(x0, v, disc)
+            case.mlk32 = mlk.to(dtype)
+            case.sig = sig.cpu().numpy()
+            m0 = float(case.mlk32[0].double().reshape(-1)
+                       @ case.u0.double().reshape(-1))
+            case.closure = st.make_mass_closure(case.mlk32, case.sig, m0)
+            if closure == "1":
+                case.closure_inc = st.make_mass_closure_inc(case.mlk32)
         case.adv = Advection(disc, cfg, x0.to(dtype), v.to(dtype),
                              dtype=dtype, device=device)
     elif dtype != f64:
@@ -112,12 +218,12 @@ def run_steps(case: Case, n_steps=None):
     """The step loop (bench.py:211-265) as a Python loop.
 
     t is carried in f64 and each stage sees it rounded to the working dtype
-    once. With the closures: the incremental closure each step (its f64
-    scalars precomputed on the host), then one full closure. The steppers
-    and the operator work on the block state S[nfields, E, nd]; this case
-    has one field, and u, c go in and come out as [E, nd]. Returns
-    (u, c, injected, t), injected the f64 sum of |mass| the closures
-    absorbed (0.0 without closure)."""
+    once. With the incremental closure: it every step (its f64 scalars
+    precomputed on the host), then one full closure; with the full closure
+    alone: it every step. The steppers and the operator work on the block
+    state S[nfields, E, nd]; this case has one field, and u, c go in and
+    come out as [E, nd]. Returns (u, c, injected, t), injected the f64 sum
+    of |mass| the closures absorbed (0.0 without closure)."""
     n_steps = case.n_steps if n_steps is None else n_steps
     dt, step = case.dt, case.step
     u = case.u0[None].clone()          # the block state S[1, E, nd]
@@ -137,9 +243,14 @@ def run_steps(case: Case, n_steps=None):
             acc = acc + deficit.abs()
         else:
             u, c, _ = step(u, c, _as_dtype(t, u.dtype), dt)
+            if case.closure is not None:
+                c0, deficit = case.closure(u[0], c[0], t_new)
+                c = c0[None]
+                acc = acc + deficit.abs()
         t = t_new
     u, c = u[0], c[0]
-    if case.closure is not None:
+    if case.closure_inc is not None:
+        # the exact f64 re-anchor, once a run
         c, deficit = case.closure(u, c, t)
         acc = acc + deficit.abs()
     return u, c, float(acc), t
@@ -214,56 +325,111 @@ def cross_precision_check(u2, dt, adv64, u0_64):
     return rel
 
 
-def run(case: Case, phases=False, trace=False, measure_steps=40) -> dict:
-    """Time the step loop, then verify it. One record, verified or raised.
+def stage_bytes_model(case: Case):
+    """bench.py's analytic bytes per RK stage of the fused main path
+    (bench.py:408-438) from the port's operand sizes: the mega kernel's
+    least bytes (`utils.cost.stage_cost`), the gather (reads u, writes
+    u_nbr), the bounds (reads u, writes the two class stencils), the RK
+    combine (4 nd) and, with a closure, its per-step reads of mlk, u and c
+    and write of c over the 3 stages. None off the mega path."""
+    adv = case.adv
+    if not adv._mega_stage_eligible():
+        return None
+    from .ops.stage_core import default_sweeps
+    tb = adv._stage_tables
+    kernel, _ = cost.stage_cost(tb, adv._poly, default_sweeps(adv.dtype))
+    E, nd, dim = case.u0.shape[0], tb["nd"], tb["dim"]
+    nbr, bcols = tb["nf"] * tb["fd"], 3 ** dim
+    cols = (nd + nbr) + (nd + 2 * bcols) + 4 * nd
+    if case.closure is not None:
+        cols += ((dim + 1) * nd + 3 * nd) / 3.0
+    return int(kernel + case.u0.element_size() * E * cols)
 
-    The wall time is one pass of the loop, not bench.py's best of
-    BENCH_REPS passes of a compiled loop (bench.py:512-517). The cross check
-    runs only for a float32 case (it holds f32 against f64); a float64 case
-    records it as skipped.
+
+def run(case: Case, reps=1, warmup=False, verify_state=True,
+        crosscheck=True, phases=False, trace=False, measure_steps=40) -> dict:
+    """Time the step loop, then verify it: one record.
+
+    warmup runs one untimed window first; the wall time is the best of
+    `reps` windows (bench.py:510-517), each synchronized on both sides.
+    `kernels` counts each hand kernel's launches over the timed windows.
+    verify_state: `verify`, which raises on failure. crosscheck (float32
+    only): the 2-step f32-vs-f64 check. A check that does not run is
+    recorded as skipped and leaves `verified` false; in float64 the cross
+    check does not apply (it holds f32 against f64).
 
     trace=True (bench.py's BENCH_TRACE) adds, from a torch.profiler trace
     of min(n_steps, measure_steps) steps of the same loop: kernel and glue
     microseconds per stage, the top five glue ops, the device's idle share
     over the traced window and against the wall of an untraced pass of the
-    same steps, the trace's kernel events and the launch counters over it,
-    and the least bytes per stage of the stage kernel (utils/cost.py).
-    phases=True (bench.py's BENCH_PHASES) adds the phase
-    ablation's FOMs (utils/fom.py) over min(n_steps, measure_steps) steps
-    and prints the reference's report (bench.py takes 40 steps for both).
-    With both off the record is as before."""
+    same steps, and the trace's kernel events and the launch counters over
+    it. phases=True (bench.py's BENCH_PHASES) adds the phase ablation's
+    FOMs (utils/fom.py) over min(n_steps, measure_steps) steps and prints
+    the reference's report. The state after the last window is left in
+    `case.u_final`."""
     dev = case.u0.device
-    synchronize(dev)
-    t0 = time.perf_counter()
-    uT, cT, injected, _ = run_steps(case)
-    synchronize(dev)
-    wall = time.perf_counter() - t0
-    closed = case.closure is not None
-    rel_loss, inj_rel = verify(case.adv64, case.u0, uT, case.dt,
-                               case.n_steps, cT=cT,
-                               injected=injected if closed else None,
-                               metric32=case.mlk32)
-    if case.u0.dtype == torch.float32:
-        u2, _, _, _ = run_steps(case, 2)
-        cross = {"status": "ran",
-                 "f32_vs_f64_2step_rel": cross_precision_check(
-                     u2, case.dt, case.adv64, case.u0_64)}
+    if warmup:
+        run_steps(case)
+    before = ops.launch_counts()
+    wall = float("inf")
+    for _ in range(max(1, reps)):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        uT, cT, injected, _ = run_steps(case)
+        synchronize(dev)
+        wall = min(wall, time.perf_counter() - t0)
+    launches = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    case.u_final = uT
+    is32 = case.u0.dtype == torch.float32
+    ok = True
+    rel_loss = inj_rel = None
+    if verify_state:
+        rel_loss, inj_rel = verify(
+            case.adv64, case.u0, uT, case.dt, case.n_steps, cT=cT,
+            injected=injected if case.closure is not None else None,
+            metric32=case.mlk32)
     else:
+        ok = False
+    rel2 = None
+    if not is32:
         cross = {"status": "skipped", "reason": "float64 case"}
+    elif crosscheck:
+        u2, _, _, _ = run_steps(case, 2)
+        rel2 = cross_precision_check(u2, case.dt, case.adv64, case.u0_64)
+        cross = {"status": "ran", "f32_vs_f64_2step_rel": rel2}
+    else:
+        cross = {"status": "skipped", "reason": "BENCH_CROSSCHECK=0"}
+        ok = False
     stage_calls = case.n_steps * STAGES
+    fom = 1e-6 * case.ndofs * stage_calls / wall
+    on_card = dev.type == "cuda"
+    bmodel = stage_bytes_model(case)
+    gbs = (bmodel * stage_calls / wall / 1e9
+           if bmodel is not None and on_card else None)
     result = {
         "metric": "fom_total_p%d_%dd_remap_pa_%s" % (
-            case.disc.p, case.disc.dim,
-            "f32" if case.u0.dtype == torch.float32 else "f64"),
+            case.disc.p, case.disc.dim, "f32" if is32 else "f64"),
         "ndofs": case.ndofs,
-        "steps": case.n_steps,
-        "wall_s": wall,
-        "ms_per_stage": 1e3 * wall / stage_calls,
-        "MDOF_stages_per_s": 1e-6 * case.ndofs * stage_calls / wall,
+        "value": fom,
+        "unit": "MDOF*stages/s",
+        "vs_baseline": fom / BASELINE_FOM,
+        "verified": ok,
         "mass_rel_loss": rel_loss,
         "mass_closure_injected_rel": inj_rel,
+        "f32_vs_f64_2step_rel": rel2,
         "cross_check": cross,
-        "verified": True,
+        "steps": case.n_steps,
+        "windows": max(1, reps),
+        "wall_s": wall,
+        "ms_per_stage": 1e3 * wall / stage_calls,
+        # the least bytes a stage moves, and those bytes over the window's
+        # wall against the H100's 3.35 TB/s (none on the CPU)
+        "hbm_bytes_per_stage_model": bmodel,
+        "hbm_gb_per_s_model": gbs,
+        "hbm_util_model": (gbs * 1e9 / cost.PEAK_BYTES_PER_S
+                           if gbs is not None else None),
+        "kernels": launches,
+        "device": device_line(dev),
     }
     m_steps = min(case.n_steps, measure_steps)
     if trace:
@@ -282,11 +448,198 @@ def run(case: Case, phases=False, trace=False, measure_steps=40) -> dict:
     return result
 
 
+def leg(n, p, steps, dt=None, dtype=torch.float32, reps=4, closure="1",
+        verify_state=True, crosscheck=True, trace=False, phases=False,
+        device=None, keep_steps=0):
+    """One leg of a record: build the case at (n, p), time it and verify
+    it (`run`). Returns (record, u after keep_steps steps of the same loop
+    from the initial state or None, u after the last timed window)."""
+    case = build_case(n, p, dtype, device, n_steps=steps, dt=dt,
+                      closure=closure)
+    rec = run(case, reps=reps, warmup=True, verify_state=verify_state,
+              crosscheck=crosscheck, trace=trace, phases=phases)
+    kept = run_steps(case, keep_steps)[0] if keep_steps else None
+    return rec, kept, case.u_final
+
+
+def main(device=None, env=None) -> dict:
+    """bench.py's main (bench.py:489-634): one leg under the BENCH_* knobs
+    of `env` (os.environ); prints its JSON record and returns it."""
+    k = knobs(env)
+    dtype = torch.float32 if k["dtype"] == "float32" else torch.float64
+    rec, _, u_final = leg(
+        k["n"], k["p"], k["steps"], dt=k["dt"], dtype=dtype, reps=k["reps"],
+        closure=k["closure"], verify_state=k["verify"],
+        crosscheck=k["crosscheck"], trace=k["trace"], phases=k["phases"],
+        device=device)
+    if k["crossdump"]:
+        np.save(k["crossdump"], u_final.double().cpu().numpy())
+    print(json.dumps(rec), flush=True)
+    print(f"# {rec['ndofs']} dofs, {k['steps']} steps, {rec['wall_s']:.3f} s"
+          f" on {rec['device']}", file=sys.stderr)
+    return rec
+
+
+def main_dual(device=None, env=None) -> dict:
+    """bench.py's main_dual (bench.py:637-853): the f32 headline with the
+    p=4 leg, the f64 leg, the f32-vs-f64 cross check after BENCH_STEPS_F64
+    steps, the N x p sweep (SWEEP_POINTS) with its peak verified on the
+    headline's trajectory, and the phase FOMs, in one JSON
+    record under a wall-clock budget (BENCH_BUDGET_S). Every finished leg
+    re-prints the accumulated record, so the last JSON line printed is the
+    most complete. An optional leg is skipped, and listed in
+    `legs_skipped`, when less of the budget is left than its `LEG_COST_S`;
+    one that fails is listed as "<tag>:failed" with its traceback on
+    stderr. The sharded leg is always listed as "shardmap:unported".
+    `leg_wall_s` gives the seconds of each leg that ran. Each leg's tensors
+    are freed before the next leg."""
+    k = knobs(env)
+    dev = resolve_device(device)
+    t_start = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    skipped = ["shardmap:unported"]
+
+    def remaining():
+        return k["budget_s"] - (time.perf_counter() - t_start)
+
+    leg_wall = {}
+
+    def run_leg(tag, cost_s, required=False, **kw):
+        """`leg`'s (record, kept state, final state) of one leg, ({}, None,
+        None) if it did not run."""
+        if not required and remaining() < cost_s:
+            skipped.append(tag)
+            print(f"({tag} leg skipped: {remaining():.0f} s left < "
+                  f"{cost_s:.0f} s estimate)", file=sys.stderr)
+            return {}, None, None
+        kw = dict(dict(reps=k["reps"], closure=k["closure"],
+                       verify_state=k["verify"], crosscheck=k["crosscheck"],
+                       device=dev), **kw)
+        t0 = time.perf_counter()
+        try:
+            return leg(**kw)
+        except Exception:
+            if required:
+                raise
+            traceback.print_exc()
+            print(f"({tag} leg failed)", file=sys.stderr)
+            skipped.append(f"{tag}:failed")
+            return {}, None, None
+        finally:
+            leg_wall[tag] = time.perf_counter() - t0
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+    n, p, steps, dt = k["n"], k["p"], k["steps"], k["dt"]
+    n_x = k["steps_f64"]
+    # 1. the f32 headline, and its own f32 loop over the cross check's steps
+    head, u32, _ = run_leg("float32", 0.0, required=True, n=n, p=p,
+                           steps=steps, dt=dt, trace=k["trace"],
+                           keep_steps=n_x if k["crosscheck"] else 0)
+    result = dict(head)
+    result["baseline_fom"] = BASELINE_FOM
+
+    def flush():
+        result["record_wall_s"] = time.perf_counter() - t_start
+        result["legs_skipped"] = sorted(set(skipped))
+        result["leg_wall_s"] = dict(leg_wall)
+        print(json.dumps(result), flush=True)
+
+    flush()
+    # 2. the p=4 leg
+    p4 = {}
+    if k["p4"]:
+        p4, _, _ = run_leg("p4", LEG_COST_S["p4"], n=n, p=4, steps=steps,
+                           dt=dt)
+        if p4:
+            result.update(p4_value=p4["value"], p4_ndofs=p4["ndofs"],
+                          p4_mass_rel_loss=p4["mass_rel_loss"],
+                          p4_hbm_util=p4["hbm_util_model"],
+                          p4_verified=p4["verified"])
+            flush()
+    # 3. the f64 leg at the f32 leg's dt, BENCH_STEPS_F64 steps, 2 windows:
+    # its last window's state is the f64 state after the cross check's steps
+    f64rec, _, u64 = run_leg("float64", LEG_COST_S["float64"], n=n, p=p,
+                             steps=n_x, dt=dt, dtype=f64, reps=2)
+    result.update(f64_value=f64rec.get("value"),
+                  f64_vs_baseline=f64rec.get("vs_baseline"),
+                  f64_mass_rel_loss=f64rec.get("mass_rel_loss"))
+    # 4. the f32 state against the f64 state after the same steps
+    if u32 is not None and u64 is not None:
+        a, b = u32.double(), u64.double()
+        rel = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+        result["f32_vs_f64_40step_rel"] = rel
+        # the guarded failure modes sit at 0.3 (bf16 products) and O(1)
+        result["crosscheck_40step"] = "passed" if rel <= 1e-2 else "failed"
+    else:
+        result["f32_vs_f64_40step_rel"] = None
+        result["crosscheck_40step"] = "skipped"
+    result["crosscheck_steps"] = n_x
+    result["verified"] = bool(head["verified"]
+                              and result["crosscheck_40step"] == "passed")
+    del u32, u64
+    flush()
+    # 5. the N x p sweep, reusing the legs already run
+    if k["sweep"]:
+        pts = list(SWEEP_POINTS)
+        if k["sweep_full"]:
+            pts.insert(2, (48, 3))
+        sweep = []
+        for (N, P) in pts:
+            if (N, P) == (n, p):
+                src = head
+            elif (N, P) == (n, 4) and p4:
+                src = p4
+            else:
+                src, _, _ = run_leg(f"sweep N={N} p={P}",
+                                    LEG_COST_S["sweep"], n=N, p=P,
+                                    steps=k["steps_sweep"])
+                if not src:
+                    continue
+            sweep.append({"N": N, "p": P, "ndofs": src["ndofs"],
+                          "steps": src["steps"], "value": src["value"],
+                          "verified": src["verified"],
+                          "hbm_util": src["hbm_util_model"]})
+            result["sweep"] = sweep
+            flush()
+        if sweep:
+            best = max(sweep, key=lambda r: r["value"])
+            result["sweep_peak"] = {"N": best["N"], "p": best["p"],
+                                    "value": best["value"]}
+            # 6. the peak on the headline's trajectory (its steps and dt; a
+            # headline leg already ran there)
+            pk = {}
+            if (best["N"], best["p"]) == (n, p):
+                pk = head
+            elif (best["N"], best["p"]) == (n, 4) and p4:
+                pk = p4
+            elif k["peak_verify"]:
+                pk, _, _ = run_leg(f"sweep_peak_{steps}", LEG_COST_S["peak"],
+                                   n=best["N"], p=best["p"], steps=steps,
+                                   dt=dt)
+            if pk:
+                result["sweep_peak_verified"] = {
+                    "N": best["N"], "p": best["p"], "steps": pk["steps"],
+                    "value": pk["value"], "verified": pk["verified"],
+                    "mass_rel_loss": pk["mass_rel_loss"]}
+                flush()
+    # 7. the phase FOMs, last
+    if k["phases"]:
+        ph, _, _ = run_leg("phases", LEG_COST_S["phases"], n=n, p=p,
+                           steps=steps, dt=dt, reps=1, verify_state=False,
+                           crosscheck=False, phases=True)
+        for key, v in ph.items():
+            if key.startswith("fom") or key == "dispatch_ms_per_call":
+                result[key] = v
+    flush()
+    return result
+
+
 def _trace_record(case, tr_steps) -> dict:
     """The trace keys of `run`: one traced pass of tr_steps steps of the
     benched loop (bench.py:582-616 without XLA's placement bytes)."""
-    from .ops.stage_core import default_sweeps
-    from .utils import cost, trace as trc
+    from .utils import trace as trc
     dev = case.u0.device
     run_steps(case, tr_steps)                    # warm
     synchronize(dev)
@@ -296,8 +649,7 @@ def _trace_record(case, tr_steps) -> dict:
     wall = time.perf_counter() - t0
     tr, launches = trc.capture_counted(lambda: run_steps(case, tr_steps))
     rep = trc.loop_report(tr, tr_steps, STAGES)
-    adv = case.adv
-    out = {
+    return {
         "kernel_us_per_stage": rep["kernel_s_per_stage"] * 1e6,
         "glue_us_per_stage": rep["glue_s_per_stage"] * 1e6,
         "glue_breakdown_us": {
@@ -311,8 +663,10 @@ def _trace_record(case, tr_steps) -> dict:
         "trace_kernel_events": trc.kernel_events(tr),
         "trace_launches": launches,
     }
-    if adv._mega_stage_eligible():
-        nbytes, _ = cost.stage_cost(adv._stage_tables, adv._poly,
-                                    default_sweeps(adv.dtype))
-        out["hbm_bytes_per_stage_model"] = nbytes
-    return out
+
+
+if __name__ == "__main__":
+    if knobs()["dual"]:
+        main_dual()
+    else:
+        main()

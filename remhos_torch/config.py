@@ -83,4 +83,9 @@ class RunResult:
     # their iterations (each reads one comparison back from the device)
     cg_solves: int = 0
     cg_iterations: int = 0
+    # the final state's smallest value (the reference reports only max u),
+    # and the initial condition's range, which bounds it
+    min_u: float = 0.0
+    u0_min: float = 0.0
+    u0_max: float = 0.0
     timers: dict | None = None

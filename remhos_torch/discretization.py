@@ -34,6 +34,9 @@ class Discretization:
     n_ref: np.ndarray      # [nf, dim] outward reference normals
     ref_nodes_u: np.ndarray   # [nd, dim] solution (closed-uniform) ref nodes
     Bm_at_unodes: np.ndarray  # [nd, nm] mesh basis at the uniform nodes
+    Bm_at_glnodes: np.ndarray  # [nd, nm] mesh basis at the GL nodes
+    T_gl_to_unif: np.ndarray  # [nd, nd] GL-nodal interpolant at the
+    #                           uniform nodes (problem 7's inflow projection)
     Bgl: np.ndarray        # [Q, nd] GL nodal basis at the volume rule
     A_gl2b: np.ndarray     # [nd, nd] GL-nodal -> Bernstein coefficients
 
@@ -87,6 +90,9 @@ def build_discretization(mesh: StructuredMesh, p: int) -> Discretization:
          for g in np.meshgrid(*[unodes_1d] * dim, indexing="ij")], axis=-1)
     Bm_at_unodes = B.tensor_mixed([B.lagrange_vals(gll_m, unodes_1d)] * dim)
     gl_nodes = B.gauss_legendre(p + 1)[0]
+    Bm_at_glnodes = B.tensor_mixed([B.lagrange_vals(gll_m, gl_nodes)] * dim)
+    T_gl_to_unif = B.tensor_mixed([B.lagrange_vals(gl_nodes, unodes_1d)]
+                                  * dim)
     Bgl = B.tensor_mixed([B.lagrange_vals(gl_nodes, q1)] * dim)
     A1 = np.linalg.solve(B.bernstein_vals(p, unodes_1d),
                          B.lagrange_vals(gl_nodes, unodes_1d))
@@ -95,5 +101,7 @@ def build_discretization(mesh: StructuredMesh, p: int) -> Discretization:
     return Discretization(
         mesh=mesh, p=p, dofmaps=dofmaps, w_q=w_q, Bu=Bu, Gu=Gu, Bm=Bm, Gm=Gm,
         w_fq=w_fq, Bface=Bface, Bmf=np.stack(Bmf), Gmf=np.stack(Gmf),
-        n_ref=np.stack(nrefs), ref_nodes_u=ref_nodes_u, Bm_at_unodes=Bm_at_unodes, Bgl=Bgl,
+        n_ref=np.stack(nrefs), ref_nodes_u=ref_nodes_u,
+        Bm_at_unodes=Bm_at_unodes, Bm_at_glnodes=Bm_at_glnodes,
+        T_gl_to_unif=T_gl_to_unif, Bgl=Bgl,
         A_gl2b=A_gl2b)

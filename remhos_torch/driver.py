@@ -1,25 +1,26 @@
 """Driver: setup, time loop and reporting (the remhos() entry equivalent).
 
-The port of `remhos_tpu.driver` for one device, a structured mesh, the remap
-problems 10-17 and the partial-assembly solver families (`-ho 2|3
--lo 0|3|4|5 -fct 0|2 -pa`; `operator.py` picks the fused or the non-fused
-stage): `run(cfg) -> RunResult`, whose `final_mass_u` plays the role of the C
-entry's out-parameter (remhos.cpp:210).
+The port of `remhos_tpu.driver` for one device, a structured mesh, the
+transport problems 0-7, the remap problems 10-17 and the partial-assembly
+solver families (`-ho 2|3 -lo 0|3|4|5 -fct 0|2 -pa`; `operator.py` picks the
+fused or the non-fused stage): `run(cfg) -> RunResult`, whose `final_mass_u`
+plays the role of the C entry's out-parameter (remhos.cpp:210).
 
 The Python loop handles the adaptive-dt rollback (remhos.cpp:1178-1197), the
--vb raise and logging. With -vb or -dtc 1 it fetches the step's aux channel
-once per step; without them it fetches nothing, and the device runs ahead of
-the host.
+-vb raise, the steady-state stop of problems 6-8 (remhos.cpp:1276-1294),
+checkpoints and logging. With -vb or -dtc 1 it fetches the step's aux
+channel once per step, and the steady-state test fetches its residual; other
+runs fetch nothing, and the device runs ahead of the host.
 
-Standard RK in float32 runs the production numerics: the Kahan-compensated
-combine and, every step, the FULL f64 mass closure pinning <ml(t), u + c> to
-the t = 0 invariant (driver.py:227-273 of the reference). `bench.py` runs
-the incremental closure instead; each mirrors its own counterpart.
+Standard RK in float32 runs the production numerics where the scheme
+conserves mass (remap with RK3/4/6, transport on an all-periodic mesh): the
+Kahan-compensated combine and, every step, the FULL f64 mass closure pinning
+<ml(t), u + c> to the t = 0 invariant (driver.py:227-273 of the reference).
+`bench.py` runs the incremental closure instead; each mirrors its own
+counterpart.
 
 Not ported yet, and raising NotImplementedError with their ROADMAP.md item
-when asked for: sharding, checkpoints, `vis`, `visit`, `save`,
-`profile_dir`, and the transport problems with their inflow projection,
-steady-state stopping and L1 error.
+when asked for: sharding, `vis`, `visit`, `save` and `profile_dir`.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from . import checkpoint as ckpt
 from . import geometry as geo
 from . import problems as prob
 from . import resolve_device, synchronize
@@ -38,8 +40,8 @@ from . import steppers
 from . import sync as syncm
 from .config import RunConfig, RunResult
 from .discretization import build_discretization
-from .mesh import default_mesh, load_mesh
-from .operator import Advection, SolverConfig
+from .mesh import default_mesh, load_mesh, registry_dim
+from .operator import Advection, SolverConfig, solver_unported
 
 
 def project_bernstein(x_nodes, Bm_at_unodes, func):
@@ -71,6 +73,26 @@ def integrate_mesh_velocity(x0, problem, bb_min, bb_max, t_final, dt):
     return x - x0
 
 
+def inflow_projection(problem, x0_nodes, disc):
+    """The inflow values inflow[E, nd] of problems 6 and 7, None for the
+    others (remhos.cpp:626-636). Problem 7 projects in two steps: the
+    Gauss-Legendre nodal interpolant, evaluated at the Bernstein control
+    points (remhos.cpp:628-635)."""
+    if problem % 10 not in (6, 7):
+        return None
+
+    def T(a):
+        return torch.as_tensor(a, dtype=x0_nodes.dtype,
+                               device=x0_nodes.device)
+
+    if problem == 7:
+        x_gl = torch.einsum("end,mn->emd", x0_nodes, T(disc.Bm_at_glnodes))
+        return torch.einsum("mk,ek->em", T(disc.T_gl_to_unif),
+                            prob.inflow_function(problem, x_gl))
+    x_un = torch.einsum("end,mn->emd", x0_nodes, T(disc.Bm_at_unodes))
+    return prob.inflow_function(problem, x_un)
+
+
 def _cfl_dt(mesh, problem, order):
     """CFL-based initial dt for -dt < 0 (remhos.cpp:537-553)."""
     h = mesh.element_sizes()
@@ -89,28 +111,44 @@ def _echo_options(cfg: RunConfig):
         print(f"   --{f.name} {getattr(cfg, f.name)}")
 
 
-def _unported(cfg: RunConfig):
-    """The ROADMAP.md item an option of `cfg` needs, or None."""
+def _solver_config(cfg: RunConfig) -> SolverConfig:
+    """The operator's SolverConfig of a run configuration."""
+    return SolverConfig(problem=cfg.problem, ho=cfg.ho, lo=cfg.lo,
+                        fct=cfg.fct, mono=cfg.mono, pa=cfg.pa,
+                        ode_solver=cfg.ode_solver,
+                        bounds_type=cfg.bounds_type,
+                        dt_control=cfg.dt_control,
+                        product_sync=cfg.product_sync,
+                        smth_ind=cfg.smth_ind,
+                        verify_bounds=cfg.verify_bounds,
+                        use_masks=cfg.use_masks)
+
+
+def unported(cfg: RunConfig):
+    """What of `cfg` is not ported yet, naming its ROADMAP.md item, or None
+    when the port runs it. Decided from the configuration alone: no mesh or
+    table is built."""
     if cfg.n_shards > 1 or cfg.shard_grid is not None or cfg.dcn:
-        return "sharding over several devices (Queue 1, item 13)"
-    if cfg.checkpoint_path or cfg.checkpoint_steps or cfg.resume:
-        return "checkpoint and resume (Queue 1, item 11)"
+        return "sharding over several devices (Queue 1, item 10)"
     if cfg.vis or cfg.visit or cfg.save:
-        return "vis, visit and save output (Queue 1, item 14)"
+        return "vis, visit and save output (Queue 1, item 9)"
     if cfg.profile_dir:
-        return "the profiler trace of the loop (Queue 1, item 14)"
-    if prob.exec_mode_of(cfg.problem) != 1:
-        return ("transport problems, with their inflow projection, "
-                "steady-state stopping and L1 error (Queue 1, item 9)")
-    return None
+        return "the profiler trace of the loop (Queue 1, item 9)"
+    dim = cfg.dim if cfg.mesh == "default" else registry_dim(cfg.mesh)
+    if dim is None:
+        return (f"mesh '{cfg.mesh}': general, curved and NURBS mesh files "
+                "(Queue 1, item 8)")
+    return solver_unported(_solver_config(cfg), dim)
 
 
 def build_operator(cfg: RunConfig):
-    """(adv, dt): the operator of a run on its mesh, with the remap mesh
-    velocity in `adv.v_nodes`, and the run's initial dt. `run` starts here;
-    callers that want the stage functions, the kernels' tables or the nodes
-    of a configuration without running it do too."""
-    why = _unported(cfg)
+    """(adv, dt): the operator of a run on its mesh (in remap with the mesh
+    velocity in `adv.v_nodes`, in transport with the inflow values of
+    problems 6 and 7), and the run's initial dt. `run` starts here; callers
+    that want the stage functions, the kernels' tables or the nodes of a
+    configuration without running it do too. Raises NotImplementedError,
+    naming the ROADMAP.md item, for what `unported` names."""
+    why = unported(cfg)
     if why is not None:
         raise NotImplementedError(
             f"remhos_torch.driver.run: {why} is not ported yet (ROADMAP.md)")
@@ -134,22 +172,39 @@ def build_operator(cfg: RunConfig):
 
     # --- remap mesh velocity (f64, then cast to the working dtype) ---
     x0_64 = torch.as_tensor(mesh.x, dtype=f64, device=device)
-    v_nodes = integrate_mesh_velocity(x0_64, cfg.problem, mesh.bb_min,
-                                      mesh.bb_max, cfg.t_final,
-                                      dt).to(dtype)
+    x0_nodes = x0_64.to(dtype)
+    v_nodes = None
+    if prob.exec_mode_of(cfg.problem) == 1:
+        v_nodes = integrate_mesh_velocity(x0_64, cfg.problem, mesh.bb_min,
+                                          mesh.bb_max, cfg.t_final,
+                                          dt).to(dtype)
 
-    # --- solver config / operator ---
-    scfg = SolverConfig(problem=cfg.problem, ho=cfg.ho, lo=cfg.lo,
-                        fct=cfg.fct, mono=cfg.mono, pa=cfg.pa,
-                        ode_solver=cfg.ode_solver,
-                        bounds_type=cfg.bounds_type,
-                        dt_control=cfg.dt_control,
-                        product_sync=cfg.product_sync,
-                        smth_ind=cfg.smth_ind,
-                        verify_bounds=cfg.verify_bounds,
-                        use_masks=cfg.use_masks)
-    return Advection(disc, scfg, x0_64.to(dtype), v_nodes, dtype=dtype,
-                     device=device), dt
+    return Advection(disc, _solver_config(cfg), x0_nodes, v_nodes,
+                     dtype=dtype, device=device,
+                     inflow=inflow_projection(cfg.problem, x0_nodes,
+                                              disc)), dt
+
+
+def l1_errors(adv, u, problem, x):
+    """(L1, L2, Linf) of u[E, nd] against the exact solution of problem 4
+    (its initial condition) or 7 (its inflow profile) on the nodes x, at
+    the volume rule (remhos.cpp:1438-1470)."""
+    disc, mesh = adv.disc, adv.disc.mesh
+
+    def T(a):
+        return torch.as_tensor(a, dtype=x.dtype, device=x.device)
+
+    vol = geo.volume_geometry(x, T(disc.Bm), T(disc.Gm))
+    u_q = u @ adv.Bu.T
+    if problem == 4:
+        ex_q = prob.u0_function(problem, vol["x_q"], mesh.bb_min,
+                                mesh.bb_max)
+    else:
+        ex_q = prob.inflow_function(problem, vol["x_q"])
+    wdet = adv.w_q[None, :] * vol["detJ"]
+    err = (u_q - ex_q).abs()
+    return (float((wdet * err).sum()), float((wdet * err ** 2).sum().sqrt()),
+            float(err.max()))
 
 
 def run(cfg: RunConfig) -> RunResult:
@@ -159,12 +214,15 @@ def run(cfg: RunConfig) -> RunResult:
     device, dtype, f64 = adv.device, adv.dtype, torch.float64
     disc, mesh = adv.disc, adv.disc.mesh
     x0_nodes, v_nodes = adv.x0_nodes, adv.v_nodes
-    t_final = 1.0   # pseudo-time convention (remhos.cpp:1128-1134)
+    exec_mode = adv.cfg.exec_mode
+    # remap runs in pseudo-time [0, 1] (remhos.cpp:1128-1134)
+    t_final = 1.0 if exec_mode == 1 else cfg.t_final
 
     # --- initial condition (from the working-dtype nodes, in f64) ---
     u0, x_unodes = project_bernstein(
         x0_nodes.to(f64), disc.Bm_at_unodes,
         lambda x: prob.u0_function(cfg.problem, x, mesh.bb_min, mesh.bb_max))
+    u0_min, u0_max = float(u0.min()), float(u0.max())
     fields = [u0]
     if cfg.product_sync:
         active_el, _ = syncm.bool_indicators(u0)
@@ -192,13 +250,19 @@ def run(cfg: RunConfig) -> RunResult:
         # conservative mass closure. The closure is only valid where the
         # SCHEME conserves <ml(t), u> to round-off: remap with RK3/4/6
         # (the GCL's temporal error is O(dt^4) per step; forward Euler and
-        # RK2 drift at O(dt^2) and O(dt^3)).
+        # RK2 drift at O(dt^2) and O(dt^3)), or transport on an
+        # all-periodic mesh (no boundary flux, ml constant); non-periodic
+        # transport has a physical in- and outflow.
+        conservative = ((exec_mode == 1 and cfg.ode_solver in (3, 4, 6))
+                        or (exec_mode == 0 and all(mesh.periodic)))
         use_closure = (dtype == torch.float32 and cfg.closure
-                       and cfg.ode_solver in (3, 4, 6))
+                       and conservative)
         step = steppers.make_rk_step(adv.stage_function(), cfg.ode_solver,
                                      compensated=use_closure)
         if use_closure:
-            mlk, sig = geo.lumped_mass_poly(x0_nodes, v_nodes, disc)
+            v_ml = (v_nodes if v_nodes is not None
+                    else torch.zeros_like(x0_nodes))
+            mlk, sig = geo.lumped_mass_poly(x0_nodes, v_ml, disc)
             mlk32 = mlk.to(dtype)
             # invariant target: the f32-cast initial state's mass in the
             # closure's own f32-mlk metric, so the loop starts closed
@@ -217,6 +281,15 @@ def run(cfg: RunConfig) -> RunResult:
     ti = 0
     ti_total = 0
     done = False
+    if cfg.resume and cfg.checkpoint_path:
+        S_ck, t, dt, ti = ckpt.load_state(cfg.checkpoint_path)
+        S = torch.as_tensor(S_ck).to(device=device, dtype=dtype)
+        ti_total = ti
+        if cfg.verbose:
+            print(f"Resumed from {cfg.checkpoint_path} at step {ti}, t={t:g}")
+    steady = cfg.problem in (6, 7, 8)
+    res_prev = S[0]
+    residual = 0.0
     check_global = (cfg.verify_bounds and cfg.problem % 10 not in (6, 7)
                     and (cfg.lo != 0 or cfg.mono != 0))
     if check_global:
@@ -269,7 +342,19 @@ def run(cfg: RunConfig) -> RunResult:
             C = C_new
             C[0] = c_u
 
-        done = t >= t_final - 1e-8 * dt
+        if not steady:
+            done = t >= t_final - 1e-8 * dt
+        else:
+            # the reference divides by the current (post-dt-control) dt,
+            # remhos.cpp:1287, not by the t_final-clamped dt_real
+            diff = (masses * S[0] - masses * res_prev) / dt
+            residual = float(torch.sqrt((diff * diff).sum()))
+            if residual < 1e-12 and t >= 1.0:
+                done = True
+                S = S.clone()
+                S[0] = res_prev
+            else:
+                res_prev = S[0]
         if check_global:
             # global monotonicity assertions (remhos.cpp:1219-1260)
             u_max_new, u_min_new = torch.stack([S[0].max(),
@@ -281,21 +366,29 @@ def run(cfg: RunConfig) -> RunResult:
                     f"[{u_min_glob}, {u_max_glob}] -> "
                     f"[{u_min_new}, {u_max_new}]")
             u_max_glob, u_min_glob = u_max_new, u_min_new
+        if cfg.checkpoint_steps and cfg.checkpoint_path and \
+                ti % cfg.checkpoint_steps == 0:
+            # the compensation is folded in: it is below the state's ulp
+            ckpt.save_state(cfg.checkpoint_path,
+                            S + C if use_closure else S, t, dt, ti)
         if ti_total == cfg.max_tsteps:
             done = True
         if cfg.verbose and (done or ti % cfg.vis_steps == 0):
             print(f"time step: {ti}, time: {t:.6g}, dt: {dt:.6g}, "
-                  f"residual: 0")
+                  f"residual: {residual:.6g}")
     synchronize(device)
     wall = time.perf_counter() - wall0
 
     # --- final mass / max (remhos.cpp:1382-1436) ---
-    ml_final = adv.lumped_mass(t)
+    ml_final = adv.lumped_mass(t) if exec_mode == 1 else masses
     mass_u = _mass(ml_final, S[0], C[0] if use_closure else None)
     max_u = float(S[0].max())
     res = RunResult(final_mass_u=mass_u, max_u=max_u,
                     mass_loss_u=abs(mass0_u - mass_u),
+                    min_u=float(S[0].min()),
+                    u0_min=u0_min, u0_max=u0_max,
                     steps=ti, steps_total=ti_total, t=t, dt=dt,
+                    residual=residual,
                     mass_closure_injected_rel=(
                         float(inj_acc) / max(abs(mass0_u), 1e-300)
                         if use_closure else 0.0),
@@ -308,6 +401,16 @@ def run(cfg: RunConfig) -> RunResult:
         res.final_mass_us = mass_us
         res.mass_loss_us = abs(mass0_us - mass_us)
         res.max_s = float(s.max())
+
+    # --- errors of the convergence problems (remhos.cpp:1438-1470) ---
+    if cfg.problem in (4, 7):
+        x = x0_nodes if exec_mode == 0 else x0_nodes + t * v_nodes
+        errs = l1_errors(adv, S[0], cfg.problem, x)
+        res.l1_error = errs[0]
+        if cfg.problem == 7 and cfg.verbose:
+            # the reference appends L1, L2 and Linf (remhos.cpp:1452-1469)
+            with open("errors.txt", "a") as fh:
+                fh.write("%.12g %.12g %.12g\n" % errs)
 
     if cfg.verbose:
         if device.type == "cuda":
@@ -324,4 +427,6 @@ def run(cfg: RunConfig) -> RunResult:
             print(f"Final mass us: {res.final_mass_us:.10g}")
             print(f"Max value s:   {res.max_s:.10g}")
             print(f"Mass loss us:  {res.mass_loss_us:.6g}")
+        if res.l1_error >= 0:
+            print(f"L1-error: {res.l1_error:.6g}.")
     return res

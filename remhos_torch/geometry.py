@@ -1,6 +1,6 @@
 """Geometric factors of moving tensor meshes, as batched torch products.
 
-The port's copy of the `remhos_tpu.geometry` subset the remap path uses.
+The port's copy of the `remhos_tpu.geometry` subset the PA paths use.
 Conventions: mesh nodes x[E, nm, dim] (lexicographic Gauss-Lobatto nodes),
 Jacobian J[e, q, a, b] = d x_a / d xi_b, held as per-entry planes
 J[d][b] -> [E, Q].
@@ -40,6 +40,19 @@ def volume_detj(x, Gm):
     k0 = [Jp[(d + 1) % 3][1] * Jp[(d + 2) % 3][2]
           - Jp[(d + 1) % 3][2] * Jp[(d + 2) % 3][1] for d in range(3)]
     return sum(Jp[d][0] * k0[d] for d in range(3))
+
+
+def jacobians(x, Gm):
+    """J[E, Q, dim, dim] from nodes x[E, nm, dim] and Gm[Q, nm, dim]."""
+    Jp = jacobian_planes(x, Gm)
+    return torch.stack([torch.stack(row, -1) for row in Jp], -2)
+
+
+def volume_geometry(x, Bm, Gm):
+    """The volume rule's geometry: x_q[E, Q, dim], detJ[E, Q] and
+    adjJ[E, Q, dim, dim]."""
+    det, adj = det_adj(jacobians(x, Gm))
+    return {"x_q": interp_nodes(x, Bm), "detJ": det, "adjJ": adj}
 
 
 def det_adj(J):
@@ -107,6 +120,16 @@ def face_normals_tangent(x, Gmf_tan, sign):
         t = T[..., 0]
         nor = torch.stack([t[..., 1], -t[..., 0]], -1)
     return nor * sign[None, :, None, None]
+
+
+def face_geometry_tangent(x, Bmf, Gmf_tan, sign):
+    """The face points x_fq[E, nf, Qf, dim] and the scaled outward normals
+    of `face_normals_tangent` there."""
+    A, E, dim = _nodes_matrix(x)
+    nf, Qf, nm = Bmf.shape
+    x_fq = (A @ Bmf.permute(2, 0, 1).reshape(nm, nf * Qf)).reshape(
+        E, dim, nf, Qf).permute(0, 2, 3, 1)
+    return x_fq, face_normals_tangent(x, Gmf_tan, sign)
 
 
 def lumped_mass_poly(x0, v, disc):

@@ -93,7 +93,7 @@ def make_mesh_from_breaks(dim: int, breaks: tuple,
     if dim not in (2, 3):
         raise NotImplementedError(
             f"remhos_torch meshes are 2D or 3D, got dim={dim} "
-            "(ROADMAP.md Queue 1, item 12)")
+            "(ROADMAP.md Queue 1, item 6)")
     breaks = tuple(np.asarray(b, dtype=np.float64) for b in breaks)
     shape = tuple(len(b) - 1 for b in breaks)
     E = int(np.prod(shape))
@@ -147,17 +147,28 @@ _REGISTRY = {
 }
 
 
+def _registry_key(name: str) -> str:
+    key = name[:-len(".mesh")] if name.endswith(".mesh") else name
+    return key.split("/")[-1]
+
+
+def registry_dim(name: str):
+    """The dimension of a registry mesh (by name, with or without a path
+    and `.mesh`), or None for any other mesh file."""
+    spec = _REGISTRY.get(_registry_key(name))
+    return None if spec is None else spec["dim"]
+
+
 def load_mesh(name: str, rs_levels: int = 0, mesh_order: int = 2):
     """A registry mesh by name (with or without a path and `.mesh`) plus
     serial refinements (remhos.cpp:448-449). Any other mesh file needs the
     general loader, which is not ported."""
-    key = name[:-len(".mesh")] if name.endswith(".mesh") else name
-    key = key.split("/")[-1]
+    key = _registry_key(name)
     if key not in _REGISTRY:
         raise NotImplementedError(
             f"mesh '{name}': remhos_torch loads the structured registry "
             f"meshes {sorted(_REGISTRY)} only; general, curved and NURBS "
-            "mesh files are not ported yet (ROADMAP.md Queue 1, item 12)")
+            "mesh files are not ported yet (ROADMAP.md Queue 1, item 8)")
     spec = _REGISTRY[key]
     m = make_mesh_from_breaks(spec["dim"], spec["breaks"], spec["periodic"],
                               mesh_order)

@@ -1,10 +1,11 @@
-"""The advection operator of the partial-assembly remap paths.
+"""The advection operator of the partial-assembly paths.
 
-The port of `remhos_tpu.operator.Advection` for remap (problems 10-19) with
-`-pa` on a structured 2D/3D mesh. Stage functions work on the block state
-`S[nfields, E, nd]` (field 0 = u, field 1 = us for product remap) and return
-`(dS, aux)` with `aux = [dt_ratio, -violations]`, a 2-element tensor on the
-device that is never fetched inside a step.
+The port of `remhos_tpu.operator.Advection` for remap (problems 10-17) and
+transport (problems 0-7) with `-pa` on a structured 2D/3D mesh. Stage
+functions work on the block state `S[nfields, E, nd]` (field 0 = u, field 1
+= us for product remap) and return `(dS, aux)` with `aux = [dt_ratio,
+-violations]`, a 2-element tensor on the device that is never fetched
+inside a step.
 
 The reference's own gate picks one of two stages. `-ho 3 [-lo 5] [-fct 2]`
 is the "fused stage", whose geometry is polynomial in the pseudo-time and
@@ -22,6 +23,7 @@ lives inside the kernels. Two kernels carry it:
 before any HO stage kernel has (the driver's mass reports, a stand-alone
 `limit_mult`).
 
+The fused stage is remap-only, as in the JAX package (operator.py:159).
 Everything else in `-ho 2|3 -lo 0|3|4|5 -fct 0|2` is the non-fused stage,
 which re-derives its geometry from the nodes x0 + t v at every stage:
 `geometry(t)` makes the face normals and upwind weights in plain PyTorch and
@@ -32,6 +34,17 @@ PyTorch (`pa.py`), and the mass inverse is a global CG (`pa.mass_solve_gl`
 for `-ho 3`, `pa.mass_solve_bern` for `-ho 2`) that reads one comparison
 back from the device per iteration; `cg_stats` counts its solves and
 iterations.
+
+Transport runs the non-fused stage on a geometry that does not depend on
+time (the mesh stands still): volume and face geometry, the velocity at the
+quadrature and face points, va = -(adj J v), the upwind weights from
+min(0, v.n), wdet and ml are made once, at construction, and `geometry(t)`
+returns that one dict for every t. The JAX package lets XLA hoist the same
+geometry out of its step (operator.py:291-293). Its volume action is then
+`pa.conv_action` on va, in plain PyTorch, and no kernel runs: the JAX
+package routes it the same way (operator.py:331-336). The inflow values
+enter the LO solutions' neighbour gather on physical boundaries
+(`inflow_face`, remhos_tools.cpp:891).
 
 Any other configuration raises NotImplementedError naming the ROADMAP.md
 item that ports it.
@@ -90,23 +103,25 @@ class SolverConfig:
         return prob.exec_mode_of(self.problem)
 
 
-def _unported(cfg: SolverConfig, dim: int):
-    """The ROADMAP.md item a configuration needs, or None when one of the
-    two remap PA stages runs it."""
-    if cfg.exec_mode != 1:
-        return "transport mode (Queue 1, item 9)"
+def solver_unported(cfg: SolverConfig, dim: int):
+    """What of a solver configuration on a `dim`-dimensional mesh is not
+    ported yet, naming its ROADMAP.md item, or None when one of the PA
+    stages runs it."""
+    if cfg.mono != 0 or cfg.smth_ind != 0:
+        return "the monolithic solvers and smoothness indicators " \
+               "(Queue 1, item 5)"
     if cfg.ho not in (2, 3) or cfg.lo not in (0, 3, 4, 5) \
-            or cfg.fct not in (0, 2) or cfg.mono != 0 or cfg.smth_ind != 0:
+            or cfg.fct not in (0, 2):
         return "solver families other than -ho 2|3 -lo 0|3|4|5 -fct 0|2 " \
-               "(Queue 1, item 10)"
+               "(Queue 1, item 4)"
     if not cfg.pa:
-        return "the assembled (non -pa) path (Queue 1, item 10)"
+        return "the assembled (non -pa) path (Queue 1, item 4)"
     if cfg.poly_bf16:
-        return "the bf16 P16 stream (Queue 2, item 1)"
+        return "the bf16 P16 stream (Queue 2, item 2)"
     if cfg.bounds_type != 0:
-        return "bounds other than the overlap stencil (Queue 2, item 1)"
+        return "bounds other than the overlap stencil (Queue 1, item 4)"
     if dim not in (2, 3):
-        return "1D meshes (Queue 1, item 12)"
+        return "1D meshes (Queue 1, item 6)"
     return None
 
 
@@ -115,12 +130,15 @@ class Advection:
     `mult_unlimited`, `limit_mult` and `stage_function`."""
 
     def __init__(self, disc: Discretization, cfg: SolverConfig, x0_nodes,
-                 v_nodes, dtype=torch.float32, device=None):
-        why = _unported(cfg, disc.dim)
+                 v_nodes=None, dtype=torch.float32, device=None, inflow=None):
+        """v_nodes: the remap mesh velocity (None in transport mode);
+        inflow[E, nd]: the inflow values of the transport problems 6 and 7
+        (None elsewhere)."""
+        why = solver_unported(cfg, disc.dim)
         if why is not None:
             raise NotImplementedError(
-                f"remhos_torch runs the remap PA stages only; {why} is "
-                "not ported yet (ROADMAP.md)")
+                f"remhos_torch runs the PA stages only; {why} is not ported "
+                "yet (ROADMAP.md)")
         self.disc = disc
         self.cfg = cfg
         self.dtype = dtype
@@ -132,7 +150,7 @@ class Advection:
             return torch.as_tensor(a).to(device=self.device, dtype=dtype)
 
         self.x0_nodes = T(x0_nodes)
-        self.v_nodes = T(v_nodes)
+        self.v_nodes = None if v_nodes is None else T(v_nodes)
         self.w_q, self.Bu = T(disc.w_q), T(disc.Bu)
         self.nbr_dof_local = torch.as_tensor(
             disc.dofmaps.nbr_dof_local, dtype=torch.long, device=self.device)
@@ -147,11 +165,12 @@ class Advection:
         # solves and iterations of the non-fused stage's global CG (the
         # fused stage solves inside its kernels and leaves them 0)
         self.cg_stats = dict(solves=0, iterations=0)
-        # the reference's gate (its `_fused_stage`): the canonical family
-        # runs the fused stage kernels, everything else the composition of
-        # geom_conv with plain PyTorch
-        self._fused_stage = (cfg.ho == 3 and cfg.lo in (0, 5)
-                             and cfg.fct in (0, 2))
+        # the reference's gate (its `_fused_stage`): the canonical remap
+        # family runs the fused stage kernels, everything else the
+        # composition of geom_conv (or, in transport, conv_action) with
+        # plain PyTorch
+        self._fused_stage = (cfg.exec_mode == 1 and cfg.ho == 3
+                             and cfg.lo in (0, 5) and cfg.fct in (0, 2))
         if self._fused_stage:
             self._stage_tables = tbl.stage_ho_tables(disc, dtype,
                                                      self.device)
@@ -162,18 +181,34 @@ class Advection:
             self._poly = tbl.build_poly_tables(self.x0_nodes, self.v_nodes,
                                                disc)
         else:
-            self._init_nonfused(T)
+            self._init_nonfused(T, inflow)
 
-    def _init_nonfused(self, T):
-        """Static tables of the non-fused stage."""
+    def _init_nonfused(self, T, inflow):
+        """Static tables of the non-fused stage; in transport mode also its
+        whole geometry."""
         disc, dev = self.disc, self.device
-        self._gc_tables = geom_conv_tables(disc, self.dtype, dev)
         self.Bface, self.w_fq = T(disc.Bface), T(disc.w_fq)
         self.Bgl, self.A_gl2b = T(disc.Bgl), T(disc.A_gl2b)
         self.bdr_dofs = torch.as_tensor(disc.dofmaps.bdr_dofs,
                                         dtype=torch.long, device=dev)
         Gt, sign = geo.face_tangent_tables(disc.Gmf, disc.n_ref)
         self._face_tan = (T(Gt), T(sign))
+        # inflow values at each element's own face dofs: the neighbour value
+        # on physical boundaries in the LO solutions (remhos_tools.cpp:891)
+        self.inflow_face = (None if inflow is None else
+                            asm.gather_face(T(inflow), self.bdr_dofs))
+        self._sub2ind = None
+        if self.cfg.lo == 4:
+            self._sub2ind = torch.as_tensor(disc.dofmaps.sub2ind,
+                                            dtype=torch.long, device=dev)
+            self._q1_grads = T(subm.q1_center_grads(disc.dim))
+            self._subcell_nodes = subm.subcell_node_setup(self)
+        if self.cfg.exec_mode == 0:
+            self.Gu = T(disc.Gu)
+            self.Bu_w = self.Bu * self.w_q[:, None]
+            self._transport_geom = self._transport_geometry(T)
+            return
+        self._gc_tables = geom_conv_tables(disc, self.dtype, dev)
         # the mesh velocity does not depend on time, so its interpolation to
         # the face points is made once (the reference reassembles it every
         # stage, remhos.cpp:1612-1643)
@@ -181,17 +216,41 @@ class Advection:
         self._v_fq_static = geo.interp_nodes(
             self.v_nodes, T(disc.Bmf.reshape(nf * Qf, nm))).reshape(
                 self.v_nodes.shape[0], nf, Qf, -1)
-        self._sub2ind = None
-        if self.cfg.lo == 4:
-            self._sub2ind = torch.as_tensor(disc.dofmaps.sub2ind,
-                                            dtype=torch.long, device=dev)
-            self._q1_grads = T(subm.q1_center_grads(disc.dim))
-            self._subcell_nodes = subm.subcell_node_setup(self)
 
-    def gather_nbr(self, u):
-        """u_nbr[E, nf, fd], 0 on physical boundaries."""
+    def _transport_geometry(self, T):
+        """The transport stage's geometry (remhos_tpu/operator.py:270-302),
+        made once: the mesh does not move. The velocity is evaluated in f64
+        at the working dtype's points and cast back, as the JAX package
+        does. v.n and adj J v are elementwise products summed over the last
+        axis."""
+        disc, cfg, mesh = self.disc, self.cfg, self.disc.mesh
+        x = self.x0_nodes
+        vol = geo.volume_geometry(x, T(disc.Bm), T(disc.Gm))
+        x_fq, nor = geo.face_geometry_tangent(x, T(disc.Bmf),
+                                              *self._face_tan)
+
+        def velocity(pts):
+            return prob.velocity_function(cfg.problem, pts.double(),
+                                          mesh.bb_min, mesh.bb_max).to(
+                                              self.dtype)
+
+        v_q, v_fq = velocity(vol["x_q"]), velocity(x_fq)
+        wdet = self.w_q[None, :] * vol["detJ"]
+        va = -(v_q[:, :, None, :] * vol["adjJ"]).sum(-1)
+        vn = (v_fq * nor).sum(-1)
+        wvn = -(self.w_fq[None, None, :] * vn.clamp(max=0.0))
+        geom = dict(detJ=vol["detJ"], wdet=wdet, va=va, wvn=wvn,
+                    ml=pam.lumped_mass_pa(wdet, self.Bu))
+        if cfg.lo == 4:
+            geom["sub_w"] = subm.subcell_weights(self, 0.0)
+        return geom
+
+    def gather_nbr(self, u, bdr_value=None):
+        """u_nbr[E, nf, fd]; bdr_value[E, nf, fd] or 0 on physical
+        boundaries."""
         return strm.gather_nbr_structured(u, self.shape, self.periodic,
-                                          self.nbr_dof_local, self.masks)
+                                          self.nbr_dof_local, self.masks,
+                                          bdr_value)
 
     # ------------------------------------------------------------------
     # geometry at a stage time
@@ -209,9 +268,13 @@ class Advection:
         Non-fused stage (remhos.cpp:1598-1676): the moved nodes, the face
         normals from their tangents, the upwind face weights wvn >= 0, one
         wdet kernel launch with ml and detJ, and for `-lo 4` the subcell
-        weights. J, adj J and va stay inside `geom_conv`, per field."""
+        weights. J, adj J and va stay inside `geom_conv`, per field.
+
+        Transport: the one static geometry made at construction."""
         if self._fused_stage:
             return dict(t=t)
+        if self.cfg.exec_mode == 0:
+            return self._transport_geom
         xs = self.x0_nodes + t * self.v_nodes
         nor = geo.face_normals_tangent(xs, *self._face_tan)
         vn = (self._v_fq_static * nor).sum(-1)
@@ -262,8 +325,11 @@ class Advection:
     # ------------------------------------------------------------------
 
     def conv_volume(self, geom, u):
-        """The volume convection action K u of one field, geometry fused
-        (geom holds the stage's wdet, so the kernel forms none)."""
+        """The volume convection action K u of one field: in transport from
+        the static va, in remap with the geometry fused (geom holds the
+        stage's wdet, so the kernel forms none)."""
+        if "va" in geom:
+            return pam.conv_action(u, geom["va"], self.Gu, self.Bu_w)
         return geom_conv(geom["xs"], self.v_nodes, u, self._gc_tables,
                          1.0, with_wdet=False)[0]
 
@@ -302,8 +368,9 @@ class Advection:
             # redistribution
             z = self.conv_volume(geom, u)
             contrib = pam.face_lumped_apply(
-                asm.gather_face(u, self.bdr_dofs), self.gather_nbr(u),
-                self.Bface, geom["wvn"])
+                asm.gather_face(u, self.bdr_dofs),
+                self.gather_nbr(u, self.inflow_face), self.Bface,
+                geom["wvn"])
             duf = asm.scatter_face_add(torch.zeros_like(u), contrib,
                                        self.bdr_dofs)
             return lom.residual_distribution_core(

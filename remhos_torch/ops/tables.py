@@ -166,7 +166,7 @@ def face_descriptors(disc):
     if ft is None:
         raise NotImplementedError(
             "the stage from the nodes needs axis-aligned reference normals "
-            "(ROADMAP.md Queue 1, item 12)")
+            "(ROADMAP.md Queue 1, item 8)")
     Gt, sgn = ft
     n_ref = np.asarray(disc.n_ref)
     dim = n_ref.shape[1]
@@ -333,7 +333,7 @@ def build_poly_tables(x0, v, disc):
     if ft is None:
         raise NotImplementedError(
             "polynomial stage geometry needs axis-aligned reference normals "
-            "(ROADMAP.md Queue 1, item 12)")
+            "(ROADMAP.md Queue 1, item 8)")
     Gt, sgn = ft
     GT1 = T((Gt[..., 0] * sgn[:, None, None]).transpose(2, 0, 1)
             .reshape(nm, FQ))

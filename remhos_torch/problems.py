@@ -1,10 +1,13 @@
-"""Problem library: remap mesh velocities and initial conditions.
+"""Problem library: velocity fields, initial conditions and inflow.
 
-The port's copy of `remhos_tpu.problems` for the remap problems (10-17):
-vectorized torch versions of the reference's velocity_function
-(remhos.cpp:2001-2120) and u0_function (remhos.cpp:2201-2355). Functions map
-points x[..., dim] -> values and broadcast over leading axes; they compute in
-the dtype and on the device of `x`.
+The port's copy of `remhos_tpu.problems`: vectorized torch versions of the
+reference's velocity_function (remhos.cpp:2001-2120), u0_function
+(remhos.cpp:2201-2355), s0_function (:2357-2361) and inflow_function
+(:2363-2381). Functions map points x[..., dim] -> values and broadcast over
+leading axes; they compute in the dtype and on the device of `x`.
+
+Execution mode follows the reference (remhos.cpp:437-440): problem < 10 is
+transport, 10 <= problem < 20 remap.
 """
 
 from __future__ import annotations
@@ -32,9 +35,38 @@ def _ref_coords(x, bb_min, bb_max):
 
 
 def velocity_function(problem: int, x, bb_min, bb_max):
-    """Remap mesh velocity v[..., dim] at points x[..., dim]."""
+    """Velocity v[..., dim] at points x[..., dim]: the transport velocity
+    (problems 0-7) or the remap mesh velocity (problems 10-17)."""
     dim = x.shape[-1]
     pe = problem % 20
+    if pe == 0:
+        comps = {1: [1.0], 2: [math.sqrt(2. / 3.), math.sqrt(1. / 3.)],
+                 3: [math.sqrt(3. / 6.), math.sqrt(2. / 6.),
+                     math.sqrt(1. / 6.)]}[dim]
+        return torch.tensor(comps, dtype=x.dtype,
+                            device=x.device).expand(x.shape)
+    if pe in (1, 2, 3, 4, 5, 6, 7) and dim == 1:
+        return torch.ones_like(x)
+    if pe == 5:
+        return torch.ones_like(x)
+    if pe in (1, 2, 3, 4):
+        X = _ref_coords(x, bb_min, bb_max)
+        w = math.pi / 2
+        if pe == 3:
+            d = ((X[..., 0] + 1.) * (1. - X[..., 0])).clamp(min=0.0) * \
+                ((X[..., 1] + 1.) * (1. - X[..., 1])).clamp(min=0.0)
+            d = d ** 2
+            v = [d * w * X[..., 1], -d * w * X[..., 0]]
+        else:
+            v = [-w * X[..., 1], w * X[..., 0]]
+        if dim == 3:
+            v.append(torch.zeros_like(X[..., 0]))
+        return torch.stack(v, dim=-1)
+    if pe in (6, 7):
+        v = [x[..., 1], -x[..., 0]]
+        if dim == 3:
+            v.append(torch.zeros_like(x[..., 0]))
+        return torch.stack(v, dim=-1)
     if pe == 11:
         # Gresho deformation
         r = torch.sqrt(x[..., 0] ** 2 + x[..., 1] ** 2)
@@ -59,9 +91,7 @@ def velocity_function(problem: int, x, bb_min, bb_max):
             return torch.stack([v0 * cz, v1 * cz, torch.zeros_like(v0)],
                                dim=-1)
         return torch.stack([v0, v1], dim=-1)
-    raise NotImplementedError(
-        f"remhos_torch has remap velocities for problems 10-17 only, got "
-        f"{problem} (ROADMAP.md Queue 1, item 9)")
+    raise ValueError(f"velocity not defined for problem {problem}")
 
 
 def _ind(cond, like):
@@ -157,17 +187,9 @@ def u0_function(problem: int, x, bb_min, bb_max):
         dom1 = 1.0 - _cross(dom2, dom3)
         return dom1 + 2.0 * dom2 + 3.0 * dom3
     if pe == 6:
-        r = torch.linalg.norm(x, dim=-1)
-        return torch.where(
-            (r >= 0.15) & (r < 0.45), torch.ones_like(r),
-            torch.where((r >= 0.55) & (r < 0.85),
-                        torch.cos(10. * math.pi * (r - 0.7) / 3.) ** 2,
-                        torch.zeros_like(r)))
+        return _ring_profile(torch.linalg.norm(x, dim=-1))
     if pe == 7:
-        r = torch.linalg.norm(x, dim=-1)
-        a, b, c = 0.5, 3.e-2, 0.1
-        return 0.25 * (1. + torch.tanh((r + c - a) / b)) * \
-            (1. - torch.tanh((r - c - a) / b))
+        return _tanh_ring(torch.linalg.norm(x, dim=-1))
     return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
 
 
@@ -175,3 +197,31 @@ def s0_function(x):
     """Product-field ratio initial condition (remhos.cpp:2357-2361)."""
     return 2.0 + torch.sin(2 * math.pi * x[..., 0]) * torch.sin(
         2 * math.pi * x[..., 1])
+
+
+def _ring_profile(r):
+    """Problem 6's radial profile: 1 on [0.15, 0.45), a cos^2 bump on
+    [0.55, 0.85), 0 elsewhere."""
+    return torch.where(
+        (r >= 0.15) & (r < 0.45), torch.ones_like(r),
+        torch.where((r >= 0.55) & (r < 0.85),
+                    torch.cos(10. * math.pi * (r - 0.7) / 3.) ** 2,
+                    torch.zeros_like(r)))
+
+
+def _tanh_ring(r):
+    """Problem 7's smooth ring."""
+    a, b, c = 0.5, 3.e-2, 0.1
+    return 0.25 * (1. + torch.tanh((r + c - a) / b)) * \
+        (1. - torch.tanh((r - c - a) / b))
+
+
+def inflow_function(problem: int, x):
+    """Inflow boundary values at points x[..., dim] (remhos.cpp:2363-2381)."""
+    r = torch.linalg.norm(x, dim=-1)
+    pe = problem % 10
+    if pe == 6 and x.shape[-1] == 2:
+        return _ring_profile(r)
+    if pe == 7:
+        return _tanh_ring(r)
+    return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)

@@ -47,9 +47,10 @@ def edge_masks(shape, device=None):
             for a in range(len(shape)) for s in (0, 1)}
 
 
-def _flat_face_rolls(uf, shape, periodic, fd, masks):
+def _flat_face_rolls(uf, shape, periodic, fd, masks, bdr_value=None):
     """Per-face neighbour blocks [E, fd] from the flat face trace
-    uf[E, nf*fd] by element-axis rolls; physical edges read 0."""
+    uf[E, nf*fd] by element-axis rolls; physical edges read bdr_value[:, f]
+    (the inflow values of the element's own face dofs), or 0 without it."""
     strides = _strides(shape)
     outs = []
     for f, (axis, side) in enumerate(faces_for_dim(len(shape))):
@@ -60,15 +61,19 @@ def _flat_face_rolls(uf, shape, periodic, fd, masks):
         if periodic[axis]:
             wrap = -dirn * (shape[axis] - 1) * strides[axis]
             nb = torch.where(edge, torch.roll(blk, -wrap, dims=0), r1)
+        elif bdr_value is not None:
+            nb = torch.where(edge, bdr_value[:, f], r1)
         else:
             nb = torch.where(edge, 0.0, r1)
         outs.append(nb)
     return outs
 
 
-def gather_nbr_structured(u, shape, periodic, nbr_dof_local, masks=None):
-    """u_nbr[E, nf, fd]: each element's face-neighbour dof values, 0 on
-    physical boundaries (ExchangeFaceNbrData equivalent). Exact in every
+def gather_nbr_structured(u, shape, periodic, nbr_dof_local, masks=None,
+                          bdr_value=None):
+    """u_nbr[E, nf, fd]: each element's face-neighbour dof values, on
+    physical boundaries bdr_value[E, nf, fd] or 0 (ExchangeFaceNbrData
+    equivalent). Exact in every
     dtype: an index gather plus element-axis rolls, no arithmetic.
     Column f*fd + i of the flat trace is the neighbour-side dof of face f's
     i-th face dof (the index form of the TPU's one-hot
@@ -78,8 +83,8 @@ def gather_nbr_structured(u, shape, periodic, nbr_dof_local, masks=None):
     nbr = torch.as_tensor(nbr_dof_local, device=u.device, dtype=torch.long)
     fd = nbr.shape[1]
     uf = u.index_select(1, nbr.reshape(-1))
-    return torch.stack(_flat_face_rolls(uf, shape, periodic, fd, masks),
-                       dim=1)
+    return torch.stack(_flat_face_rolls(uf, shape, periodic, fd, masks,
+                                        bdr_value), dim=1)
 
 
 def overlap_stencil_T(el_min, el_max, shape, periodic, masks=None):

@@ -1,5 +1,5 @@
 """Subcell weights of the Bernstein subcell residual-distribution scheme
-(`-lo 4`): the remap branches of `remhos_tpu.subcell`.
+(`-lo 4`): the port of `remhos_tpu.subcell` for structured meshes.
 
 The reference builds a p-times-refined "subcell mesh" whose Q1 cells connect
 the Bernstein control points (remhos.cpp:797-832) and integrates one-row
@@ -16,7 +16,9 @@ closed-uniform nodes, so all of it is batched index arithmetic over
 In remap mode the subcell mesh moves with its OWN nodal velocity: the raw
 velocity function at the subcell nodes, zeroed on the domain boundary
 (remhos.cpp:838-852), not the integrated mesh velocity; the positions are
-x_sub = x0_sub + t * v_sub (remhos.cpp:1605).
+x_sub = x0_sub + t * v_sub (remhos.cpp:1605). In transport mode the subcell
+mesh stands still, the velocity is the problem's at each subcell's centre and
+the weights take the sign -1.
 """
 
 from __future__ import annotations
@@ -56,12 +58,14 @@ def boundary_node_mask(mesh, ref_nodes_u) -> np.ndarray:
 
 
 def subcell_node_setup(adv):
-    """(x0_sub[E, nd, dim], v_sub[E, nd, dim]) of a remap `Advection`, in
-    its working dtype on its device."""
+    """(x0_sub[E, nd, dim], v_sub[E, nd, dim] or None) of an `Advection`,
+    in its working dtype on its device; v_sub is None in transport mode."""
     disc = adv.disc
     dtype, device = adv.dtype, adv.device
     Bm_at_u = torch.as_tensor(disc.Bm_at_unodes, dtype=dtype, device=device)
     x0_sub = torch.einsum("end,mn->emd", adv.x0_nodes, Bm_at_u)
+    if adv.cfg.exec_mode != 1:
+        return x0_sub, None
     mesh = disc.mesh
     v = prob.velocity_function(adv.cfg.problem, x0_sub, mesh.bb_min,
                                mesh.bb_max)
@@ -71,15 +75,26 @@ def subcell_node_setup(adv):
 
 
 def subcell_weights(adv, t):
-    """SubcellWeights[E, numSubcells, 2^dim] at the stage time t (remap:
-    sign +1, the Q1 velocity at the centre is the corner average)."""
+    """SubcellWeights[E, numSubcells, 2^dim] at the stage time t. Remap:
+    sign +1, the Q1 velocity at the centre is the corner average.
+    Transport: sign -1, the velocity function at the corners' mean,
+    evaluated in f64 and cast to the working dtype as the JAX package
+    does."""
     x0_sub, v_sub = adv._subcell_nodes
     sub2ind, Gc = adv._sub2ind, adv._q1_grads      # [ns, 2^d], [2^d, dim]
-    corners = (x0_sub + t * v_sub)[:, sub2ind]      # [E, ns, 2^d, dim]
+    xs = x0_sub if v_sub is None else x0_sub + t * v_sub
+    corners = xs[:, sub2ind]                        # [E, ns, 2^d, dim]
     nc, dim = Gc.shape
     J_c = (corners.transpose(-1, -2).reshape(-1, nc) @ Gc).reshape(
         corners.shape[:2] + (dim, dim))             # one GEMM, not a bmm
     _, adj = det_adj(J_c)
-    v_c = v_sub[:, sub2ind].mean(dim=2)             # [E, ns, dim]
+    if v_sub is None:
+        mesh = adv.disc.mesh
+        v_c = prob.velocity_function(
+            adv.cfg.problem, corners.mean(dim=2).double(), mesh.bb_min,
+            mesh.bb_max).to(xs.dtype)
+    else:
+        v_c = v_sub[:, sub2ind].mean(dim=2)         # [E, ns, dim]
     av = (v_c[:, :, None, :] * adj).sum(-1)        # adj J v (row form)
-    return av @ Gc.T
+    w = av @ Gc.T
+    return w if v_sub is not None else -w

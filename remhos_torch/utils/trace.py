@@ -27,6 +27,7 @@ import json
 import os
 import re
 import tempfile
+import time
 
 import torch
 
@@ -38,23 +39,28 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _PROFILER_SPANS = ("PyTorch Profiler", "ProfilerStep")
 # captures `capture_counted` takes at most before it gives up
 CAPTURE_ATTEMPTS = 3
+# seconds of host quiet that open the recorded cycle of `capture_trace`
+CAPTURE_QUIET_S = 0.010
 _KERNEL_RE = re.compile(r"([A-Za-z0-9_]+)_kernel(?![A-Za-z0-9_])")
 
 
-def capture_trace(fn):
+def capture_trace(fn, quiet_s=CAPTURE_QUIET_S):
     """Run fn() under torch.profiler (CPU activity, and CUDA activity where
     there is a card; synchronized at the end) and return the parsed
     Chrome trace dict. fn runs twice, in a warm-up cycle whose events are
-    dropped, then recorded: late in a long process the profiler has
-    dropped the records of the first kernels a session launches (2-3 of
-    them, in each of three captures in a row), also after 50 ms of quiet
-    on the card."""
+    dropped, then recorded. The recorded cycle opens with quiet_s seconds
+    of host sleep, which adds no event: when its first launch followed the
+    cycle's start at once, the profiler lost some or all of the cycle's
+    kernel records in a few captures in a hundred on an H100, and 10 ms of
+    quiet removed that (`tools/trace_drops.py` counts it)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     cuda = torch.cuda.is_available()
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts, schedule=schedule(
             wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
+        for cycle in range(2):
+            if cycle and quiet_s:
+                time.sleep(quiet_s)
             fn()
             if cuda:
                 torch.cuda.synchronize()

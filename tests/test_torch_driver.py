@@ -31,6 +31,7 @@ from remhos_tpu.config import RunConfig as JConfig
 
 from remhos_torch import driver
 from remhos_torch.config import RunConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 BASE = dict(mesh="inline-quad", rs_levels=1, order=3, ho=3, lo=5, fct=2,
             pa=True, t_final=0.75, dt=0.005, verbose=False)
@@ -143,16 +144,19 @@ def test_default_mesh_3d_rk6():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(n_shards=2), "item 13"), (dict(shard_grid=(2,)), "item 13"),
-    (dict(checkpoint_path="x.npz", checkpoint_steps=1), "item 11"),
-    (dict(resume=True), "item 11"), (dict(vis=True), "item 14"),
-    (dict(visit=True), "item 14"), (dict(save=True), "item 14"),
-    (dict(profile_dir="prof"), "item 14"), (dict(problem=4), "item 9"),
-    (dict(problem=7), "item 9"), (dict(mesh="star.mesh"), "item 12"),
-    (dict(mesh="periodic-segment"), "item 12"),
-    (dict(lo=1), "item 10"), (dict(fct=4), "item 10"),
-    (dict(pa=False), "item 10"), (dict(bounds_type=1), "Queue 2"),
-    (dict(problem=18), "item 9")])
+    (dict(n_shards=2), "Queue 1, item 10"),
+    (dict(shard_grid=(2,)), "Queue 1, item 10"),
+    (dict(dcn=True), "Queue 1, item 10"), (dict(mono=1), "Queue 1, item 5"),
+    (dict(vis=True), "Queue 1, item 9"), (dict(visit=True), "Queue 1, item 9"),
+    (dict(save=True), "Queue 1, item 9"),
+    (dict(profile_dir="prof"), "Queue 1, item 9"),
+    (dict(smth_ind=1), "Queue 1, item 5"), (dict(fct=3), "Queue 1, item 4"),
+    (dict(mesh="star.mesh"), "Queue 1, item 8"),
+    (dict(mesh="periodic-segment"), "Queue 1, item 6"),
+    (dict(lo=1), "Queue 1, item 4"), (dict(fct=4), "Queue 1, item 4"),
+    (dict(pa=False), "Queue 1, item 4"),
+    (dict(bounds_type=1), "Queue 1, item 4"),
+    (dict(ho=1), "Queue 1, item 4")])
 def test_unported_options_raise(kw, item):
     cfg = RunConfig(device="cpu",
                     **{**BASE, "problem": 10, "max_tsteps": 1, **kw})

@@ -13,7 +13,7 @@ options, and the two tools.
   and level 0 adding up to the full stage;
 - loop_report: the buckets, kernel counts and idle share of a known trace;
 - bench.run's phases, trace and measure_steps options, and the two tools,
-  at 2^3.
+  at 2^3; tools/trace_drops.py, which on the CPU launches nothing.
 """
 
 import numpy as np
@@ -33,6 +33,7 @@ from remhos_torch.discretization import build_discretization
 from remhos_torch.mesh import make_cartesian_mesh
 from remhos_torch.operator import Advection, SolverConfig
 from remhos_torch.utils import fom, trace
+from torch_threads import one_torch_thread  # noqa: F401
 
 DT = 0.01
 _OPS = {}
@@ -179,6 +180,16 @@ def test_tools_run_on_the_cpu(monkeypatch):
     assert all(np.isfinite(v) and v > 0 for v in out.values())
     out = kernelbench.main(device="cpu", n_inner=2)
     assert len(out) == 3
+
+
+def test_trace_drops_tool_on_the_cpu():
+    """On the CPU the gather runs its plain version: nothing is launched and
+    no capture can drop a kernel record."""
+    from remhos_torch.tools import trace_drops
+    out = trace_drops.main(device="cpu", rounds=1)
+    assert out["device"] == "cpu"
+    assert out["quiet_s"] == {str(q): {"captures": 4, "dropped": 0}
+                              for q in trace_drops.QUIETS}
 
 
 @pytest.mark.parametrize("measure_steps", [1, 5])

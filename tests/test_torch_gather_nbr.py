@@ -26,6 +26,7 @@ from remhos_tpu.structured import gather_nbr_structured as jgather
 from remhos_torch.dofmaps import build_dofmaps
 from remhos_torch.ops import gather_nbr as gn
 from remhos_torch.structured import gather_nbr_structured
+from torch_threads import one_torch_thread  # noqa: F401
 
 # tests/test_gather_kernel.py's CASES
 CASES = [

@@ -30,6 +30,7 @@ from remhos_torch import convert
 from remhos_torch.discretization import build_discretization
 from remhos_torch.mesh import make_cartesian_mesh
 from remhos_torch.ops import geom_conv as gc
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 JDT = {torch.float64: jnp.float64, torch.float32: jnp.float32}

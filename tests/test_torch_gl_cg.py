@@ -31,6 +31,7 @@ from remhos_torch.mesh import make_cartesian_mesh
 from remhos_torch.ops import gl_cg as cg
 from remhos_torch.ops import tables as tbl
 from remhos_torch.ops import wdet as wd
+from torch_threads import one_torch_thread  # noqa: F401
 
 PREC = {torch.float64: (jnp.float64, 1e-9), torch.float32: (jnp.float32,
                                                              2e-3)}

@@ -81,6 +81,32 @@ def test_short_main_path():
 
 
 @pytest.mark.gpu
+def test_bench_record_on_the_card():
+    """bench.main at 6^3: best of 2 windows after a warm-up, verified, the
+    kernel launched 3 times a step in each timed window, the card named."""
+    _cuda()
+    rec = bench.main(env=dict(BENCH_N="6", BENCH_STEPS="8", BENCH_REPS="2",
+                              BENCH_DT=str(DT), BENCH_PHASES="0",
+                              BENCH_TRACE="0"))
+    assert rec["verified"] is True and rec["windows"] == 2
+    assert rec["kernels"]["mega_stage"] == 3 * 8 * 2
+    assert rec["device"] != "cpu" and rec["hbm_util_model"] > 0
+
+
+@pytest.mark.gpu
+def test_transport_runs_no_kernel():
+    """Transport on the card: the JAX package's routing, no kernel."""
+    _cuda()
+    ops.reset_launch_counts()
+    res = driver.run(RunConfig(mesh="periodic-cube", rs_levels=1, order=3,
+                               problem=0, ho=3, lo=5, fct=2, pa=True,
+                               dtype="float32", dt=0.0025, t_final=0.01,
+                               verbose=False, device="cuda"))
+    assert res.steps == 4 and set(ops.launch_counts().values()) == {0}
+    assert res.mass_loss_u <= 1e-6 * res.final_mass_u
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dim,n", [(3, 5), (2, 9)])
 @pytest.mark.parametrize("dtype,tol,wtol", [(torch.float64, 1e-10, 1e-12),
                                             (torch.float32, 2e-4, 1e-5)])

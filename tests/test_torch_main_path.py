@@ -2,10 +2,12 @@
 port's guards.
 
 The slice is bench.py's main path at a small size: 4 RK3 steps with the
-Kahan-compensated combine, the incremental mass closure every step and the
-full f64 closure at the end (f32), or the compensated combine alone (f64).
-The JAX loop is built from remhos_tpu.steppers and Advection with the
-Pallas mega kernel in interpret mode, as bench.make_loop builds it.
+Kahan-compensated combine and, in f32, each BENCH_CLOSURE mode (the
+incremental mass closure every step and the full f64 closure at the end;
+the full closure every step; none), or the compensated combine alone
+(f64). The JAX loop (tests/torch_jax_bench.py) is built from
+remhos_tpu.steppers and Advection with the Pallas mega kernel in interpret
+mode, as bench.make_loop builds it.
 Tolerances on the final state: <= 1e-10 * max|u| in f64 and <= 2e-3 *
 max|u| in f32 (bf16x3 products on the JAX side against true f32 products).
 """
@@ -20,94 +22,56 @@ import numpy as np
 import pytest
 import torch
 
-import jax
 import jax.numpy as jnp
 
-from remhos_tpu import geometry as jgeo
 from remhos_tpu import steppers as jst
-from remhos_tpu.operator import Advection as JAdvection
-from remhos_tpu.operator import SolverConfig as JConfig
 
 from remhos_torch import bench
+from torch_jax_bench import jax_loop
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SHAPE_N, STEPS = 3, 4
 DT = 0.2 / 320
 
 
-def _jax_loop(case, jdt):
-    """bench.make_loop's body for `case`'s inputs, on the JAX side."""
-    disc = _jax_disc()
-    x0 = jnp.asarray(case.adv64.x0_nodes.numpy())
-    v = jnp.asarray(case.adv64.v_nodes.numpy())
-    u0 = jnp.asarray(case.u0_64.numpy())
-    cfg = JConfig(problem=10, ho=3, lo=5, fct=2, ode_solver=3, pa=True,
-                  use_pallas=True)
-    closure = closure_inc = None
-    if jdt == jnp.float32:
-        mlk, sig = jgeo.lumped_mass_poly(x0, v, disc)
-        mlk32 = mlk.astype(jdt)
-        sig = np.asarray(sig)
-        x0, v, u0 = x0.astype(jdt), v.astype(jdt), u0.astype(jdt)
-        m0 = float(mlk32[0].astype(jnp.float64).reshape(-1)
-                   @ u0.astype(jnp.float64).reshape(-1))
-        closure = jst.make_mass_closure(mlk32, sig, m0)
-        closure_inc = jst.make_mass_closure_inc(mlk32, sig)
-    adv = JAdvection(disc, cfg, x0, v, None, dtype=jdt)
-    assert adv._mega_stage_eligible()
-    step = jax.jit(jst.make_rk_step(adv.stage_function(), 3,
-                                    compensated=True,
-                                    with_delta=closure_inc is not None),
-                   static_argnums=3)
-    S, C = jnp.stack([u0]), jnp.zeros((1,) + u0.shape, jdt)
-    t = jnp.asarray(0.0, jnp.float64)
-    coefs = (closure_inc.coefs(DT, STEPS) if closure_inc is not None
-             else None)
-    for i in range(STEPS):
-        t_new = t + DT
-        if closure_inc is not None:
-            S, C, _, delta = step(S, C, t.astype(jdt), DT)
-            c_u, _ = closure_inc(S[0], C[0], delta[0], t, t_new,
-                                 coefs=tuple(jnp.asarray(a[i])
-                                             for a in coefs))
-            C = C.at[0].set(c_u)
-        else:
-            S, C, _ = step(S, C, t.astype(jdt), DT)
-        t = t_new
-    if closure is not None:
-        c_u, _ = closure(S[0], C[0], t)
-        C = C.at[0].set(c_u)
-    return np.asarray(S[0], np.float64), np.asarray(C[0], np.float64)
-
-
-def _jax_disc():
-    from remhos_tpu.discretization import build_discretization
-    from remhos_tpu.mesh import make_cartesian_mesh
-    m = make_cartesian_mesh(3, (SHAPE_N,) * 3, (0, 0, 0), (1, 1, 1),
-                            (False,) * 3)
-    return build_discretization(m, 3)
-
-
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
-                                       (torch.float32, 2e-3)])
-def test_slice_matches_jax_loop(dtype, tol):
+def _hold_slice(dtype, tol, closure):
     case = bench.build_case(n=SHAPE_N, order=3, dtype=dtype, device="cpu",
-                            n_steps=STEPS, dt=DT)
+                            n_steps=STEPS, dt=DT, closure=closure)
     uT, cT, injected, t = bench.run_steps(case)
     assert t == pytest.approx(STEPS * DT, rel=1e-15)
+    closed = case.closure is not None
+    assert closed == (dtype == torch.float32 and closure != "0")
     rel_loss, inj = bench.verify(
         case.adv64, case.u0, uT, DT, STEPS, cT=cT,
-        injected=injected if case.closure is not None else None,
+        injected=injected if closed else None,
         metric32=case.mlk32)
-    assert rel_loss < 1e-8
-    assert (inj is not None) == (dtype == torch.float32)
-    uj, cj = _jax_loop(case, {torch.float64: jnp.float64,
-                              torch.float32: jnp.float32}[dtype])
+    if closed or dtype == torch.float64:
+        # without a closure, f32 drifts within verify's own budget
+        assert rel_loss < 1e-8
+    assert (inj is not None) == closed
+    uj, cj = jax_loop(case, SHAPE_N, 3, {torch.float64: jnp.float64,
+                                         torch.float32: jnp.float32}[dtype],
+                      STEPS, DT, closure)
     scale = np.abs(uj).max()
     assert np.abs(uT.double().numpy() - uj).max() <= tol * scale
     # the closed states (u + c) agree to the same tolerance
     closed = (uT.double() + cT.double()).numpy()
     assert np.abs(closed - (uj + cj)).max() <= tol * scale
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 2e-3)])
+def test_slice_matches_jax_loop(dtype, tol):
+    """BENCH_CLOSURE=1: the incremental closure, then the re-anchor."""
+    _hold_slice(dtype, tol, "1")
+
+
+@pytest.mark.parametrize("closure", ["full", "0"])
+def test_slice_closure_modes_match_jax_loop(closure):
+    """BENCH_CLOSURE=full (the f64 closure every step, no re-anchor) and
+    BENCH_CLOSURE=0 (the compensated combine alone) in f32."""
+    _hold_slice(torch.float32, 2e-3, closure)
 
 
 def test_bench_run_records_skipped_cross_check():
@@ -141,7 +105,10 @@ def test_import_pulls_in_no_jax():
             "remhos_torch.ops.gather_nbr, remhos_torch.utils.cost, "
             "remhos_torch.utils.trace, remhos_torch.utils.fom, "
             "remhos_torch.tools.microbench, remhos_torch.tools.kernelbench, "
-            "remhos_torch.tools.kernel_variants; "
+            "remhos_torch.tools.kernel_variants, remhos_torch.cli, "
+            "remhos_torch.checkpoint, remhos_torch.models, "
+            "remhos_torch.tools.run_goldens, remhos_torch.tools.sweep, "
+            "remhos_torch.tools.trace_drops; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('remhos_tpu')]; "
             "assert not bad, bad")
@@ -181,7 +148,7 @@ def test_entry_points_default_to_cuda():
 def test_unported_configurations_raise():
     from remhos_torch.operator import Advection, SolverConfig
     case = bench.build_case(n=2, order=3, device="cpu", n_steps=2)
-    for cfg in (SolverConfig(problem=4), SolverConfig(lo=1),
+    for cfg in (SolverConfig(problem=4, fct=3), SolverConfig(lo=1),
                 SolverConfig(fct=1), SolverConfig(ho=1),
                 SolverConfig(mono=1), SolverConfig(smth_ind=1),
                 SolverConfig(poly_bf16=True),

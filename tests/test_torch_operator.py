@@ -39,6 +39,7 @@ from remhos_torch.operator import Advection, SolverConfig
 from remhos_torch.ops import mega_stage as ms
 from remhos_torch.ops import stage_ho as sh
 from remhos_torch.ops import wdet as wd
+from torch_threads import one_torch_thread  # noqa: F401
 
 T_STAGE, DT = 0.3, 0.01
 # (shape, periodic, p)

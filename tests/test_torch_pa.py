@@ -31,6 +31,7 @@ from remhos_torch import assembly, convert, geometry, lo, pa, subcell
 from remhos_torch.discretization import build_discretization
 from remhos_torch.mesh import make_cartesian_mesh
 from remhos_torch.operator import Advection, SolverConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 t64 = convert.tensor
 J = jnp.asarray

@@ -18,6 +18,7 @@ from remhos_tpu.config import RunConfig as JConfig
 
 from remhos_torch import driver
 from remhos_torch.config import RunConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 BASE = dict(mesh="inline-quad", rs_levels=1, order=3, problem=10, fct=2,
             pa=True, t_final=0.75, dt=0.002, verbose=False)
@@ -94,16 +95,18 @@ def test_dt_control_lo3():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(lo=1), "item 10"), (dict(lo=2), "item 10"),
-    (dict(fct=1), "item 10"), (dict(fct=3), "item 10"),
-    (dict(fct=4), "item 10"), (dict(ho=1), "item 10"),
-    (dict(ho=0, lo=3), "item 10"), (dict(mono=1), "item 10"),
-    (dict(lo=4, mono=2), "item 10"), (dict(smth_ind=1), "item 10"),
-    (dict(lo=3, pa=False), "item 10"), (dict(lo=3, problem=4), "item 9"),
-    (dict(lo=3, n_shards=2), "item 13"),
-    (dict(lo=3, mesh="periodic-segment"), "item 12"),
-    (dict(lo=4, mesh="star.mesh"), "item 12"),
-    (dict(lo=3, bounds_type=1), "Queue 2")])
+    (dict(lo=1), "Queue 1, item 4"), (dict(lo=2), "Queue 1, item 4"),
+    (dict(fct=1), "Queue 1, item 4"), (dict(fct=3), "Queue 1, item 4"),
+    (dict(fct=4), "Queue 1, item 4"), (dict(ho=1), "Queue 1, item 4"),
+    (dict(ho=0, lo=3), "Queue 1, item 4"), (dict(mono=1), "Queue 1, item 5"),
+    (dict(lo=4, mono=2), "Queue 1, item 5"),
+    (dict(smth_ind=1), "Queue 1, item 5"),
+    (dict(lo=3, pa=False), "Queue 1, item 4"),
+    (dict(lo=3, vis=True), "Queue 1, item 9"),
+    (dict(lo=3, n_shards=2), "Queue 1, item 10"),
+    (dict(lo=3, mesh="periodic-segment"), "Queue 1, item 6"),
+    (dict(lo=4, mesh="star.mesh"), "Queue 1, item 8"),
+    (dict(lo=3, bounds_type=1), "Queue 1, item 4")])
 def test_unported_options_still_raise(kw, item):
     cfg = RunConfig(device="cpu", **{**BASE, "ho": 3, "lo": 5,
                                      "max_tsteps": 1, **kw})

@@ -36,6 +36,7 @@ from remhos_torch.ops import stage_ho as sh
 from remhos_torch.ops import wdet as wd
 
 from remhos_tpu import steppers as jst
+from torch_threads import one_torch_thread  # noqa: F401
 
 T_STAGE, DT = 0.3, 0.01
 # (shape, periodic, p)

@@ -11,6 +11,7 @@ import pytest
 
 from test_torch_pa_operator import (DT, MESHES, PAIRS, T_STAGE, _check_stage,
                                     _kernel_counts, _operators, _tol, t64)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 # two fields on every mesh, one field on the two 2D meshes

@@ -31,6 +31,7 @@ from remhos_torch import structured
 from remhos_torch.discretization import build_discretization
 from remhos_torch.mesh import make_cartesian_mesh
 from remhos_torch.ops import tables
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(4, 3, 2), (4, 4, 4), (6, 4)]
 REL = 1e-13

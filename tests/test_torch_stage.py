@@ -34,6 +34,7 @@ from remhos_torch.discretization import build_discretization
 from remhos_torch.mesh import make_cartesian_mesh
 from remhos_torch.operator import Advection, SolverConfig
 from remhos_torch.ops import mega_stage as ms
+from torch_threads import one_torch_thread  # noqa: F401
 
 T_STAGE, DT = 0.3, 0.01
 

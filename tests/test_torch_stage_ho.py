@@ -31,6 +31,7 @@ from remhos_torch.discretization import build_discretization
 from remhos_torch.mesh import make_mesh_from_breaks
 from remhos_torch.ops import stage_ho as sh
 from remhos_torch.ops import wdet as wd
+from torch_threads import one_torch_thread  # noqa: F401
 
 T_STAGE, DT = 0.3, 0.01
 PREC = {"f64": (jnp.float64, torch.float64, 1e-9, 1e-12),

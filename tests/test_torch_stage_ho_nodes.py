@@ -34,6 +34,7 @@ from remhos_torch.discretization import build_discretization
 from remhos_torch.mesh import make_cartesian_mesh
 from remhos_torch.ops import stage_ho_nodes as shn
 from remhos_torch.ops import wdet as wd
+from torch_threads import one_torch_thread  # noqa: F401
 
 PREC = {torch.float64: (jnp.float64, 1e-9, 1e-13),
         torch.float32: (jnp.float32, 2e-3, 1e-5)}

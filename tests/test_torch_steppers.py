@@ -28,6 +28,7 @@ from remhos_torch import steppers
 from remhos_torch.discretization import build_discretization
 from remhos_torch.mesh import make_cartesian_mesh
 from remhos_torch.operator import Advection, SolverConfig
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPE, P, T0, DT, STEPS = (6, 4), 3, 0.1, 0.004, 2
 

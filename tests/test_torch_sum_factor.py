@@ -45,6 +45,7 @@ from remhos_torch.ops import mega_stage as ms
 from remhos_torch.ops import stage_ho as sh
 from remhos_torch.ops import stage_ho_nodes as shn
 from remhos_torch.ops import tables as tbl
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = 1e-13
 
