@@ -10,7 +10,9 @@ It builds the CUDA kernels from the sources on first use, then:
 3. holds every kernel against its plain PyTorch version on the card, on the
    same inputs from a numpy seed, at N=24, p=3 in 3D and on a 2D 16x16 mesh,
    in f32 and f64 (wdet and geom_conv also at the golden rows' shape, in
-   step 9): the mega stage; the HO stage with and without its LO
+   step 9): the mega stage; its per-dof variant (bounds "dof", on the
+   sparsity bounds of -bt 1), also against the "T" variant on the same
+   inputs with the stencil expanded to dofs; the HO stage with and without its LO
    output and once with n_cg == 0; wdet; geom_conv; the HO stage from the
    nodes (kernel 5) with its defaults, n_cg=0, with_face=False and mode=-1;
    the element-local GL CG (kernel 6) with its defaults, with every 7th
@@ -57,14 +59,25 @@ It builds the CUDA kernels from the sources on first use, then:
 6. drives path B in f64: the IDP-RK3 product remap with -vb for 20 steps,
    which must end without a bounds violation at the reference's 1e-12
    tolerance, with its gates; and holds one limited stage's aux channel
-   (dt ratio, violation count) from the kernel against the plain version's;
+   (dt ratio, violation count) from the kernel against the plain version's.
+   Then path F: the main path's configuration with -bt 1 through
+   driver.run (24^3, p=3, one field, f32 with the Kahan combine and the
+   full closure, 320 steps): every stage one launch of kernel 1's per-dof
+   variant (its variant counter must read 3 x 320, the "T" variant 0);
+   gates on the mass loss, the injection and u within [min u0, max u0] to
+   1e-5; prints ms a stage and MDOF·stages/s;
 7. drives path C, the non-fused PA stage at full width: path A's run with
    -lo 3 (residual distribution), so every stage launches wdet once and
    geom_conv three times (HO u, LO u, HO us) and solves two global CGs;
    asserts the launch counts and path A's gates, prints the CG iterations
    per solve. Then path D in f64: -ho 2 -lo 4 -vb, one field, 20 steps (the
    Bernstein CG, the subcell weights, the monotonicity check), and one stage
-   of path C split into its parts by CUDA events;
+   of path C split into its parts by CUDA events. Then path G, the
+   assembled (FA) path at full width in f64: -ho 3 -lo 1 -fct 1 for 20
+   steps and -ho 3 -lo 5 -fct 4 -bt 1 -dtc 1 for 20 attempts, no kernel
+   launched, gates as path D's; its peak device memory, and one stage split
+   by CUDA events into the geometry and assembly, the HO solve, the LO
+   solution, the bounds and the FCT;
 8. drives the measurement entry points: bench.run(phases=True, trace=True)
    on the main path, over 10 steps (the phase FOM report, the trace's kernel
    and glue time per stage, its top glue ops and the device's idle share),
@@ -76,6 +89,9 @@ It builds the CUDA kernels from the sources on first use, then:
    each cheap remap -pa golden row outside the -lo 5 family (its own mesh,
    p=2, f64), then runs the row in f64 on the card against
    goldens/reference_goldens.json (5e-10 relative on mass and max u);
+   then the assembled path's golden rows in f64 through the golden runner
+   (one or more of each family: `-ho 1|3`, `-lo 1|2|4|5`, `-fct 1|2|4`,
+   product remap, IDP, dt control; FA_GOLDEN_ROWS; 5e-10, no kernel);
    then the entry points of the port:
    a. the benchmark record, `bench.main_dual` in this process at full width
       (N=24, p=3, 320 steps, best of 4 windows, with the p=4 leg, the f64
@@ -97,7 +113,8 @@ It builds the CUDA kernels from the sources on first use, then:
       transport-ballsjacks-m3pa row: its `Final mass u` and `Max value u`
       lines against the golden at 5e-10;
 10. prints one JSON line per result, the wall seconds of each step and a
-    `kernels` line;
+    `kernels` line (kernel 1's per-dof variant as a row of its own,
+    `variant_of` "mega_stage", its launches from path F);
 11. ends with {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a path and read just after. Any
@@ -108,6 +125,7 @@ result.
 import contextlib
 import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -116,7 +134,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from remhos_torch import bench, bounds, driver, ops, pa
+from remhos_torch import bench, bounds, dofmaps, driver, ops, pa
+from remhos_torch import problems as prob
 from remhos_torch import structured
 from remhos_torch.config import RunConfig
 from remhos_torch.discretization import build_discretization
@@ -196,6 +215,32 @@ C_LIMITS = dict(A_LIMITS)
 PATH_D = dict(PATH_A, ho=2, lo=4, product_sync=False, dtype="float64",
               verify_bounds=True, max_tsteps=20)
 D_LIMITS = dict(mass_loss_u_rel=1e-8, max_u=1.0 + 1e-10, min_steps=20)
+# path F: the main path's -ho 3 -lo 5 -fct 2 -pa with -bt 1 through
+# driver.run: one field, so every stage is one launch of kernel 1's per-dof
+# variant; f32 with the Kahan combine and the full closure as path A.
+# Gates: path A's mass and injection limits, u within [min u0, max u0] to
+# 1e-5 (bench.verify's f32 bounds tolerance)
+PATH_F = dict(PATH_A, product_sync=False, bounds_type=1)
+F_LIMITS = dict(mass_loss_u_rel=1e-6, closure_injected_rel=1e-4,
+                bounds=1e-5, min_steps=STEPS)
+# path G: the assembled (FA) path at full width, f64: the BLAST remap
+# default -ho 3 -lo 1 -fct 1 (the *-m5 golden rows), 20 steps; then the
+# sharpening configuration -ho 3 -lo 5 -fct 4 -bt 1 -dtc 1, 20 attempts.
+# No kernel: the JAX package runs no Pallas kernel without -pa. Gates as
+# path D's
+PATH_G = dict(PATH_A, pa=False, ho=3, lo=1, fct=1, product_sync=False,
+              dtype="float64", max_tsteps=20)
+G_LIMITS = dict(mass_loss_u_rel=1e-8, max_u=1.0 + 1e-10, min_steps=20)
+PATH_G_SHARPEN = dict(PATH_G, lo=5, fct=4, bounds_type=1, dt_control=1)
+G_SHARPEN_LIMITS = dict(mass_loss_u_rel=1e-8, max_u=1.0 + 1e-10,
+                        min_steps=1)
+# the golden rows of the assembled path on the card, one or more of each
+# solver family the run's time allows (f64, 5e-10)
+FA_GOLDEN_ROWS = ("remap-cube3d-m5", "remap-cube3d-m1", "remap-cube3d-m2",
+                  "readme-run11-cube3d", "sharpen-pacman-autodt",
+                  "product-remap-idp3", "product-remap-idp2",
+                  "product-remap-fe-fct", "transport-cube-m5",
+                  "transport-cube-m1")
 # steps of the main path's phase ablation and trace (the measurement step)
 MEASURE_STEPS = 10
 GOLDEN_ROWS = ("remap-cube3d-m3pa", "remap-cube3d-m4pa")
@@ -346,6 +391,62 @@ def check_kernel(label, adv, adv64, dt, rng):
                    lambda: ms.mega_stage_reference(*args, n_cg), 5))
     res.update(bound(*stage_cost(adv._stage_tables, adv._poly, n_cg),
                      dtype))
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def sparsity_inputs(adv, u):
+    """Per-dof sparsity bounds (-bt 1) of u, contiguous, as the operator
+    gives them to kernel 1's per-dof variant."""
+    topo = dofmaps.bounds_topology(adv.disc.mesh, adv.disc.p, adv.device)
+    return tuple(b.contiguous() for b in bounds.sparsity_bounds(
+        *bounds.elements_min_max(u), topo.nbr_elem, topo.nd))
+
+
+def check_kernel_dof(label, adv, adv64, dt, rng, traced=False):
+    """Kernel 1's per-dof variant (bounds "dof") on random u with its
+    sparsity bounds: against its plain version (`hold`), and against the
+    "T" variant on the same inputs with the class-major stencil expanded to
+    dofs (the same function: equal to round-off, LIMITS); raises beyond
+    either. Returns the measured numbers."""
+    dtype = adv.dtype
+    u, unbr, smin, smax = stage_inputs(adv, rng)
+    xmin, xmax = sparsity_inputs(adv, u)
+    t, dt = as_dtype(0.1, dtype), as_dtype(dt, dtype)
+    P, tb = adv._poly, adv._stage_tables
+    args = (t, dt, u, unbr, xmin, xmax, P, tb)
+    n_cg = ms.default_sweeps(dtype)
+    got = ms.mega_stage(*args, bounds="dof")
+    torch.cuda.synchronize()
+    ref = ms.mega_stage_reference(*args, n_cg, "dof")
+    ref64 = None
+    if dtype == torch.float32:
+        ref64 = ms.mega_stage_reference(
+            t, dt, *f64_inputs(u, unbr, xmin, xmax, P),
+            adv64._stage_tables, n_cg, "dof")
+    torch.cuda.synchronize()
+    err, rel, prel = hold(label + " per-dof", "du", got, ref, ref64,
+                          LIMITS[dtype])
+    cls = tb["cls"].long()
+    du_T = ms.mega_stage(t, dt, u, unbr, smin, smax, P, tb)
+    du_dof = ms.mega_stage(t, dt, u, unbr, smin[cls].T.contiguous(),
+                           smax[cls].T.contiguous(), P, tb, bounds="dof")
+    torch.cuda.synchronize()
+    err_T, rel_T = compare(label + " per-dof against T", "du", du_dof,
+                           du_T, LIMITS[dtype])
+    res = dict(check=label, kernel="mega_stage", variant="dof",
+               E=u.shape[0], max_abs_err=err, rel_err=rel,
+               limit=LIMITS[dtype], plain_f32_rel_err=prel,
+               vs_T_max_abs_err=err_T, vs_T_rel_err=rel_T,
+               ms=time_ms(lambda: ms.mega_stage(*args, bounds="dof"), 20),
+               T_ms=time_ms(lambda: ms.mega_stage(
+                   t, dt, u, unbr, smin, smax, P, tb), 20),
+               plain_ms=time_ms(
+                   lambda: ms.mega_stage_reference(*args, n_cg, "dof"), 5))
+    res.update(bound(*stage_cost(tb, P, n_cg, kind="mega_dof"), dtype))
+    if traced:
+        res["trace_ms"] = traced_ms(
+            lambda: ms.mega_stage(*args, bounds="dof"), "mega_stage")
     print(json.dumps(res), flush=True)
     return res
 
@@ -855,7 +956,9 @@ def run_driver_path(path, cfg_kw, limits, device, launches=fused_launches):
                mass_loss_u_rel=res.mass_loss_u / abs(mass0_u),
                mass_loss_us_rel=res.mass_loss_us / abs(mass0_us),
                closure_injected_rel=res.mass_closure_injected_rel,
-               max_u=res.max_u, max_s=res.max_s, launches=n, limits=limits)
+               max_u=res.max_u, min_u=res.min_u, u0_min=res.u0_min,
+               u0_max=res.u0_max, max_s=res.max_s, launches=n,
+               limits=limits)
     if res.cg_solves:
         # every iteration reads one comparison back from the device
         rec.update(cg_solves=res.cg_solves, cg_iterations=res.cg_iterations,
@@ -873,6 +976,105 @@ def run_driver_path(path, cfg_kw, limits, device, launches=fused_launches):
         else:
             gate(path, name, rec[name], limit)
     return rec
+
+
+def mega_launches(attempts, fields):
+    """Launches of a mega-stage run: kernel 1 once per stage, wdet for the
+    two mass reports."""
+    return dict(mega_stage=bench.STAGES * attempts, wdet=2)
+
+
+def run_path_f(device):
+    """Path F: the main path with -bt 1 through driver.run. Every stage is
+    one launch of kernel 1's per-dof variant (its variant counter proves
+    it); gates on mass, injection and u's range."""
+    rec = run_driver_path("F", PATH_F, {k: v for k, v in F_LIMITS.items()
+                                        if k != "bounds"},
+                          device, mega_launches)
+    variants = ops.variant_counts()["mega_stage"]
+    want = dict(T=0, dof=rec["launches"]["mega_stage"])
+    if variants != want:
+        raise RuntimeError(f"F: kernel 1's variants launched {variants}, "
+                           f"expected {want}")
+    gate("F", "max_u", rec["max_u"], rec["u0_max"] + F_LIMITS["bounds"])
+    gate("F", "min_u", rec["min_u"], rec["u0_min"] - F_LIMITS["bounds"],
+         least=True)
+    rec.update(variant_launches=variants,
+               ms_per_stage=rec["ms_per_step"] / bench.STAGES)
+    print(json.dumps(dict(path="F", variant_launches=variants,
+                          ms_per_stage=rec["ms_per_stage"],
+                          MDOF_stages_per_s=rec["MDOF_stages_per_s"])),
+          flush=True)
+    return rec
+
+
+def run_path_g(device):
+    """Path G: the assembled path at full width in f64, then the sharpening
+    configuration; no kernel launches. Returns the two records."""
+    torch.cuda.reset_peak_memory_stats(device)
+    rec = run_driver_path("G", PATH_G, G_LIMITS, device,
+                          lambda a, f: {})
+    rec["max_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    torch.cuda.empty_cache()
+    rec_s = run_driver_path("G sharpen", PATH_G_SHARPEN, G_SHARPEN_LIMITS,
+                            device, lambda a, f: {})
+    print(json.dumps(dict(path="G", max_memory_gib=rec["max_memory_gib"])),
+          flush=True)
+    return rec, rec_s
+
+
+def split_fa_stage(device):
+    """Where one stage of path G goes, by CUDA events around each part:
+    the whole stage; the geometry and assembly (`geometry(t)`: volume and
+    face geometry, K_elem, bdrInt, M, ml, the Cholesky factors, D); the HO
+    solve (K_HO u, two triangular solves); the LO solution (discrete
+    upwind); the bounds; the flux-based FCT. On path G's initial state."""
+    cfg = RunConfig(device=str(device), **PATH_G)
+    adv, dt = driver.build_operator(cfg)
+    mesh = adv.disc.mesh
+    u, _ = driver.project_bernstein(
+        adv.x0_nodes, adv.disc.Bm_at_unodes,
+        lambda x: prob.u0_function(cfg.problem, x, mesh.bb_min, mesh.bb_max))
+    t, S = 0.1, u[None]
+    stage = adv.stage_function()
+    geom = adv.geometry(t)
+    du_HO = adv.ho_solution(geom, u)
+    du_LO = adv.lo_solution(geom, u, du_HO=du_HO, dt=dt)
+    x_min, x_max = adv.compute_bounds(*bounds.elements_min_max(u))
+    parts = dict(
+        stage=lambda: stage(t, dt, S),
+        geometry_assembly=lambda: adv.geometry(t),
+        ho_solve=lambda: adv.ho_solution(geom, u),
+        lo=lambda: adv.lo_solution(geom, u, du_HO=du_HO, dt=dt),
+        bounds=lambda: adv.compute_bounds(*bounds.elements_min_max(u)),
+        fct=lambda: adv._fct_solution(geom, u, du_HO, du_LO, x_min, x_max,
+                                      dt))
+    rec = {"check": "path G stage split, 3d N=%d f64, ms" % N_MAIN}
+    rec.update({name: time_ms(fn, 5) for name, fn in parts.items()})
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def run_fa_goldens(device):
+    """The assembled path's golden rows (FA_GOLDEN_ROWS) in f64 on the card
+    through the golden runner; no kernel launches."""
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = run_goldens.main(["--device", str(device), "--only",
+                               *FA_GOLDEN_ROWS])
+    n = expect_counts("FA golden rows", {})
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        if line.startswith(("PASS", "FAIL")):
+            print(line, flush=True)
+    rec = json.loads(lines[-1])
+    if rc != 0 or sorted(rec["matched"]) != sorted(FA_GOLDEN_ROWS):
+        raise RuntimeError(f"FA golden rows: {rec['matched']} matched, "
+                           f"{rec['failed']} failed")
+    return dict(matched=rec["matched"], launches=n,
+                wall_s=time.perf_counter() - t0)
 
 
 def run_golden_rows(device, rng, wdet_checks, gc_checks):
@@ -947,15 +1149,21 @@ def split_nonfused_stage(device):
     return rec
 
 
+_PER_DOF = re.compile(r"mega_stage_kernel(<[^()]*\btrue>|I.*Lb1EE)")
+
+
 def trace_seven_kernels(case, rng):
-    """One launch of each of the seven kernels, at N=24 f32, under the
-    profiler: the trace must hold one device event of each (the kernels
-    are launched through ctypes, outside any aten op). Returns the events
-    and each kernel's device ms from the trace: the kernel alone, where the
-    CUDA-event times of phase 3 include the wrapper's host work whenever
-    that is longer."""
+    """One launch of each of the seven kernels, and of kernel 1's per-dof
+    variant, at N=24 f32, under the profiler: the trace must hold one
+    device event of each (two of kernel 1; the kernels are launched through
+    ctypes, outside any aten op). Returns the events and each kernel's
+    device ms from the trace ("mega_stage_dof": the per-dof variant, told
+    apart by its template flag in the kernel's name): the kernel alone,
+    where the CUDA-event times of phase 3 include the wrapper's host work
+    whenever that is longer."""
     adv = case.adv
     u, unbr, smin, smax = stage_inputs(adv, rng)
+    xmin, xmax = sparsity_inputs(adv, u)
     P, tb = adv._poly, adv._stage_tables
     nf_adv = nonfused_operator(adv)
     tbn = shn.stage_ho_nodes_tables(adv.disc, adv.dtype, adv.device)
@@ -966,6 +1174,8 @@ def trace_seven_kernels(case, rng):
 
     def seven():
         ms.mega_stage(0.1, case.dt, u, unbr, smin, smax, P, tb)
+        ms.mega_stage(0.1, case.dt, u, unbr, xmin, xmax, P, tb,
+                      bounds="dof")
         sh.stage_ho(0.1, u, unbr, P, tb)
         wdet = wd.wdet(xs, adv._wdet_tables)
         gc.geom_conv(xs, v, u, nf_adv._gc_tables, 1.0)
@@ -976,10 +1186,18 @@ def trace_seven_kernels(case, rng):
     seven()                                   # built and warm
     tr, launches = trc.capture_counted(seven)
     events = trc.check_kernel_events(tr, launches, "seven kernels")
-    if set(events.values()) != {1}:
+    if events != dict(dict.fromkeys(ops.KERNELS, 1), mega_stage=2):
         raise RuntimeError(f"seven kernels: trace events {events}")
     by_name = trc.loop_report(tr, 1, 1)["kernel_s_per_stage_by_name"]
-    return events, {k: 1e3 * v for k, v in by_name.items()}
+    out = {k: 1e3 * v for k, v in by_name.items()}
+    k1 = [o for o in trc.device_ops(tr) if o["kernel"] == "mega_stage"]
+    dof = [o for o in k1 if _PER_DOF.search(o["name"])]
+    if len(dof) != 1:
+        raise RuntimeError("seven kernels: the per-dof variant is not one "
+                           f"of kernel 1's events {[o['name'] for o in k1]}")
+    out["mega_stage_dof"] = 1e-3 * dof[0]["dur"]
+    out["mega_stage"] = 1e-3 * sum(o["dur"] for o in k1 if o not in dof)
+    return events, out
 
 
 def measurement_phase(device, rng):
@@ -1232,7 +1450,9 @@ def main():
     # they saw before those checks existed
     rng_new = np.random.default_rng(SEED + 1)
     checks, ho_checks, wdet_checks, gc_checks = {}, {}, {}, {}
-    new_checks = {}
+    new_checks, dof_checks = {}, {}
+    # kernel 1's per-dof variant draws from a stream of its own too
+    rng_dof = np.random.default_rng(SEED + 4)
     for tag, n, dim in (("3d", N_MAIN, 3), ("2d", 16, 2)):
         case = bench.build_case(n, ORDER, torch.float32, dev, n_steps=STEPS,
                                 dim=dim)
@@ -1241,6 +1461,9 @@ def main():
             key = f"{tag}_{prec}"
             checks[key] = check_kernel(f"{size} {prec}", adv, case.adv64,
                                        case.dt, rng)
+            dof_checks[key] = check_kernel_dof(f"{size} {prec}", adv,
+                                               case.adv64, case.dt, rng_dof,
+                                               traced=key == "3d_f32")
             for with_lo in (True, False):
                 k2 = key + ("_lo" if with_lo else "")
                 ho_checks[k2] = check_stage_ho(
@@ -1292,12 +1515,21 @@ def main():
     rec_b = run_driver_path("B", PATH_B, B_LIMITS, dev)
     check_vb_stage(dev)
     done("paths A and B")
+    # 6a. path F: -bt 1 on the mega path, kernel 1's per-dof variant
+    rec_f = run_path_f(dev)
+    torch.cuda.empty_cache()
+    done("path F")
     # 7. paths C and D: the non-fused PA stage; 8. its cheap golden rows
     rec_c = run_driver_path("C", PATH_C, C_LIMITS, dev, nonfused_launches)
     rec_path_d = run_driver_path("D", PATH_D, D_LIMITS, dev, nonfused_launches)
     split_nonfused_stage(dev)
     torch.cuda.empty_cache()
     done("paths C and D")
+    # 7a. path G: the assembled path at full width, its stage split
+    run_path_g(dev)
+    split_fa_stage(dev)
+    torch.cuda.empty_cache()
+    done("path G")
     # 8. the measurement entry points: phases, traces, the tools
     _, _, tools = measurement_phase(dev, rng_new)
     torch.cuda.empty_cache()
@@ -1305,6 +1537,10 @@ def main():
     # 9. the cheap golden rows of the non-fused stage
     run_golden_rows(dev, rng, wdet_checks, gc_checks)
     done("golden rows")
+    # 9'. the assembled path's golden rows
+    fa_goldens = run_fa_goldens(dev)
+    print(json.dumps(dict(check="FA golden rows", **fa_goldens)), flush=True)
+    done("FA golden rows")
     # 9a. the benchmark record
     record = run_record(dev)
     torch.cuda.empty_cache()
@@ -1375,6 +1611,24 @@ def main():
             without_wdet_f64=gc_checks["3d_f64"]["without_wdet"],
             launches_path_d=rec_path_d["launches"]["geom_conv"]),
     ]
+    d32, d64 = dof_checks["3d_f32"], dof_checks["3d_f64"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    kernels.insert(1, dict(
+        name="mega_stage_dof", variant_of="mega_stage",
+        bounds="per dof [E, nd] (-bt 1; the JAX kernel's "
+               "bounds_stencil=False)",
+        route="cuda", source="remhos_torch/ops/csrc/mega_stage.cu",
+        replaces=pk + ":889", launches=rec_f["launches"]["mega_stage"],
+        max_abs_err=d32["max_abs_err"], ms=d32["ms"],
+        plain_ms=d32["plain_ms"], bound_ms=d32["bound_ms"],
+        bound_by=d32["bound_by"], library_ms=None,
+        f64={k: d64[k] for k in keys},
+        T_ms=d32["T_ms"], f64_T_ms=d64["T_ms"],
+        trace_ms=tools["trace_ms"]["mega_stage_dof"],
+        check_trace_ms=d32["trace_ms"],
+        checks=[{k: c[k] for k in ("check", "max_abs_err", "rel_err",
+                                   "limit", "vs_T_max_abs_err")}
+                for c in dof_checks.values()]))
     k5, k6, k7 = (new_checks[k] for k in ("stage_ho_nodes", "gl_cg",
                                           "gather_nbr"))
     tl = tools["launches"]

@@ -1,11 +1,12 @@
 """Static dof-topology tables of a structured mesh (host numpy).
 
-The port's copy of the `remhos_tpu.dofmaps` subset the Cartesian remap path
-uses: the element-local dofs on each face (`bdr_dofs`), the matching dof on
+The port's copy of the `remhos_tpu.dofmaps` subset the Cartesian paths
+use: the element-local dofs on each face (`bdr_dofs`), the matching dof on
 the face neighbour (`nbr_dof_local`) and the corner dofs of the p^dim
 subcells (`sub2ind`). All elements of a structured grid share one
 orientation, so the neighbour dof is the same tangential position on the
-opposite face.
+opposite face. `bounds_topology` adds the mesh-wide tables of the bounds
+stencils: the face-neighbour elements and the global CG node of each dof.
 """
 
 from __future__ import annotations
@@ -13,13 +14,19 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .mesh import faces_for_dim
 
 
 def _lex_multi_index(n1: int, dim: int) -> np.ndarray:
     """[(n1)^dim, dim] multi-indices, x fastest."""
-    grids = np.meshgrid(*[np.arange(n1)] * dim, indexing="ij")
+    return _grid_multi_index((n1,) * dim)
+
+
+def _grid_multi_index(shape) -> np.ndarray:
+    """[prod(shape), dim] multi-indices of a grid, x fastest."""
+    grids = np.meshgrid(*[np.arange(s) for s in shape], indexing="ij")
     return np.stack([g.ravel(order="F") for g in grids], axis=-1)
 
 
@@ -71,3 +78,64 @@ def build_dofmaps(dim: int, p: int) -> DofMaps:
                 + _lex_multi_index(2, dim)[None, :, :]) * strides).sum(-1)
     return DofMaps(p, dim, n1 ** dim, n1 ** (dim - 1), 2 * dim, bdr,
                    bdr[opposite_face(dim)], sub2ind.astype(np.int32))
+
+
+@dataclasses.dataclass(frozen=True)
+class BoundsTopology:
+    """The tables `bounds.compute_bounds` reads, as long tensors on one
+    device."""
+
+    nd: int
+    nbr_elem: torch.Tensor       # [E, nfaces] neighbour elements, -1 = bdr
+    cg_idx: torch.Tensor         # [E, nd] global CG (GLL) node of each dof
+    n_cg: int
+
+
+def neighbour_elements(shape, periodic) -> np.ndarray:
+    """nbr_elem[E, nfaces]: the face neighbour of each element across each
+    local face, -1 on a physical boundary (the JAX package's mesh table)."""
+    dim = len(shape)
+    E = int(np.prod(shape))
+    eidx = _grid_multi_index(shape)
+    strides = np.cumprod((1,) + tuple(shape[:-1]))
+    nbr = np.empty((E, 2 * dim), dtype=np.int64)
+    for f, (axis, side) in enumerate(faces_for_dim(dim)):
+        tgt = eidx[:, axis] + (1 if side == 1 else -1)
+        if periodic[axis]:
+            valid = np.ones(E, dtype=bool)
+            tgt = np.mod(tgt, shape[axis])
+        else:
+            valid = (tgt >= 0) & (tgt < shape[axis])
+            tgt = np.clip(tgt, 0, shape[axis] - 1)
+        nbr[:, f] = np.where(
+            valid, eidx @ strides + (tgt - eidx[:, axis]) * strides[axis], -1)
+    return nbr
+
+
+def cg_node_ids(shape, periodic, p: int):
+    """(cg_idx[E, nd], n_cg): the global Gauss-Lobatto CG node of order
+    max(p, 1) of each DG dof, periodic axes wrapped (the overlap stencil's
+    scatter/gather, remhos_tools.cpp:432-495)."""
+    dim = len(shape)
+    q = max(p, 1)
+    midx = _lex_multi_index(q + 1, dim)
+    gshape = tuple(q * s if per else q * s + 1
+                   for s, per in zip(shape, periodic))
+    gstrides = np.cumprod((1,) + gshape[:-1])
+    g = q * _grid_multi_index(shape)[:, None, :] + midx[None, :, :]
+    for d in range(dim):
+        if periodic[d]:
+            g[:, :, d] %= gshape[d]
+    return (g * gstrides).sum(-1), int(np.prod(gshape))
+
+
+def bounds_topology(mesh, p: int, device) -> BoundsTopology:
+    """The bounds tables of a structured mesh at order p on `device`."""
+    cg_idx, n_cg = cg_node_ids(mesh.shape, mesh.periodic, p)
+
+    def L(a):
+        return torch.as_tensor(a, dtype=torch.long, device=device)
+
+    return BoundsTopology((p + 1) ** mesh.dim,
+                          L(neighbour_elements(mesh.shape, mesh.periodic)),
+                          L(cg_idx), n_cg)

@@ -1,10 +1,11 @@
 """Driver: setup, time loop and reporting (the remhos() entry equivalent).
 
-The port of `remhos_tpu.driver` for one device, a structured mesh, the
-transport problems 0-7, the remap problems 10-17 and the partial-assembly
-solver families (`-ho 2|3 -lo 0|3|4|5 -fct 0|2 -pa`; `operator.py` picks the
-fused or the non-fused stage): `run(cfg) -> RunResult`, whose `final_mass_u`
-plays the role of the C entry's out-parameter (remhos.cpp:210).
+The port of `remhos_tpu.driver` for one device, a structured 2D or 3D mesh,
+the transport problems 0-7, the remap problems 10-17 and the solver
+families `-ho 1|2|3 -lo 0-5 -fct 0-4 -bt 0|1`, assembled or with `-pa`
+(`operator.py` picks the fused, the non-fused or the assembled stage):
+`run(cfg) -> RunResult`, whose `final_mass_u` plays the role of the C
+entry's out-parameter (remhos.cpp:210).
 
 The Python loop handles the adaptive-dt rollback (remhos.cpp:1178-1197), the
 -vb raise, the steady-state stop of problems 6-8 (remhos.cpp:1276-1294),
@@ -252,9 +253,12 @@ def run(cfg: RunConfig) -> RunResult:
         # (the GCL's temporal error is O(dt^4) per step; forward Euler and
         # RK2 drift at O(dt^2) and O(dt^3)), or transport on an
         # all-periodic mesh (no boundary flux, ml constant); non-periodic
-        # transport has a physical in- and outflow.
-        conservative = ((exec_mode == 1 and cfg.ode_solver in (3, 4, 6))
-                        or (exec_mode == 0 and all(mesh.periodic)))
+        # transport has a physical in- and outflow. Never with the
+        # NonlinearPenalty FCT, which is not conservative by construction
+        # (remhos_fct.hpp:176).
+        conservative = cfg.fct != 3 and (
+            (exec_mode == 1 and cfg.ode_solver in (3, 4, 6))
+            or (exec_mode == 0 and all(mesh.periodic)))
         use_closure = (dtype == torch.float32 and cfg.closure
                        and conservative)
         step = steppers.make_rk_step(adv.stage_function(), cfg.ode_solver,

@@ -1,10 +1,16 @@
-"""FCT limiter: ClipScale (`-fct 2`, remhos_fct.cpp:449-541) and the
-product-field helpers of its solver family (remhos_fct.cpp:26-153)."""
+"""FCT limiters that blend du_HO and du_LO per element under per-dof
+bounds, conserving lumped mass: ClipScale (`-fct 2`,
+remhos_fct.cpp:449-541), the element FCT projection (`-fct 4`,
+remhos_fct.cpp:613-731) and the product-field helpers of their solver
+families (remhos_fct.cpp:26-153). The flux-based (`-fct 1`) and
+nonlinear-penalty (`-fct 3`) limiters are `fct_flux.py` and
+`fct_penalty.py`."""
 
 from __future__ import annotations
 
 import torch
 
+from . import assembly as asm
 from . import verify as vfy
 
 INF = float("inf")
@@ -29,6 +35,42 @@ def clip_scale(u, m, du_ho, du_lo, u_min, u_max, dt):
     f = torch.where(new_mass > EPS_CS, fneg - fpos * (sum_neg / sum_pos), f)
     f = torch.where(new_mass < -EPS_CS, fpos - fneg * (sum_pos / sum_neg), f)
     return du_lo + f / m
+
+
+def element_fct_projection(u, du_HO, du_LO, u_min, u_max, M_elem, dt):
+    """Per-element FCT projection with the local consistent mass matrix
+    (ElementFCTProjection, remhos_fct.cpp:613-731): antisymmetric pairwise
+    fluxes, Zalesak factors against the bounds, one symmetric limited
+    update."""
+    ML = M_elem.sum(dim=2)                        # row sums
+    du_max = (u_max - u) / dt
+    du_min = (u_min - u) / dt
+
+    rhs = asm.matvec(M_elem, du_HO)
+    beta = ML / ML.sum(dim=1, keepdim=True)
+    z = rhs - ML * du_LO
+
+    # F[i, j] = M[i, j] (duHO_i - duHO_j) + (beta_j z_i - beta_i z_j)
+    dho = du_HO[:, :, None] - du_HO[:, None, :]
+    F = M_elem * dho + (beta[:, None, :] * z[:, :, None]
+                        - beta[:, :, None] * z[:, None, :])
+    nd = u.shape[1]
+    F = F * (1.0 - torch.eye(nd, dtype=u.dtype, device=u.device))
+
+    gp = F.clamp(min=0.0).sum(dim=2)
+    gm = F.clamp(max=0.0).sum(dim=2)
+
+    rp = (ML * (du_max - du_LO)).clamp(min=0.0)
+    rm = (ML * (du_min - du_LO)).clamp(max=0.0)
+    ap = torch.where(rp < gp, rp / gp, 1.0)
+    am = torch.where(rm > gm, rm / gm, 1.0)
+
+    # alpha_ij symmetric: min(ap_i, am_j) where F_ij >= 0, else
+    # min(am_i, ap_j)
+    aij = torch.where(F >= 0.0,
+                      torch.minimum(ap[:, :, None], am[:, None, :]),
+                      torch.minimum(am[:, :, None], ap[:, None, :]))
+    return du_LO + (aij * F).sum(dim=2) / ML
 
 
 def calc_compatible_lo_product(us, m, d_us_HO, s_min, s_max, u_new,

@@ -3,12 +3,19 @@
 - `mass_based_avg` (MassBasedAvg, remhos_lo.cpp:247-324; `-lo 5`);
 - `residual_distribution_core` with its subcell branch
   (ResidualDistribution, remhos_lo.cpp:102-245; `-lo 3` and `-lo 4`), given
-  the matrix-free residual z = K u and the face-lumped accumulator.
+  the residual z = K u and the face-lumped accumulator; the assembled path's
+  `residual_distribution` forms both from K_elem and bdrInt;
+- `discrete_upwind` (DiscreteUpwind, remhos_lo.cpp:31-100; `-lo 1`, and
+  `-lo 2` on the preconditioned convection matrix): the reference's sparse K
+  is block-diagonal (its `k` form has only a domain integrator), so D is
+  built on dense element blocks. Assembled path only, as in the reference.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import assembly as asm
 
 # guards the weight denominators of an element whose dofs are all equal;
 # below float32 round-off, kept as the reference has it
@@ -83,3 +90,47 @@ def residual_distribution_core(u, z, du, ml, subcell=False,
             + torch.maximum(auxN, 1.0 / (sumFN - EPS))[:, None] * nwN
 
     return (du + weightP * rhoP[:, None] + weightN * rhoN[:, None]) / ml
+
+
+def _face_lumped_into_dofs(u, u_nbr, bdrInt, bdr_dofs):
+    """LinearFluxLumping(alpha = 0) accumulated into the element dofs."""
+    contrib = asm.face_term_lumped(asm.gather_face(u, bdr_dofs), u_nbr,
+                                   bdrInt)
+    return asm.scatter_face_add(torch.zeros_like(u), contrib, bdr_dofs)
+
+
+def residual_distribution(u, u_nbr, K_elem, bdrInt, ml, bdr_dofs,
+                          subcell=False, subcell_weights=None, sub2ind=None):
+    """The assembled residual distribution: z = K_elem u and the lumped face
+    terms, then `residual_distribution_core`."""
+    return residual_distribution_core(
+        u, asm.matvec(K_elem, u),
+        _face_lumped_into_dofs(u, u_nbr, bdrInt, bdr_dofs), ml, subcell,
+        subcell_weights, sub2ind)
+
+
+def precond_convection_matrix(K_elem, M_elem):
+    """PrecondConvectionIntegrator's element matrix ML M^-1 K
+    (remhos_tools.cpp:975-1031; ML the lumped element mass), for `-lo 2`."""
+    L = torch.linalg.cholesky(M_elem)
+    Y = torch.linalg.solve_triangular(L, K_elem, upper=False)
+    MinvK = torch.linalg.solve_triangular(L.transpose(1, 2), Y, upper=True)
+    return M_elem.sum(dim=2)[:, :, None] * MinvK
+
+
+def discrete_upwind_matrix(K_elem):
+    """D[E, nd, nd] = K + d, d_ij = max(0, -k_ij, -k_ji) off the diagonal and
+    minus its row sums on it, so that the rows of d sum to zero
+    (remhos_lo.cpp:76-100)."""
+    nd = K_elem.shape[-1]
+    d = torch.maximum((-K_elem).clamp(min=0.0), -K_elem.transpose(1, 2))
+    off = 1.0 - torch.eye(nd, dtype=K_elem.dtype, device=K_elem.device)
+    d_off = d * off
+    return K_elem + d_off - (1.0 - off) * d_off.sum(2)[:, :, None]
+
+
+def discrete_upwind(u, u_nbr, D, bdrInt, ml, bdr_dofs):
+    """du = (D u + the lumped face fluxes) / ml (remhos_lo.cpp:43-74)."""
+    du = asm.matvec(D, u) + _face_lumped_into_dofs(u, u_nbr, bdrInt,
+                                                    bdr_dofs)
+    return du / ml

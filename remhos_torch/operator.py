@@ -1,20 +1,23 @@
-"""The advection operator of the partial-assembly paths.
+"""The advection operator: stage geometry and the HO/LO/FCT dispatch.
 
 The port of `remhos_tpu.operator.Advection` for remap (problems 10-17) and
-transport (problems 0-7) with `-pa` on a structured 2D/3D mesh. Stage
-functions work on the block state `S[nfields, E, nd]` (field 0 = u, field 1
-= us for product remap) and return `(dS, aux)` with `aux = [dt_ratio,
--violations]`, a 2-element tensor on the device that is never fetched
-inside a step.
+transport (problems 0-7) on a structured 2D/3D mesh, with and without `-pa`.
+Stage functions work on the block state `S[nfields, E, nd]` (field 0 = u,
+field 1 = us for product remap) and return `(dS, aux)` with `aux =
+[dt_ratio, -violations]`, a 2-element tensor on the device that is never
+fetched inside a step.
 
-The reference's own gate picks one of two stages. `-ho 3 [-lo 5] [-fct 2]`
-is the "fused stage", whose geometry is polynomial in the pseudo-time and
-lives inside the kernels. Two kernels carry it:
+Partial assembly (`-pa`). The reference's own gate picks one of two stages.
+`-ho 3 [-lo 5] [-fct 2]` in remap is the "fused stage", whose geometry is
+polynomial in the pseudo-time and lives inside the kernels. Two kernels
+carry it:
 
 - the mega stage (`ops/mega_stage.py`): the whole limited stage in one
   launch, when nothing outside needs du_HO, du_LO or wdet (single field, no
-  -vb, no dt control, standard RK). Its aux is the constant [inf, 0], given
-  as None so that the steppers skip the combine;
+  -vb, no dt control, standard RK). Its bounds are the class-major overlap
+  stencil at `-bt 0` and per-dof sparsity bounds at `-bt 1` (the kernel's
+  two variants; remhos_tpu/operator.py:713-737). Its aux is the constant
+  [inf, 0], given as None so that the steppers skip the combine;
 - the HO stage (`ops/stage_ho.py`), once per field, followed by the LO
   solution, the bounds, ClipScale, the product-field limiter and the -vb
   checks in plain PyTorch: -vb, dt control, a product field, IDP-RK.
@@ -23,31 +26,37 @@ lives inside the kernels. Two kernels carry it:
 before any HO stage kernel has (the driver's mass reports, a stand-alone
 `limit_mult`).
 
-The fused stage is remap-only, as in the JAX package (operator.py:159).
-Everything else in `-ho 2|3 -lo 0|3|4|5 -fct 0|2` is the non-fused stage,
-which re-derives its geometry from the nodes x0 + t v at every stage:
-`geometry(t)` makes the face normals and upwind weights in plain PyTorch and
-launches the wdet kernel once; per field, `ops/geom_conv.py` fuses the
-volume geometry with the convection action (once for the HO solution, once
-more for a residual-distribution LO solution), the face terms are plain
-PyTorch (`pa.py`), and the mass inverse is a global CG (`pa.mass_solve_gl`
-for `-ho 3`, `pa.mass_solve_bern` for `-ho 2`) that reads one comparison
-back from the device per iteration; `cg_stats` counts its solves and
-iterations.
+Every other `-pa` configuration is the non-fused stage, which re-derives
+its geometry from the nodes x0 + t v at every stage: `geometry(t)` makes
+the face normals and upwind weights in plain PyTorch and launches the wdet
+kernel once; per field, `ops/geom_conv.py` fuses the volume geometry with
+the convection action (once for the HO solution, once more for a
+residual-distribution LO solution), the face terms are plain PyTorch
+(`pa.py`), and the mass inverse is a global CG (`pa.mass_solve_gl` for
+`-ho 3`, `pa.mass_solve_bern` for `-ho 2`) that reads one comparison back
+from the device per iteration; `cg_stats` counts its solves and
+iterations. Transport runs the non-fused stage on a geometry made once, at
+construction (the mesh stands still), with `pa.conv_action` on
+va = -(adj J v) and no kernel, as the JAX package routes it
+(operator.py:291-293, 331-336).
 
-Transport runs the non-fused stage on a geometry that does not depend on
-time (the mesh stands still): volume and face geometry, the velocity at the
-quadrature and face points, va = -(adj J v), the upwind weights from
-min(0, v.n), wdet and ml are made once, at construction, and `geometry(t)`
-returns that one dict for every t. The JAX package lets XLA hoist the same
-geometry out of its step (operator.py:291-293). Its volume action is then
-`pa.conv_action` on va, in plain PyTorch, and no kernel runs: the JAX
-package routes it the same way (operator.py:331-336). The inflow values
-enter the LO solutions' neighbour gather on physical boundaries
-(`inflow_face`, remhos_tools.cpp:891).
+Full assembly (no `-pa`, remhos_tpu/operator.py:270-319). Per stage the
+element matrices are assembled as dense batches (`assembly.py`): the
+volume and face geometry at the moved nodes, K_elem, bdrInt, M and ml;
+the Cholesky factors of M for `-ho 3` and every FCT; D for `-lo 1|2`; the
+subcell weights for `-lo 4`. Transport assembles them once. The solvers
+are `ho.py` (`-ho 1|2|3`), `lo.py` (`-lo 1|2|3|4|5`), `fct.py` (`-fct 2|4`),
+`fct_flux.py` (`-fct 1`) and `fct_penalty.py` (`-fct 3`): batched dense
+products and factorizations in plain PyTorch, as the JAX package runs them
+through XLA with no Pallas kernel. No product runs in TF32.
 
-Any other configuration raises NotImplementedError naming the ROADMAP.md
-item that ports it.
+The inflow values enter the LO solutions' (and the Neumann HO solution's)
+neighbour gather on physical boundaries (`inflow_face`,
+remhos_tools.cpp:891).
+
+A configuration the JAX package rejects raises ValueError as it does
+(`solver_rejected`); one that is not ported yet raises NotImplementedError
+naming its ROADMAP.md item (`solver_unported`).
 """
 
 from __future__ import annotations
@@ -58,8 +67,12 @@ import torch
 
 from . import assembly as asm
 from . import bounds as bnd
+from . import dofmaps as dmm
 from . import fct as fctm
+from . import fct_flux
+from . import fct_penalty
 from . import geometry as geo
+from . import ho as hom
 from . import lo as lom
 from . import pa as pam
 from . import problems as prob
@@ -84,9 +97,11 @@ class SolverConfig:
     """Solver selection, mirroring the reference CLI (remhos.cpp:249-334)."""
 
     problem: int = 10
-    ho: int = 3          # 2 CG, 3 LocalInverse
-    lo: int = 5          # 0 none, 3 RD, 4 RD-subcell, 5 MassBasedAvg
-    fct: int = 2         # 2 ClipScale
+    ho: int = 3          # 0 none, 1 Neumann, 2 CG, 3 LocalInverse
+    lo: int = 5          # 0 none, 1 DU, 2 DU-prec, 3 RD, 4 RD-subcell,
+    #                      5 MassBasedAvg
+    fct: int = 2         # 0 none, 1 FluxBased, 2 ClipScale,
+    #                      3 NonlinearPenalty, 4 ElementFCTProjection
     mono: int = 0
     ode_solver: int = 3
     bounds_type: int = 0
@@ -105,23 +120,37 @@ class SolverConfig:
 
 def solver_unported(cfg: SolverConfig, dim: int):
     """What of a solver configuration on a `dim`-dimensional mesh is not
-    ported yet, naming its ROADMAP.md item, or None when one of the PA
-    stages runs it."""
+    ported yet, naming its ROADMAP.md item, or None when the port runs
+    it."""
     if cfg.mono != 0 or cfg.smth_ind != 0:
         return "the monolithic solvers and smoothness indicators " \
                "(Queue 1, item 5)"
-    if cfg.ho not in (2, 3) or cfg.lo not in (0, 3, 4, 5) \
-            or cfg.fct not in (0, 2):
-        return "solver families other than -ho 2|3 -lo 0|3|4|5 -fct 0|2 " \
-               "(Queue 1, item 4)"
-    if not cfg.pa:
-        return "the assembled (non -pa) path (Queue 1, item 4)"
     if cfg.poly_bf16:
         return "the bf16 P16 stream (Queue 2, item 2)"
-    if cfg.bounds_type != 0:
-        return "bounds other than the overlap stencil (Queue 1, item 4)"
     if dim not in (2, 3):
         return "1D meshes (Queue 1, item 6)"
+    return None
+
+
+def solver_rejected(cfg: SolverConfig):
+    """The message of a solver combination the JAX package rejects, or
+    None. The JAX package raises these at its first stage: ValueError for
+    the discrete upwind with -pa (its own message), a missing HO or LO
+    solver and an unknown FCT type, and KeyError for the assembled-only
+    solvers with -pa (its PA stage has no K_elem or M); the port raises
+    ValueError at construction."""
+    if cfg.fct not in (0, 1, 2, 3, 4):
+        return f"unsupported fct type {cfg.fct}"
+    if cfg.pa and cfg.lo in (1, 2):
+        return "discrete upwind has no PA path (matches the reference)"
+    if cfg.ho not in (1, 2, 3) and (cfg.fct != 0 or cfg.lo in (0, 5)):
+        return "no HO solver selected"
+    if cfg.fct != 0 and cfg.lo not in (1, 2, 3, 4, 5):
+        return "no LO solver selected"
+    if cfg.pa and (cfg.ho == 1 or cfg.fct in (1, 4)):
+        return ("the Neumann HO solver and the flux-based and element-"
+                "projection FCT have no PA path: they read the assembled "
+                "K_elem and M (the JAX package fails with a KeyError)")
     return None
 
 
@@ -137,12 +166,20 @@ class Advection:
         why = solver_unported(cfg, disc.dim)
         if why is not None:
             raise NotImplementedError(
-                f"remhos_torch runs the PA stages only; {why} is not ported "
-                "yet (ROADMAP.md)")
+                f"remhos_torch: {why} is not ported yet (ROADMAP.md)")
+        why = solver_rejected(cfg)
+        if why is not None:
+            raise ValueError(why)
         self.disc = disc
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and (
+                torch.backends.cuda.matmul.allow_tf32
+                or torch.get_float32_matmul_precision() != "highest"):
+            raise RuntimeError(
+                "remhos_torch: TF32 matmuls are on; every product of the "
+                "port runs in true float32 (remhos_torch/__init__.py)")
         mesh = disc.mesh
         self.shape, self.periodic = mesh.shape, mesh.periodic
 
@@ -162,14 +199,17 @@ class Advection:
         self._inf = torch.full((), INF, dtype=dtype, device=self.device)
         self._no_viol = torch.zeros((), dtype=torch.int32,
                                     device=self.device)
-        # solves and iterations of the non-fused stage's global CG (the
-        # fused stage solves inside its kernels and leaves them 0)
+        # solves and iterations of the non-fused stages' CGs (the fused
+        # stage solves inside its kernels and leaves them 0)
         self.cg_stats = dict(solves=0, iterations=0)
+        # the bounds stencils' mesh tables, where compute_bounds reads them
+        self._bounds_topo = (None if cfg.bounds_type == 0 else
+                             dmm.bounds_topology(mesh, disc.p, self.device))
         # the reference's gate (its `_fused_stage`): the canonical remap
         # family runs the fused stage kernels, everything else the
         # composition of geom_conv (or, in transport, conv_action) with
         # plain PyTorch
-        self._fused_stage = (cfg.exec_mode == 1 and cfg.ho == 3
+        self._fused_stage = (cfg.pa and cfg.exec_mode == 1 and cfg.ho == 3
                              and cfg.lo in (0, 5) and cfg.fct in (0, 2))
         if self._fused_stage:
             self._stage_tables = tbl.stage_ho_tables(disc, dtype,
@@ -184,11 +224,10 @@ class Advection:
             self._init_nonfused(T, inflow)
 
     def _init_nonfused(self, T, inflow):
-        """Static tables of the non-fused stage; in transport mode also its
-        whole geometry."""
+        """Static tables of the non-fused and assembled stages; in transport
+        mode also their whole geometry."""
         disc, dev = self.disc, self.device
         self.Bface, self.w_fq = T(disc.Bface), T(disc.w_fq)
-        self.Bgl, self.A_gl2b = T(disc.Bgl), T(disc.A_gl2b)
         self.bdr_dofs = torch.as_tensor(disc.dofmaps.bdr_dofs,
                                         dtype=torch.long, device=dev)
         Gt, sign = geo.face_tangent_tables(disc.Gmf, disc.n_ref)
@@ -203,19 +242,46 @@ class Advection:
                                             dtype=torch.long, device=dev)
             self._q1_grads = T(subm.q1_center_grads(disc.dim))
             self._subcell_nodes = subm.subcell_node_setup(self)
+        if not self.cfg.pa:
+            self._init_assembled(T)
+            return
+        self.Bgl, self.A_gl2b = T(disc.Bgl), T(disc.A_gl2b)
         if self.cfg.exec_mode == 0:
             self.Gu = T(disc.Gu)
             self.Bu_w = self.Bu * self.w_q[:, None]
             self._transport_geom = self._transport_geometry(T)
             return
         self._gc_tables = geom_conv_tables(disc, self.dtype, dev)
-        # the mesh velocity does not depend on time, so its interpolation to
-        # the face points is made once (the reference reassembles it every
-        # stage, remhos.cpp:1612-1643)
-        nf, Qf, nm = disc.Bmf.shape
-        self._v_fq_static = geo.interp_nodes(
-            self.v_nodes, T(disc.Bmf.reshape(nf * Qf, nm))).reshape(
+        self._v_fq_static = self._face_velocity(T)
+
+    def _face_velocity(self, T):
+        """The remap mesh velocity at the face points [E, nf, Qf, dim]. It
+        does not depend on time, so it is made once (the reference
+        reassembles it every stage, remhos.cpp:1612-1643)."""
+        nf, Qf, nm = self.disc.Bmf.shape
+        return geo.interp_nodes(
+            self.v_nodes, T(self.disc.Bmf.reshape(nf * Qf, nm))).reshape(
                 self.v_nodes.shape[0], nf, Qf, -1)
+
+    def _velocity(self, pts):
+        """A transport problem's velocity at points of the working dtype,
+        evaluated in f64 and cast back, as the JAX package does."""
+        mesh = self.disc.mesh
+        return prob.velocity_function(self.cfg.problem, pts.double(),
+                                      mesh.bb_min, mesh.bb_max).to(self.dtype)
+
+    def _init_assembled(self, T):
+        """Static tables of the assembled stage: the volume and face bases
+        and, in remap, the mesh velocity at the volume and face points; in
+        transport the whole stage geometry, assembled once."""
+        disc = self.disc
+        self.Gu, self.Bm, self.Gm = T(disc.Gu), T(disc.Bm), T(disc.Gm)
+        self.Bmf = T(disc.Bmf)
+        if self.cfg.exec_mode == 1:
+            self._v_q_static = geo.interp_nodes(self.v_nodes, self.Bm)
+            self._v_fq_static = self._face_velocity(T)
+        else:
+            self._assembled_geom = self._assemble(0.0)
 
     def _transport_geometry(self, T):
         """The transport stage's geometry (remhos_tpu/operator.py:270-302),
@@ -223,18 +289,12 @@ class Advection:
         at the working dtype's points and cast back, as the JAX package
         does. v.n and adj J v are elementwise products summed over the last
         axis."""
-        disc, cfg, mesh = self.disc, self.cfg, self.disc.mesh
+        disc, cfg = self.disc, self.cfg
         x = self.x0_nodes
         vol = geo.volume_geometry(x, T(disc.Bm), T(disc.Gm))
         x_fq, nor = geo.face_geometry_tangent(x, T(disc.Bmf),
                                               *self._face_tan)
-
-        def velocity(pts):
-            return prob.velocity_function(cfg.problem, pts.double(),
-                                          mesh.bb_min, mesh.bb_max).to(
-                                              self.dtype)
-
-        v_q, v_fq = velocity(vol["x_q"]), velocity(x_fq)
+        v_q, v_fq = self._velocity(vol["x_q"]), self._velocity(x_fq)
         wdet = self.w_q[None, :] * vol["detJ"]
         va = -(v_q[:, :, None, :] * vol["adjJ"]).sum(-1)
         vn = (v_fq * nor).sum(-1)
@@ -270,9 +330,15 @@ class Advection:
         wdet kernel launch with ml and detJ, and for `-lo 4` the subcell
         weights. J, adj J and va stay inside `geom_conv`, per field.
 
-        Transport: the one static geometry made at construction."""
+        Transport: the one static geometry made at construction.
+
+        Assembled stage: `_assemble(t)` (in transport made once)."""
         if self._fused_stage:
             return dict(t=t)
+        if not self.cfg.pa:
+            if self.cfg.exec_mode == 0:
+                return self._assembled_geom
+            return self._assemble(t)
         if self.cfg.exec_mode == 0:
             return self._transport_geom
         xs = self.x0_nodes + t * self.v_nodes
@@ -282,6 +348,46 @@ class Advection:
         geom = dict(t=t, xs=xs, wvn=wvn)
         self._set_wdet(geom, wdet_kernel(xs, self._wdet_tables))
         if self.cfg.lo == 4:
+            geom["sub_w"] = subm.subcell_weights(self, t)
+        return geom
+
+    def _assemble(self, t):
+        """The assembled stage geometry at time t (remhos.cpp:1598-1676;
+        remhos_tpu/operator.py:270-319): detJ, K_elem, bdrInt, M, ml; chol_L
+        for -ho 3; D for -lo 1|2; sub_w for -lo 4. The JAX package also
+        factors M for every FCT, where nothing reads the factors: the port
+        does not, and so runs the rows whose mesh tangles late in the
+        pseudo-time (readme-run11-cube3d: M is indefinite there, which
+        `torch.linalg.cholesky` refuses and XLA's Cholesky turns into NaN
+        factors that nothing reads)."""
+        cfg = self.cfg
+        if cfg.exec_mode == 1:
+            x = self.x0_nodes + t * self.v_nodes
+        else:
+            x = self.x0_nodes
+        vol = geo.volume_geometry(x, self.Bm, self.Gm)
+        x_fq, nor = geo.face_geometry_tangent(x, self.Bmf, *self._face_tan)
+        if cfg.exec_mode == 0:
+            v_q, v_fq = self._velocity(vol["x_q"]), self._velocity(x_fq)
+            sign = -1.0
+        else:
+            v_q, v_fq = self._v_q_static, self._v_fq_static
+            sign = 1.0
+        K_elem = asm.element_convection(v_q, vol["adjJ"], self.Bu, self.Gu,
+                                        self.w_q, sign)
+        bdrInt = asm.face_upwind_matrices(v_fq, nor, self.w_fq, self.Bface,
+                                          cfg.exec_mode)
+        M = asm.element_mass(vol["detJ"], self.Bu, self.w_q)
+        geom = dict(detJ=vol["detJ"], K_elem=K_elem, bdrInt=bdrInt, M=M,
+                    ml=asm.lumped_mass(M))
+        if cfg.ho == 3:
+            geom["chol_L"] = hom.mass_cholesky(M)
+        if cfg.lo == 1:
+            geom["D"] = lom.discrete_upwind_matrix(K_elem)
+        elif cfg.lo == 2:
+            geom["D"] = lom.discrete_upwind_matrix(
+                lom.precond_convection_matrix(K_elem, M))
+        elif cfg.lo == 4:
             geom["sub_w"] = subm.subcell_weights(self, t)
         return geom
 
@@ -311,7 +417,7 @@ class Advection:
         """wdet/detJ/ml normally arrive as by-products of the HO stage
         kernel; if `limit_mult` or `lumped_mass` runs before any has
         (stand-alone), the wdet kernel derives them from the nodes."""
-        if "wdet" not in geom:
+        if self._fused_stage and "wdet" not in geom:
             xs = self.x0_nodes + geom["t"] * self.v_nodes
             self._set_wdet(geom, wdet_kernel(xs, self._wdet_tables))
         return geom
@@ -337,6 +443,8 @@ class Advection:
         """The HO solution du_HO[E, nd] of one field at the stage geometry."""
         if self._fused_stage:
             return self._stage_ho_fused(geom, u)
+        if not self.cfg.pa:
+            return self._ho_solution_assembled(geom, u)
         u_nbr = self.gather_nbr(u)
         contrib = pam.face_full_apply(asm.gather_face(u, self.bdr_dofs),
                                       u_nbr, self.Bface, geom["wvn"])
@@ -347,6 +455,23 @@ class Advection:
                                      self.A_gl2b, stats=self.cg_stats)
         return pam.mass_solve_bern(Ku, geom["wdet"], self.Bu,
                                    stats=self.cg_stats)
+
+    def _ho_solution_assembled(self, geom, u):
+        """-ho 2|3: K_HO u with zero neighbour values on physical
+        boundaries, then the CG or the Cholesky mass solve; -ho 1: the
+        element K u plus the full face terms with the inflow on physical
+        boundaries, then the Neumann iteration."""
+        K, bdrInt, bdr = geom["K_elem"], geom["bdrInt"], self.bdr_dofs
+        if self.cfg.ho in (2, 3):
+            Ku = asm.apply_K_HO(u, K, bdrInt, self.gather_nbr(u), bdr)
+            if self.cfg.ho == 3:
+                return hom.local_inverse(Ku, geom["chol_L"])
+            return hom.cg_mass_solve(geom["M"], Ku, stats=self.cg_stats)
+        contrib = asm.face_term_full(asm.gather_face(u, bdr),
+                                     self.gather_nbr(u, self.inflow_face),
+                                     bdrInt)
+        rhs = asm.scatter_face_add(asm.matvec(K, u), contrib, bdr)
+        return hom.neumann(u, rhs, geom["M"], geom["ml"])
 
     def lo_solution(self, geom, u, du_HO=None, dt=None):
         """The LO solution du_LO[E, nd] of one field at the stage geometry."""
@@ -361,6 +486,16 @@ class Advection:
                 du_HO = self.ho_solution(geom, u)
             return lom.mass_based_avg(u, du_HO, dt, geom["detJ"], self.w_q,
                                       self.Bu)
+        if not cfg.pa:
+            u_nbr = self.gather_nbr(u, self.inflow_face)
+            if cfg.lo in (1, 2):
+                return lom.discrete_upwind(u, u_nbr, geom["D"],
+                                           geom["bdrInt"], geom["ml"],
+                                           self.bdr_dofs)
+            return lom.residual_distribution(
+                u, u_nbr, geom["K_elem"], geom["bdrInt"], geom["ml"],
+                self.bdr_dofs, subcell=cfg.lo == 4,
+                subcell_weights=geom.get("sub_w"), sub2ind=self._sub2ind)
         if cfg.lo in (3, 4):
             # residual distribution: the same K u once more (IDP recombines
             # du_HO between the halves, so nothing is kept from the HO
@@ -380,10 +515,15 @@ class Advection:
         raise ValueError("no LO solver selected")
 
     def compute_bounds(self, el_min, el_max, active_el=None):
-        """Per-dof bounds from the overlap stencil."""
-        return strm.overlap_bounds_structured(
-            el_min, el_max, self.shape, self.periodic, self.disc.p,
-            active_el=active_el, masks=self.masks, cls=self._cls)
+        """Per-dof bounds (remhos_tpu/operator.py:371-380): at -bt 0 the
+        overlap stencil by the structured separable pass, at -bt 1 the
+        sparsity stencil (expanded views of one value per element)."""
+        if self.cfg.bounds_type == 0:
+            return strm.overlap_bounds_structured(
+                el_min, el_max, self.shape, self.periodic, self.disc.p,
+                active_el=active_el, masks=self.masks, cls=self._cls)
+        return bnd.compute_bounds(el_min, el_max, self._bounds_topo,
+                                  self.cfg.bounds_type, active_el=active_el)
 
     def _dt_ratio(self, u, du, x_min, x_max, dt):
         """LO-bounds dt estimate (remhos.cpp:1968-1998): largest dt keeping
@@ -457,16 +597,29 @@ class Advection:
         return torch.stack(outs), self._aux(ratio, viol)
 
     def _fct_solution(self, geom, u, du_HO, du_LO, x_min, x_max, dt):
-        if self.cfg.fct != 2:
-            raise ValueError(f"unsupported fct type {self.cfg.fct}")
-        return fctm.clip_scale(u, geom["ml"], du_HO, du_LO, x_min, x_max, dt)
+        fct = self.cfg.fct
+        if fct == 2:
+            return fctm.clip_scale(u, geom["ml"], du_HO, du_LO, x_min, x_max,
+                                   dt)
+        if fct == 4:
+            return fctm.element_fct_projection(u, du_HO, du_LO, x_min, x_max,
+                                               geom["M"], dt)
+        if fct == 1:
+            return fct_flux.flux_based_fct(self, geom, u, du_HO, du_LO,
+                                           x_min, x_max, dt)
+        if fct == 3:
+            return fct_penalty.nonlinear_penalty(self, geom, u, du_HO, du_LO,
+                                                 x_min, x_max, dt)
+        raise ValueError(f"unsupported fct type {fct}")
 
     def _limit_product(self, geom, t, dt, S, dS, d_u_limited):
         """Product-field block of LimitMult (remhos.cpp:1848-1915).
-        Returns (d_us, violation_count). ClipScale needs no LO product
-        input (only FluxBasedFCT does)."""
+        Returns (d_us, violation_count). Only FluxBasedFCT takes the LO
+        solution of us as input (NeedsLOProductInput)."""
         us, d_us_HO = S[1], dS[1]
         u = S[0]
+        d_us_LO = (self.lo_solution(geom, us, du_HO=d_us_HO, dt=dt)
+                   if self.cfg.fct == 1 else None)
 
         # s = us/u on old active dofs; bounds for s on the active stencil
         s, s_el, s_dofs = syncm.compute_ratio(us, u)
@@ -478,15 +631,16 @@ class Advection:
         u_new = u + dt * d_u_limited
         el_new, dofs_new = syncm.bool_indicators(u_new)
 
-        return self._fct_product(geom, us, d_us_HO, s_min, s_max, u_new,
-                                 el_new, dofs_new, dt)
+        return self._fct_product(geom, us, d_us_HO, d_us_LO, s_min, s_max,
+                                 u_new, el_new, dofs_new, dt)
 
-    def _fct_product(self, geom, us, d_us_HO, s_min, s_max, u_new,
+    def _fct_product(self, geom, us, d_us_HO, d_us_LO, s_min, s_max, u_new,
                      active_el, active_dofs, dt):
-        """CalcFCTProduct of ClipScale (remhos_fct.cpp:543-566). Returns
-        (d_us, violations)."""
+        """CalcFCTProduct of the ClipScale, element-projection and
+        flux-based solvers (remhos_fct.cpp:183-262, 543-566, 733-758).
+        Returns (d_us, violations)."""
         cfg = self.cfg
-        if cfg.fct != 2:
+        if cfg.fct not in (1, 2, 4):
             raise ValueError(f"unsupported fct product type {cfg.fct}")
         m = geom["ml"]
         dus_lo_fct, s_min, s_max, viol = fctm.calc_compatible_lo_product(
@@ -495,10 +649,19 @@ class Advection:
             viol = self._no_viol
         us_min, us_max = fctm.scale_product_bounds(s_min, s_max, u_new,
                                                    active_el, active_dofs)
-        d_us = fctm.clip_scale(us, m, d_us_HO, dus_lo_fct, us_min, us_max, dt)
+        if cfg.fct == 2:
+            d_us = fctm.clip_scale(us, m, d_us_HO, dus_lo_fct, us_min, us_max,
+                                   dt)
+        elif cfg.fct == 4:
+            d_us = fctm.element_fct_projection(us, d_us_HO, dus_lo_fct,
+                                               us_min, us_max, geom["M"], dt)
+        else:
+            d_us = fct_flux.flux_based_fct_product(
+                self, geom, us, d_us_HO, d_us_LO, dus_lo_fct, s_min, s_max,
+                us_min, us_max, u_new, active_el, active_dofs, dt)
         d_us = syncm.zero_out_empty_dofs(active_el, active_dofs, d_us)
         if cfg.verify_bounds:
-            # final product bounds check (remhos_fct.cpp:568-610)
+            # final product bounds check (remhos_fct.cpp:264-292, 568-610)
             viol = viol + vfy.check_final_us(us, dt, d_us, us_min, us_max,
                                              active_el, active_dofs)
         return d_us, viol
@@ -528,14 +691,23 @@ class Advection:
     def _mega_stage(self, t, dt, S):
         """The limited stage of a single field: bounds and gather (functions
         of u alone) as torch glue, then HO + LO + lumped mass + ClipScale in
-        one kernel. aux is None: the constant [inf, 0]."""
+        one kernel. At -bt 0 the bounds are the class-major overlap stencil,
+        otherwise `compute_bounds`' per-dof bounds, made contiguous for the
+        kernel's per-dof variant (remhos_tpu/operator.py:713-737). aux is
+        None: the constant [inf, 0]."""
         u = S[0]
         el_min, el_max = bnd.elements_min_max(u)
-        smin, smax = strm.overlap_stencil_T(el_min, el_max, self.shape,
-                                            self.periodic, self.masks)
         u_nbr = self.gather_nbr(u).reshape(u.shape[0], -1)
-        du = mega_stage(t, dt, u, u_nbr, smin, smax, self._poly,
-                        self._stage_tables)
+        if self.cfg.bounds_type == 0:
+            smin, smax = strm.overlap_stencil_T(el_min, el_max, self.shape,
+                                                self.periodic, self.masks)
+            du = mega_stage(t, dt, u, u_nbr, smin, smax, self._poly,
+                            self._stage_tables)
+        else:
+            x_min, x_max = self.compute_bounds(el_min, el_max)
+            du = mega_stage(t, dt, u, u_nbr, x_min.contiguous(),
+                            x_max.contiguous(), self._poly,
+                            self._stage_tables, bounds="dof")
         return du[None], None
 
     def stage_function(self):

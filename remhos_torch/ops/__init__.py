@@ -2,7 +2,9 @@
 PyTorch version), and their setup-time tables.
 
 `KERNELS` names the seven wrappers; each wrapper's `.launches` counts the
-launches of its kernel, and only those."""
+launches of its kernel, and only those. A kernel with compile-time variants
+(kernel 1's bounds layouts) also counts each variant's launches in
+`.variant_launches`."""
 
 from __future__ import annotations
 
@@ -23,6 +25,14 @@ def launch_counts() -> dict:
     return {n: w.launches for n, w in wrappers().items()}
 
 
+def variant_counts() -> dict:
+    """{name: {variant: launches so far}} of the kernels with variants."""
+    return {n: dict(w.variant_launches) for n, w in wrappers().items()
+            if hasattr(w, "variant_launches")}
+
+
 def reset_launch_counts():
     for w in wrappers().values():
         w.launches = 0
+        if hasattr(w, "variant_launches"):
+            w.variant_launches = dict.fromkeys(w.variant_launches, 0)

@@ -113,18 +113,21 @@ def ptxas_report(name: str) -> dict[str, str]:
     ptxas log: {"<scalar type> dim <d>[ sizes <a,b,...>]": "<spill line>;
     <register line>"}. The template arguments are read off the mangled entry
     name (`...kernelIfLi3ELi4ELi6EE...` is <float, 3, 4, 6>: dim 3, sizes
-    4,6, the compiled 1D sizes, 0 for the runtime-size code; the gather's
-    element types are unsigned integers of 2, 4 or 8 bytes)."""
+    4,6, the compiled 1D sizes, 0 for the runtime-size code; a bool
+    argument, as kernel 1's per-dof-bounds flag, is listed as `flags`; the
+    gather's element types are unsigned integers of 2, 4 or 8 bytes)."""
     log = library_path(name).with_suffix(".log").read_text()
     out, key = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            t = re.search(r"I([fdtjm])((?:Li\d+E)*)", m.group(1))
+            t = re.search(r"I([fdtjm])((?:L[ib]\d+E)*)", m.group(1))
             ints = re.findall(r"Li(\d+)E", t.group(2)) if t else []
+            flags = re.findall(r"Lb(\d+)E", t.group(2)) if t else []
             key = (_ENTRY_TYPES[t.group(1)]
                    + (f" dim {ints[0]}" if ints else "")
                    + (f" sizes {','.join(ints[1:])}" if ints[1:] else "")
+                   + (f" flags {','.join(flags)}" if flags else "")
                    if t else m.group(1))
             out[key] = ""
         elif key is not None and ("registers" in ln or "spill" in ln):
@@ -146,13 +149,15 @@ def load(name: str) -> ctypes.CDLL:
 
 def bind(lib: ctypes.CDLL, fn: str, argtypes) -> ctypes.CDLL:
     """Set the argument types of the library's launch function `fn` and of
-    its error-string function, once."""
-    if not getattr(lib, "_remhos_bound", False):
+    its error-string function, once per function (a library may have
+    several entries)."""
+    bound = lib.__dict__.setdefault("_remhos_bound", set())
+    if fn not in bound:
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
         lib.remhos_cuda_error_string.argtypes = [ctypes.c_int]
         lib.remhos_cuda_error_string.restype = ctypes.c_char_p
-        lib._remhos_bound = True
+        bound.add(fn)
     return lib
 
 

@@ -17,9 +17,15 @@
 //      average uses sum_j ml_j (u + dt du_HO)_j / sum_j ml_j, which equals
 //      the reference's sum_q wdet_q (Bu (u + dt du_HO))_q exactly in real
 //      arithmetic (ml = wdet Bu, and Bernstein is a partition of unity);
-//   6. the class-major bounds stencil [3^dim, E] expanded to dofs by an
-//      index lookup (cls), then ClipScale (eps 1e-15) over the element's
-//      nd dofs;
+//   6. the bounds, then ClipScale (eps 1e-15) over the element's nd dofs.
+//      Two layouts, one compile-time variant each, one C entry each:
+//      - remhos_mega_stage: the class-major overlap stencil [3^dim, E] of
+//        `-bt 0` on a structured mesh, staged per tile in shared memory
+//        and expanded to dofs by an index lookup (cls);
+//      - remhos_mega_stage_dof: per-dof bounds [E, nd] (`-bt 1`, and the
+//        JAX kernel's bounds_stencil=False), read straight from global
+//        memory in the ClipScale step, coalesced along the dofs; no
+//        staging, no cls;
 //   7. writes only the limited du [E, nd].
 //
 // What bounds it on the H100: at N=24, p=3, f32, one launch reads about
@@ -27,7 +33,9 @@
 // 3.35 TB/s. The function needs ~25k multiply-adds per element with every
 // tensor-product contraction sum-factorized, ~10 us at ~67 TFLOP/s f32: it
 // is bound by bytes. In f64 (8 sweeps) the bytes double to ~413 MB (~123
-// us) and still bound.
+// us) and still bound. The per-dof variant reads 2 nd values per element
+// for the bounds instead of 2 * 3^dim: +4.1 MB in f32 (+8.2 MB in f64) at
+// N=24, p=3, ~2% more bytes.
 //
 // The first version contracted with the dense tables (~143k multiply-adds
 // per element, one shared-memory load each, ~0.5 MB of tables from L2 per
@@ -62,14 +70,20 @@ struct Args {
   CoreArgs<T> c;
   PolyGeom<T, DIM> g;
   CoreLayout L;
-  const T* smin;    // [ncls, E] class-major bounds stencil
+  const T* smin;    // [ncls, E] class-major stencil, or [E, nd] per dof
   const T* smax;
-  const int* cls;   // [nd]
+  const int* cls;   // [nd] (the stencil layout only)
   T* du;            // [E, nd] out
   T dt;
 };
 
-template <typename T, int DIM, int DT, int QT>
+// shared values per element beyond the core's: the staged stencil
+template <int DIM, bool DOF>
+__host__ __device__ constexpr int stencil_slots() {
+  return DOF ? 0 : 2 * (DIM == 3 ? 27 : 9);
+}
+
+template <typename T, int DIM, int DT, int QT, bool DOF>
 __global__ void __launch_bounds__(NT, min_blocks<T>())
 mega_stage_kernel(const __grid_constant__ Args<T, DIM> a) {
   constexpr int NCLS = DIM == 3 ? 27 : 9;
@@ -77,9 +91,10 @@ mega_stage_kernel(const __grid_constant__ Args<T, DIM> a) {
   T* sm = reinterpret_cast<T*>(smem_raw);
   const CoreLayout& L = a.L;
   const int te = a.c.te, nd = a.c.nd, E = a.c.E;
-  T* s_min = sm + L.end;           // [te][NCLS]
-  T* s_max = s_min + te * NCLS;
-  T* s_red = s_max + te * NCLS;    // [4][te]: mass, vol, sum_neg, sum_pos
+  T* s_min = sm + L.end;           // [te][NCLS] (stencil layout)
+  T* s_max = s_min + (DOF ? 0 : te * NCLS);
+  T* s_red = sm + L.end + te * stencil_slots<DIM, DOF>();  // [4][te]:
+                                   // mass, vol, sum_neg, sum_pos
   const T* s_u = sm + L.u;
   const T* s_ml = sm + L.ml;
   T* s_f = sm + L.b;               // free after the core: the flux
@@ -94,11 +109,13 @@ mega_stage_kernel(const __grid_constant__ Args<T, DIM> a) {
     const int ne = min(te, E - e_base);
 
     // the tile's bounds stencil (the core's first barrier covers it)
-    for (int idx = tid; idx < NCLS * te; idx += NT) {
-      const int c = idx / te, e = idx - c * te;
-      const size_t g = (size_t)c * E + e_base + e;
-      s_min[e * NCLS + c] = e < ne ? a.smin[g] : T(0);
-      s_max[e * NCLS + c] = e < ne ? a.smax[g] : T(0);
+    if constexpr (!DOF) {
+      for (int idx = tid; idx < NCLS * te; idx += NT) {
+        const int c = idx / te, e = idx - c * te;
+        const size_t g = (size_t)c * E + e_base + e;
+        s_min[e * NCLS + c] = e < ne ? a.smin[g] : T(0);
+        s_max[e * NCLS + c] = e < ne ? a.smax[g] : T(0);
+      }
     }
 
     // 1-4. du_HO and ml = wdet Bu (stage_core.cuh)
@@ -115,14 +132,24 @@ mega_stage_kernel(const __grid_constant__ Args<T, DIM> a) {
     __syncthreads();
 
     // MassBasedAvg LO and the clipped antidiffusive flux
+    const size_t g0 = (size_t)e_base * nd;
     for (int i = tid; i < te * nd; i += NT) {
       const int e = i / nd, j = i - e * nd;
       const T u = s_u[i], ml = s_ml[i];
       const T du_lo = (s_red[e] / s_red[te + e] - u) / dt;
-      const int c = __ldg(a.cls + j);
+      T x_min, x_max;
+      if constexpr (DOF) {
+        // the tile's dofs are contiguous in [E, nd]: coalesced reads
+        x_min = e < ne ? __ldg(a.smin + g0 + i) : T(0);
+        x_max = e < ne ? __ldg(a.smax + g0 + i) : T(0);
+      } else {
+        const int c = __ldg(a.cls + j);
+        x_min = s_min[e * NCLS + c];
+        x_max = s_max[e * NCLS + c];
+      }
       const T u_new_lo = u + dt * du_lo;
-      const T f_min = ml / dt * (s_min[e * NCLS + c] - u_new_lo);
-      const T f_max = ml / dt * (s_max[e * NCLS + c] - u_new_lo);
+      const T f_min = ml / dt * (x_min - u_new_lo);
+      const T f_max = ml / dt * (x_max - u_new_lo);
       const T f = ml * (s_du[i] - du_lo);
       const T f_lo = f_min > f ? f_min : f;          // max(f_min, f)
       s_f[i] = f_max < f_lo ? f_max : f_lo;          // min(f_max, .)
@@ -156,22 +183,21 @@ mega_stage_kernel(const __grid_constant__ Args<T, DIM> a) {
   }
 }
 
-template <typename T, int DIM, int DT, int QT>
+template <typename T, int DIM, int DT, int QT, bool DOF>
 int launch_sized(const Args<T, DIM>& a, size_t smem, cudaStream_t stream) {
   const void* fn = reinterpret_cast<const void*>(
-      &mega_stage_kernel<T, DIM, DT, QT>);
+      &mega_stage_kernel<T, DIM, DT, QT, DOF>);
   int grid = 0;
   const int rc = persistent_grid(fn, smem, (a.c.E + a.c.te - 1) / a.c.te,
                                  &grid);
   if (rc != 0) return rc;
-  mega_stage_kernel<T, DIM, DT, QT><<<grid, NT, smem, stream>>>(a);
+  mega_stage_kernel<T, DIM, DT, QT, DOF><<<grid, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DIM>
+template <typename T, int DIM, bool DOF>
 int launch(const void* const* p, double t, double dt, const int* sz,
            cudaStream_t stream) {
-  constexpr int NCLS = DIM == 3 ? 27 : 9;
   Args<T, DIM> a;
   fill_core_args(a.c, p, sz);
   a.g = poly_geom<T, DIM>(p, t, sz);
@@ -186,16 +212,29 @@ int launch(const void* const* p, double t, double dt, const int* sz,
   if (rc != 0) return rc;
   a.c.need_ml = 1;
   size_t smem = 0;
-  a.c.te = tile_elements(DIM, a.c.D, a.c.Q1, a.c.nf, sizeof(T), 2 * NCLS,
-                         &a.L, &smem);
+  a.c.te = tile_elements(DIM, a.c.D, a.c.Q1, a.c.nf, sizeof(T),
+                         stencil_slots<DIM, DOF>(), &a.L, &smem);
   smem += 4 * a.c.te * sizeof(T);    // s_red
   if (smem > SMEM_MAX) return -3;
+  constexpr int QX = DIM == 3 ? 2 : 1;
   switch (size_case(DIM, a.c.D, a.c.Q1)) {
-    case 3: return launch_sized<T, DIM, 3, 3 + (DIM == 3 ? 2 : 1)>(a, smem, stream);
-    case 4: return launch_sized<T, DIM, 4, 4 + (DIM == 3 ? 2 : 1)>(a, smem, stream);
-    case 5: return launch_sized<T, DIM, 5, 5 + (DIM == 3 ? 2 : 1)>(a, smem, stream);
-    default: return launch_sized<T, DIM, 0, 0>(a, smem, stream);
+    case 3: return launch_sized<T, DIM, 3, 3 + QX, DOF>(a, smem, stream);
+    case 4: return launch_sized<T, DIM, 4, 4 + QX, DOF>(a, smem, stream);
+    case 5: return launch_sized<T, DIM, 5, 5 + QX, DOF>(a, smem, stream);
+    default: return launch_sized<T, DIM, 0, 0, DOF>(a, smem, stream);
   }
+}
+
+template <bool DOF>
+int entry(int dtype_bytes, int dim, const void* const* ptrs, int nptrs,
+          double t, double dt, const int* sizes, int nsizes, void* stream) {
+  if (nptrs != N_CORE_PTRS + 4 || nsizes != N_CORE_SIZES) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype_bytes == 4 && dim == 3) return launch<float, 3, DOF>(ptrs, t, dt, sizes, s);
+  if (dtype_bytes == 8 && dim == 3) return launch<double, 3, DOF>(ptrs, t, dt, sizes, s);
+  if (dtype_bytes == 4 && dim == 2) return launch<float, 2, DOF>(ptrs, t, dt, sizes, s);
+  if (dtype_bytes == 8 && dim == 2) return launch<double, 2, DOF>(ptrs, t, dt, sizes, s);
+  return -2;
 }
 
 }  // namespace
@@ -205,16 +244,20 @@ extern "C" {
 // ptrs: the core's 6 device pointers (u, u_nbr, P, sf, bdr, dof_faces), then
 // smin, smax, cls, du; sizes: E, nd, Q, Qf, nf, fd, n_cg, D, Q1. Returns 0,
 // a CUDA error code (> 0), or < 0 for a bad argument.
+// smin/smax: the class-major stencil [3^dim, E], cls its dof classes [nd].
 int remhos_mega_stage(int dtype_bytes, int dim, const void* const* ptrs,
                       int nptrs, double t, double dt, const int* sizes,
                       int nsizes, void* stream) {
-  if (nptrs != N_CORE_PTRS + 4 || nsizes != N_CORE_SIZES) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype_bytes == 4 && dim == 3) return launch<float, 3>(ptrs, t, dt, sizes, s);
-  if (dtype_bytes == 8 && dim == 3) return launch<double, 3>(ptrs, t, dt, sizes, s);
-  if (dtype_bytes == 4 && dim == 2) return launch<float, 2>(ptrs, t, dt, sizes, s);
-  if (dtype_bytes == 8 && dim == 2) return launch<double, 2>(ptrs, t, dt, sizes, s);
-  return -2;
+  return entry<false>(dtype_bytes, dim, ptrs, nptrs, t, dt, sizes, nsizes,
+                      stream);
+}
+
+// The same with per-dof bounds smin/smax [E, nd], contiguous; cls unread.
+int remhos_mega_stage_dof(int dtype_bytes, int dim, const void* const* ptrs,
+                          int nptrs, double t, double dt, const int* sizes,
+                          int nsizes, void* stream) {
+  return entry<true>(dtype_bytes, dim, ptrs, nptrs, t, dt, sizes, nsizes,
+                     stream);
 }
 
 const char* remhos_cuda_error_string(int code) {

@@ -8,9 +8,24 @@ inverse, MassBasedAvg LO, lumped mass, ClipScale) with only the limited du
 written to memory. The kernel is `csrc/mega_stage.cu` (CUDA C++, sm_90a),
 built by nvcc at first use and called through ctypes.
 
+Two bounds layouts, one compile-time variant of the kernel and one C entry
+each (`bounds=`):
+
+- "T": the class-major overlap stencil smin/smax[3^dim, E] of `-bt 0` on a
+  structured mesh (the JAX kernel's bounds_stencil="T"), expanded to dofs
+  through the dof classes `cls` of the tables;
+- "dof": per-dof bounds smin/smax[E, nd] (`-bt 1`: `bounds.sparsity_bounds`;
+  the JAX kernel's bounds_stencil=False), contiguous on the card.
+
+The JAX kernel's element-major stencil [E, 3^dim] (bounds_stencil=True,
+reached through its sharded operator and an A/B knob) is not ported
+(ROADMAP.md Queue 2, item 1).
+
 On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor,
 and only then, it runs `mega_stage_reference`, the plain PyTorch version of
 the same function built from `lo.mass_based_avg` and `fct.clip_scale`.
+`mega_stage.launches` counts the launches of both variants (the trace names
+them alike), `mega_stage.variant_launches` each one's.
 """
 
 from __future__ import annotations
@@ -25,56 +40,71 @@ from .stage_core import default_sweeps  # noqa: F401  (part of this API)
 OPERANDS = core.CORE_OPERANDS + ("smin", "smax", "cls", "du")
 STATIC = ("sf", "bdr", "dof_faces", "cls")
 NAMES = ("u", "u_nbr", "P", "smin", "smax")       # the per-call operands
+# the C entry of each bounds layout
+ENTRIES = {"T": "remhos_mega_stage", "dof": "remhos_mega_stage_dof"}
 
 
-def mega_stage_reference(t, dt, u, u_nbr, smin, smax, P, tables, n_cg):
+def mega_stage_reference(t, dt, u, u_nbr, smin, smax, P, tables, n_cg,
+                         bounds="T"):
     """Plain PyTorch version of the kernel, on any device.
 
     t, dt: stage time and limiter dt (rounded to u's dtype, as the kernel
-    takes them); u[E, nd]; u_nbr[E, nf*fd]; smin/smax[3^dim, E] class-major
-    stencil; P[E, width] (tables.poly_layout); tables from
-    tables.stage_ho_tables."""
+    takes them); u[E, nd]; u_nbr[E, nf*fd]; smin/smax: the class-major
+    stencil [3^dim, E] (bounds "T") or per-dof bounds [E, nd] ("dof");
+    P[E, width] (tables.poly_layout); tables from tables.stage_ho_tables.
+    Both layouts end in the same ClipScale: the stencil's expansion
+    smin[cls].T fed as per-dof bounds gives the "T" result bit for bit."""
     tb = tables
     t, dt = core.as_dtype(t, u.dtype), core.as_dtype(dt, u.dtype)
     du_ho, wdet = core.poly_stage_core_reference(t, u, u_nbr, P, tb, n_cg)
     w_q = tb["w_q"]
     du_lo = lo.mass_based_avg(u, du_ho, dt, wdet / w_q, w_q, tb["Bu"])
     ml = wdet @ tb["Bu"]
-    cls = tb["cls"].long()
-    return fct.clip_scale(u, ml, du_ho, du_lo, smin[cls].T, smax[cls].T, dt)
+    if bounds == "T":
+        cls = tb["cls"].long()
+        smin, smax = smin[cls].T, smax[cls].T
+    return fct.clip_scale(u, ml, du_ho, du_lo, smin, smax, dt)
 
 
-def _check(u, u_nbr, smin, smax, P, tables):
-    """Raise on a dtype, shape or device the kernel does not take (the
-    static tables are checked once, where they are built)."""
+def _check(u, u_nbr, smin, smax, P, tables, bounds):
+    """Raise on a bounds layout, dtype, shape or device the kernel does not
+    take (the static tables are checked once, where they are built). On the
+    card every operand must be contiguous: per-dof bounds broadcast from
+    one value per element (an expanded view, stride 0) are refused."""
+    if bounds not in ENTRIES:
+        raise ValueError(f"mega_stage: bounds must be one of "
+                         f"{sorted(ENTRIES)}, got {bounds!r}")
     E = u.shape[0]
-    key = ("mega_shapes", E)
+    key = ("mega_shapes", bounds, E)
     shapes = tables.get(key)
     if shapes is None:
-        ncls = 3 ** tables["dim"]
-        shapes = tables[key] = core.operand_shapes(tables, E) + (
-            (ncls, E), (ncls, E))
+        b = ((3 ** tables["dim"], E) if bounds == "T"
+             else (E, tables["nd"]))
+        shapes = tables[key] = core.operand_shapes(tables, E) + (b, b)
     core.check_operands("mega_stage", NAMES, (u, u_nbr, P, smin, smax),
                         shapes, tables)
 
 
-def mega_stage(t, dt, u, u_nbr, smin, smax, P, tables):
+def mega_stage(t, dt, u, u_nbr, smin, smax, P, tables, bounds="T"):
     """du_limited[E, nd] for one stage, with default_sweeps(u.dtype) Jacobi
-    sweeps; see the module docstring."""
-    _check(u, u_nbr, smin, smax, P, tables)
+    sweeps; bounds "T" or "dof" (the layout of smin/smax); see the module
+    docstring."""
+    _check(u, u_nbr, smin, smax, P, tables, bounds)
     n_cg = default_sweeps(u.dtype)
     if u.device.type == "cpu":
         return mega_stage_reference(t, dt, u, u_nbr, smin, smax, P, tables,
-                                    n_cg)
+                                    n_cg, bounds)
     du = torch.empty_like(u)
     E = u.shape[0]
-    lau = core.Launcher.get("mega_stage", "remhos_mega_stage",
+    lau = core.Launcher.get("mega_stage", ENTRIES[bounds],
                             core.LAUNCH_ARGTYPES, tables, OPERANDS, STATIC,
                             core.core_sizes(tables, E, n_cg))
     lau(u.device, (u.element_size(), tables["dim"]),
         (u, u_nbr, P, smin, smax, du), (float(t), float(dt)), E, n_cg)
     mega_stage.launches += 1
+    mega_stage.variant_launches[bounds] += 1
     return du
 
 
 mega_stage.launches = 0
+mega_stage.variant_launches = dict.fromkeys(ENTRIES, 0)

@@ -78,11 +78,13 @@ def _core_work(tb, n_cg, with_face=True):
 
 def stage_cost(tb, P, n_cg, kind="mega", with_lo=False):
     """(bytes, flops) of kernels 1 and 2, the stages with t-polynomial
-    geometry. kind "mega": the limited stage (reads the two stencil arrays
-    too, writes du). kind "ho": the HO stage (writes du_HO and wdet, and
-    du_LO with `with_lo`). Reads u, u_nbr, P and the tables in their least
-    form: the 1D factors `sf` and the index tables (the dense tables are the
-    plain versions')."""
+    geometry. kind "mega": the limited stage with the class-major bounds
+    stencil (reads its two [3^dim, E] arrays and the class table too,
+    writes du); kind "mega_dof": the same with per-dof bounds (reads two
+    [E, nd] arrays, no class table). kind "ho": the HO stage (writes du_HO
+    and wdet, and du_LO with `with_lo`). Reads u, u_nbr, P and the tables in
+    their least form: the 1D factors `sf` and the index tables (the dense
+    tables are the plain versions')."""
     dim, nd, Q, Qf, nf, fd = (tb[k] for k in ("dim", "nd", "Q", "Qf", "nf",
                                                "fd"))
     FQ, NFD, ncls = nf * Qf, nf * fd, 3 ** dim
@@ -90,9 +92,12 @@ def stage_cost(tb, P, n_cg, kind="mega", with_lo=False):
     tables = _nbytes(tb[k] for k in ("sf", "bdr", "dof_faces", "cls")
                      if tb.get(k) is not None and (k != "cls" or
                                                    kind == "mega"))
-    lo_work = kind == "mega" or (with_lo and n_cg > 0)
+    mega = kind in ("mega", "mega_dof")
+    lo_work = mega or (with_lo and n_cg > 0)
     if kind == "mega":
         per_el = 2 * nd + NFD + 2 * ncls
+    elif kind == "mega_dof":
+        per_el = 4 * nd + NFD
     else:
         per_el = 2 * nd + NFD + Q + (nd if with_lo else 0)
     nbytes = E * per_el * itemsize + P.numel() * itemsize + tables
@@ -101,7 +106,7 @@ def stage_cost(tb, P, n_cg, kind="mega", with_lo=False):
     if lo_work:
         mac += tensor_macs(_root(nd, dim), _root(Q, dim), dim)   # ml = wdet Bu
         pointwise += 8 * nd           # the LO average
-    if kind == "mega":
+    if mega:
         pointwise += 20 * nd          # ClipScale
     return nbytes, E * (2 * mac + pointwise)
 

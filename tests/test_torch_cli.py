@@ -142,13 +142,22 @@ def test_run_goldens_lists_the_rest(capsys):
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["matched"] == ["transport-cube-m3pa"] and not rec["failed"]
     rows = json.loads(run_goldens.GOLDENS.read_text())["runs"]
-    assert len(rows) == 53 and len(rec["not_ported"]) == 45
+    assert len(rows) == 53 and len(rec["not_ported"]) == 22
     supported = {r["name"] for r in rows} - set(rec["not_ported"])
-    assert supported == {f"{kind}-m{lo}pa" for lo in (3, 4) for kind in (
-        "remap-cube3d", "remap-pacman", "transport-ballsjacks",
-        "transport-cube")}
+    kinds = ("remap-cube3d", "remap-pacman", "transport-ballsjacks",
+             "transport-cube")
+    fa = {f"{kind}-m{m}" for kind in kinds for m in (1, 2, 5)} | {
+        "product-remap-fe-fct",
+        "product-remap-idp2", "product-remap-idp3", "sharpen-pacman-autodt",
+        "sharpen-ballsjacks-autodt"} | {
+        f"readme-run{k}-{m}" for k, m in ((5, "ballsjacks"),
+                                          (6, "ballsjacks"), (7, "cube"),
+                                          (9, "pacman"), (10, "product"),
+                                          (11, "cube3d"))}
+    pa = {f"{kind}-m{lo}pa" for lo in (3, 4) for kind in kinds}
+    assert len(fa) == 23 and supported == fa | pa
     for item in rec["not_ported"].values():
-        assert re.fullmatch(r"Queue [12], item \d+", item)
+        assert re.fullmatch(r"Queue 1, item [568]", item)
 
 
 def _open_items(roadmap):

@@ -150,13 +150,15 @@ def test_default_mesh_3d_rk6():
     (dict(vis=True), "Queue 1, item 9"), (dict(visit=True), "Queue 1, item 9"),
     (dict(save=True), "Queue 1, item 9"),
     (dict(profile_dir="prof"), "Queue 1, item 9"),
-    (dict(smth_ind=1), "Queue 1, item 5"), (dict(fct=3), "Queue 1, item 4"),
+    (dict(smth_ind=1), "Queue 1, item 5"),
+    (dict(fct=3, smth_ind=1), "Queue 1, item 5"),
     (dict(mesh="star.mesh"), "Queue 1, item 8"),
     (dict(mesh="periodic-segment"), "Queue 1, item 6"),
-    (dict(lo=1), "Queue 1, item 4"), (dict(fct=4), "Queue 1, item 4"),
-    (dict(pa=False), "Queue 1, item 4"),
-    (dict(bounds_type=1), "Queue 1, item 4"),
-    (dict(ho=1), "Queue 1, item 4")])
+    (dict(lo=1, pa=False, mesh="periodic-hexagon"), "Queue 1, item 8"),
+    (dict(fct=4, mono=2), "Queue 1, item 5"),
+    (dict(pa=False, mesh="periodic-segment"), "Queue 1, item 6"),
+    (dict(bounds_type=1, mono=1), "Queue 1, item 5"),
+    (dict(ho=1, pa=False, mesh="disc-nurbs"), "Queue 1, item 8")])
 def test_unported_options_raise(kw, item):
     cfg = RunConfig(device="cpu",
                     **{**BASE, "problem": 10, "max_tsteps": 1, **kw})

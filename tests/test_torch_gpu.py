@@ -662,3 +662,110 @@ def test_gather_nbr_second_layout_on_card():
                                                dm.nbr_dof_local, "cuda"))
         assert torch.equal(got, gn.gather_nbr_reference(
             u, shape, periodic, dm.nbr_dof_local))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,n", [(3, 5), (2, 9)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 2e-4)])
+def test_per_dof_kernel_matches_reference(dim, n, dtype, tol):
+    """Kernel 1's per-dof variant on the sparsity bounds of -bt 1 against
+    its plain version (tolerances as test_kernel_matches_reference), and on
+    the "T" stencil expanded to dofs against the "T" variant; its own
+    launch counter advances, the "T" one's does not."""
+    _cuda()
+    from remhos_torch import dofmaps
+    case = bench.build_case(n=n, order=3, dtype=dtype, device="cuda",
+                            n_steps=4, dt=DT, dim=dim)
+    adv = case.adv
+    rng = np.random.default_rng(17)
+    u = torch.as_tensor(rng.random(tuple(case.u0.shape)), dtype=dtype,
+                        device="cuda")
+    unbr = adv.gather_nbr(u).reshape(u.shape[0], -1)
+    el = bounds.elements_min_max(u)
+    topo = dofmaps.bounds_topology(adv.disc.mesh, adv.disc.p, "cuda")
+    xmin, xmax = bounds.sparsity_bounds(*el, topo.nbr_elem, topo.nd)
+    with pytest.raises(ValueError, match="contiguous"):
+        ms.mega_stage(0.1, DT, u, unbr, xmin, xmax, adv._poly,
+                      adv._stage_tables, bounds="dof")
+    xmin, xmax = xmin.contiguous(), xmax.contiguous()
+    args = (0.1, DT, u, unbr, xmin, xmax, adv._poly, adv._stage_tables)
+    before = dict(ms.mega_stage.variant_launches)
+    got = ms.mega_stage(*args, bounds="dof")
+    torch.cuda.synchronize()
+    assert ms.mega_stage.variant_launches == dict(before,
+                                                  dof=before["dof"] + 1)
+    ref = ms.mega_stage_reference(*args, ms.default_sweeps(dtype), "dof")
+    err = (got - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item()
+    smin, smax = structured.overlap_stencil_T(*el, adv.shape, adv.periodic,
+                                              adv.masks)
+    cls = adv._stage_tables["cls"].long()
+    du_T = ms.mega_stage(0.1, DT, u, unbr, smin, smax, adv._poly,
+                         adv._stage_tables)
+    du_dof = ms.mega_stage(0.1, DT, u, unbr, smin[cls].T.contiguous(),
+                           smax[cls].T.contiguous(), adv._poly,
+                           adv._stage_tables, bounds="dof")
+    err = (du_T - du_dof).abs().max().item()
+    assert err <= tol * du_T.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_short_path_f_runs_the_per_dof_variant():
+    """-bt 1 on the mega path through driver.run: every stage one launch of
+    kernel 1's per-dof variant."""
+    _cuda()
+    ops.reset_launch_counts()
+    res = driver.run(RunConfig(
+        mesh="default", dim=3, elem_per_shard=64, order=3, problem=10, ho=3,
+        lo=5, fct=2, pa=True, bounds_type=1, dtype="float32", t_final=0.7,
+        dt=DT, max_tsteps=4, device="cuda", verbose=False))
+    assert res.steps == 4
+    assert ops.variant_counts()["mega_stage"] == dict(T=0, dof=12)
+    assert ops.launch_counts()["mega_stage"] == 12
+    assert res.min_u >= res.u0_min - 1e-5 and res.max_u <= res.u0_max + 1e-5
+
+
+@pytest.mark.gpu
+def test_fa_path_runs_on_the_card_without_kernels():
+    """The assembled path on a CUDA operator: its tensors on the card, no
+    kernel launched, the same run as on the CPU to 1e-12 in f64."""
+    _cuda()
+    kw = dict(mesh="cube01_hex", problem=10, rs_levels=0, order=2, dt=0.02,
+              t_final=0.7, max_tsteps=4, ho=3, lo=1, fct=1, verbose=False)
+    ops.reset_launch_counts()
+    adv, _ = driver.build_operator(RunConfig(device="cuda", **kw))
+    assert adv.geometry(0.1)["K_elem"].device.type == "cuda"
+    rc = driver.run(RunConfig(device="cuda", **kw))
+    rh = driver.run(RunConfig(device="cpu", **kw))
+    assert set(ops.launch_counts().values()) == {0}
+    assert abs(rc.final_mass_u - rh.final_mass_u) <= 1e-12 * rh.final_mass_u
+    assert abs(rc.max_u - rh.max_u) <= 1e-12 * rh.max_u
+
+
+@pytest.mark.gpu
+def test_failed_build_raises(tmp_path, monkeypatch):
+    """A kernel source that does not compile makes the wrapper raise: no
+    fallback to the plain version."""
+    _cuda()
+    from remhos_torch.ops import build
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in build.CSRC.iterdir():
+        (src / f.name).write_bytes(f.read_bytes())
+    cu = src / "mega_stage.cu"
+    cu.write_text(cu.read_text() + "\nthis is not C++;\n")
+    monkeypatch.setattr(build, "CSRC", src)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "_LOADED", {})
+    case = bench.build_case(n=3, order=3, dtype=torch.float32,
+                            device="cuda", n_steps=4, dt=DT)
+    adv = case.adv
+    u = case.u0
+    unbr = adv.gather_nbr(u).reshape(u.shape[0], -1)
+    x = torch.zeros_like(u)
+    tables = {k: v for k, v in adv._stage_tables.items()
+              if not (isinstance(k, tuple) and k[0] == "launcher")}
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ms.mega_stage(0.1, DT, u, unbr, x, x, adv._poly, tables,
+                      bounds="dof")
