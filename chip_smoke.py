@@ -112,6 +112,26 @@ It builds the CUDA kernels from the sources on first use, then:
    d. the command line, `python -m remhos_torch` in a subprocess on the
       transport-ballsjacks-m3pa row: its `Final mass u` and `Max value u`
       lines against the golden at 5e-10;
+   e. path H, the monolithic RD solver with the smoothness indicator
+      through driver.run: periodic-square refined to 192^2 (36,864
+      elements), p=2, problem 4, `-mono 2 -si 2`, f64, dt = 3e-4, 20 steps,
+      then `-mono 1 -si 1`; gates: mass loss < 1e-11 and max u <= 1 + 1e-9
+      (tests/test_driver.py::test_mono_subcell's); prints ms a step, the
+      inner loop's iterations (mean and max) and read-backs per stage and
+      the peak device memory; then one stage split by CUDA events (the
+      indicator, the solver without its inner loop, the loop) and traced
+      (device ms, device events and idle share of the stage);
+   f. path I, 1D through driver.run: periodic-segment refined to 1,024
+      elements, p=3, problem 0, `-ho 3 -lo 4 -fct 2` (assembled: the
+      reference disables PA in 1D), dt = 2.5e-5, 200 steps, in f64 (mass
+      loss < 1e-13, max u <= 1 + 1e-10: test_1d_transport's gates) and in
+      f32 (the repaired residual distribution; the closure's injection
+      < 1e-4, max u <= 1 + 1e-6); then one stage split and traced as H's;
+   g. the seven golden rows paths H and I opened (`steady-mono1|2`,
+      `transport-1d-m1`...`m5`) in f64 at 5e-10 through the golden runner,
+      and `transport-ballsjacks-m2` in its f32 tier.
+   No kernel and no kernel variant may launch on e-g: the JAX package runs
+   -mono, -si and 1D through no Pallas kernel either;
 10. prints one JSON line per result, the wall seconds of each step and a
     `kernels` line (kernel 1's per-dof variant as a row of its own,
     `variant_of` "mega_stage", its launches from path F);
@@ -134,12 +154,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from remhos_torch import bench, bounds, dofmaps, driver, ops, pa
+from remhos_torch import bench, bounds, dofmaps, driver, mono, ops, pa
 from remhos_torch import problems as prob
 from remhos_torch import structured
 from remhos_torch.config import RunConfig
 from remhos_torch.discretization import build_discretization
-from remhos_torch.mesh import make_cartesian_mesh
+from remhos_torch.mesh import load_mesh, make_cartesian_mesh
 from remhos_torch.operator import Advection, SolverConfig
 from remhos_torch.ops import build
 from remhos_torch.ops import gather_nbr as gn
@@ -264,6 +284,33 @@ TRANSPORT_ROWS = ("transport-ballsjacks-m3pa", "transport-ballsjacks-m4pa",
 CLI_ROW = "transport-ballsjacks-m3pa"
 CLI_ARGV = ("-m", "periodic-square", "-p", "5", "-rs", "3", "-dt", "0.004",
             "-tf", "0.8", "-ho", "2", "-lo", "3", "-fct", "2", "-pa")
+# path H: the monolithic RD solver with the smoothness indicator at full
+# width, tests/test_driver.py::test_mono_subcell's case refined 16x
+# (periodic-square -rs 6: 192^2 = 36,864 elements, p=2) with dt cut 16x, f64,
+# 20 steps; then -mono 1 -si 1. The assembled path: no kernel (the JAX
+# package runs -mono and -si in XLA). Gates: that test's
+PATH_H = dict(mesh="periodic-square", problem=4, rs_levels=6, order=2, ho=0,
+              lo=0, fct=0, mono=2, smth_ind=2, dtype="float64", dt=3e-4,
+              t_final=1.0, max_tsteps=20, verbose=False)
+PATH_H1 = dict(PATH_H, mono=1, smth_ind=1)
+H_LIMITS = dict(mass_loss_u=1e-11, max_u=1.0 + 1e-9)
+# path I: 1D, periodic-segment -rs 8 (1,024 elements), p=3, -ho 3 -lo 4
+# -fct 2 (assembled: the reference disables PA in 1D), dt = 2.5e-5, 200
+# steps; in f64 with tests/test_driver.py::test_1d_transport's gates, then
+# in f32 (the repaired residual distribution, Kahan combine and closure)
+# within path A's closure budget
+PATH_I = dict(mesh="periodic-segment", problem=0, rs_levels=8, order=3,
+              ho=3, lo=4, fct=2, dtype="float64", dt=2.5e-5, t_final=1.0,
+              max_tsteps=200, verbose=False)
+PATH_I32 = dict(PATH_I, dtype="float32")
+I_LIMITS = dict(mass_loss_u=1e-13, max_u=1.0 + 1e-10)
+I32_LIMITS = dict(closure_injected_rel=1e-4, max_u=1.0 + 1e-6)
+# the golden rows the tenth slice opened (f64, 5e-10), and the -lo 4 row
+# that failed the f32 tier before the residual distribution's repair
+SLICE10_ROWS = ("steady-mono1", "steady-mono2", "transport-1d-m1",
+                "transport-1d-m2", "transport-1d-m3", "transport-1d-m4",
+                "transport-1d-m5")
+F32_ROWS = ("transport-ballsjacks-m2",)
 # the orders kernels 1, 2 and 5 are also held at (p=3: step 3's checks);
 # p = 2-4 are compiled sizes of the core, p = 1 and 5 its runtime sizes
 ORDERS = (1, 2, 4, 5)
@@ -1380,6 +1427,140 @@ def run_cli():
     return rec
 
 
+def expect_no_launch(path):
+    """No kernel and no kernel variant launched since the last reset."""
+    n = expect_counts(path, {})
+    variants = ops.variant_counts()
+    if any(v for counts in variants.values() for v in counts.values()):
+        raise RuntimeError(f"{path}: kernel variants launched {variants}")
+    return n
+
+
+def run_plain_path(path, cfg_kw, limits, device):
+    """Paths H and I: one driver.run of a path that launches no kernel,
+    with its gates (absolute mass loss and max u as the JAX package's tests
+    take them; the closure's injection relative to the initial mass), its
+    ms per step, its peak device memory and, for -mono, the inner loop's
+    iterations and read-backs per stage."""
+    cfg = RunConfig(device=str(device), **cfg_kw)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    res = driver.run(cfg)
+    n = expect_no_launch(path)
+    rec = dict(path=path, dtype=cfg.dtype, mono=cfg.mono,
+               smth_ind=cfg.smth_ind, ho=cfg.ho, lo=cfg.lo, fct=cfg.fct,
+               elements=load_mesh(cfg.mesh, cfg.rs_levels).num_elements,
+               order=cfg.order, steps=res.steps, dt=res.dt,
+               wall_s=res.timers["wall_s"],
+               ms_per_step=1e3 * res.timers["wall_s"] / res.steps,
+               mass_loss_u=res.mass_loss_u,
+               mass_loss_u_rel=res.mass_loss_u / abs(res.final_mass_u
+                                                      + res.mass_loss_u),
+               closure_injected_rel=res.mass_closure_injected_rel,
+               max_u=res.max_u, min_u=res.min_u,
+               max_memory_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+               cg_solves=res.cg_solves, launches=n, limits=limits)
+    st = res.mono_stats
+    if st:
+        stages = bench.STAGES * res.steps
+        rec.update(mono_solves=st["solves"],
+                   mono_iterations_per_stage_mean=st["iterations"] / stages,
+                   mono_iterations_per_stage_max=st["max_iterations"],
+                   mono_readbacks_per_stage=st["readbacks"] / stages,
+                   mono_check_every=mono.CHECK_EVERY)
+    print(json.dumps(rec), flush=True)
+    gate(path, "steps", res.steps, cfg.max_tsteps, least=True)
+    for name, limit in limits.items():
+        gate(path, name, rec[name], limit)
+    return rec
+
+
+def mono_parts(adv, geom, u, dt):
+    """Path H's stage split: the indicator, the solver without its inner
+    loop, the inner loop. (Transport: the assembly and the subcell weights
+    are made once, at construction.)"""
+    parts = mono.explicit_part(adv, geom, u)
+    return dict(
+        indicator=lambda: adv.smth.dof_values(adv.smth.compute(u)),
+        explicit_part=lambda: mono.explicit_part(adv, geom, u),
+        inner_loop=lambda: mono.consistent_mass_loop(adv, geom, u, *parts))
+
+
+def fa_parts(adv, geom, u, dt):
+    """Path I's stage split: the HO solve, the LO solution (subcell RD),
+    the bounds, ClipScale. (Transport: the assembly and the subcell weights
+    are made once, at construction.)"""
+    du_HO = adv.ho_solution(geom, u)
+    du_LO = adv.lo_solution(geom, u, du_HO=du_HO, dt=dt)
+    x_min, x_max = adv.compute_bounds(*bounds.elements_min_max(u))
+    return dict(
+        ho_solve=lambda: adv.ho_solution(geom, u),
+        lo=lambda: adv.lo_solution(geom, u, du_HO=du_HO, dt=dt),
+        bounds=lambda: adv.compute_bounds(*bounds.elements_min_max(u)),
+        fct=lambda: adv._fct_solution(geom, u, du_HO, du_LO, x_min, x_max,
+                                      dt))
+
+
+def split_plain_stage(device, path, cfg_kw, parts_of):
+    """Where one stage of a kernel-free path (H, I) goes, on its initial
+    state: the stage and its parts by CUDA events (ms), then one traced
+    stage: device ms, device events (launches) per stage, the device's
+    idle share and the top ops by device time."""
+    cfg = RunConfig(device=str(device), **cfg_kw)
+    adv, dt = driver.build_operator(cfg)
+    mesh = adv.disc.mesh
+    u, _ = driver.project_bernstein(
+        adv.x0_nodes, adv.disc.Bm_at_unodes,
+        lambda x: prob.u0_function(cfg.problem, x, mesh.bb_min, mesh.bb_max))
+    u = u.to(adv.dtype)
+    stage = adv.stage_function()
+    geom = adv.geometry(0.0)
+    rec = {"check": f"path {path} stage split, {cfg.dtype}, ms",
+           "stage": time_ms(lambda: stage(0.0, dt, u[None]), 5)}
+    rec.update({name: time_ms(fn, 5) for name, fn in
+                parts_of(adv, geom, u, dt).items()})
+    ops.reset_launch_counts()
+    tr = trc.capture_trace(lambda: stage(0.0, dt, u[None]))
+    expect_no_launch(f"path {path} traced stage")
+    rep = trc.loop_report(tr, 1, 1)
+    rec.update(device_ms_per_stage=1e3 * rep["total_s_per_stage"],
+               device_events_per_stage=len(trc.device_ops(tr)),
+               idle_share=rep["idle_share"],
+               top_ops_ms={k: 1e3 * v for k, v in list(
+                   rep["buckets_s_per_stage"].items())[:6]})
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def run_slice10_goldens(device):
+    """The tenth slice's golden rows in f64 and transport-ballsjacks-m2 in
+    the f32 tier, through the golden runner; no kernel launches."""
+    out = {}
+    for tag, argv, rows in (("f64", [], SLICE10_ROWS),
+                            ("f32", ["--f32"], F32_ROWS)):
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = run_goldens.main(["--device", str(device), *argv, "--only",
+                                   *rows])
+        n = expect_no_launch(f"golden rows {tag}")
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            if line.startswith(("PASS", "FAIL")):
+                print(line, flush=True)
+        rec = json.loads(lines[-1])
+        if rc != 0 or sorted(rec["matched"]) != sorted(rows):
+            raise RuntimeError(f"golden rows {tag}: {rec['matched']} "
+                               f"matched, {rec['failed']} failed")
+        out[tag] = dict(matched=rec["matched"], launches=n,
+                        not_ported=len(rec["not_ported"]),
+                        wall_s=time.perf_counter() - t0)
+    print(json.dumps(dict(check="tenth slice golden rows", **out)),
+          flush=True)
+    return out
+
+
 def check_vb_stage(device):
     """The -vb and dt-control side channel in f64 at full width: one limited
     stage of two fields, aux = [dt ratio, -violations] with du_HO from the
@@ -1554,6 +1735,20 @@ def main():
     run_transport_goldens(dev)
     run_cli()
     done("transport golden rows and the command line")
+    # 9e. path H: -mono 2 -si 2, then -mono 1 -si 1, at 192^2, f64
+    run_plain_path("H", PATH_H, H_LIMITS, dev)
+    run_plain_path("H -mono 1 -si 1", PATH_H1, H_LIMITS, dev)
+    split_plain_stage(dev, "H", PATH_H, mono_parts)
+    torch.cuda.empty_cache()
+    done("path H")
+    # 9f. path I: 1D, f64 then f32
+    run_plain_path("I", PATH_I, I_LIMITS, dev)
+    run_plain_path("I f32", PATH_I32, I32_LIMITS, dev)
+    split_plain_stage(dev, "I", PATH_I, fa_parts)
+    done("path I")
+    # 9g. the tenth slice's golden rows, and the repaired f32 -lo 4 row
+    run_slice10_goldens(dev)
+    done("tenth slice golden rows")
     print(json.dumps({"seconds": seconds,
                       "trace_retakes": trc.capture_counted.retakes}),
           flush=True)

@@ -83,6 +83,10 @@ class RunResult:
     # their iterations (each reads one comparison back from the device)
     cg_solves: int = 0
     cg_iterations: int = 0
+    # the monolithic solver's inner consistent-mass loops (`mono.py`): how
+    # many ran, their iterations in all and the most in one, and the
+    # read-backs of their exit test
+    mono_stats: dict | None = None
     # the final state's smallest value (the reference reports only max u),
     # and the initial condition's range, which bounds it
     min_u: float = 0.0

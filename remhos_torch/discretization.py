@@ -1,6 +1,7 @@
 """Discretization bundle: the static host tables of the remap path.
 
-The port's copy of `remhos_tpu.discretization` for structured meshes.
+The port's copy of `remhos_tpu.discretization` for structured meshes of
+dimension 1, 2 and 3.
 Integration rules mirror MFEM's defaults:
 - volume: 2*p + mesh_order*dim - 1 (MassIntegrator / ConvectionIntegrator);
 - face: mesh_order*dim - 1 + 2*p on the (dim-1)-face (DGTraceIntegrator).
@@ -68,8 +69,12 @@ def build_discretization(mesh: StructuredMesh, p: int) -> Discretization:
     w_q = B.tensor_mixed([w1[:, None]] * dim)[:, 0]
 
     qf1, wf1 = B.gauss_legendre(B.min_gauss_points(mo * dim - 1 + 2 * p))
-    Bface = B.tensor_mixed([B.bernstein_vals(p, qf1)] * (dim - 1))
-    w_fq = B.tensor_mixed([wf1[:, None]] * (dim - 1))[:, 0]
+    if dim == 1:
+        # a point face: one point of weight 1, one face dof
+        Bface, w_fq = np.ones((1, 1)), np.ones(1)
+    else:
+        Bface = B.tensor_mixed([B.bernstein_vals(p, qf1)] * (dim - 1))
+        w_fq = B.tensor_mixed([wf1[:, None]] * (dim - 1))[:, 0]
 
     Bmt, Gmt = B.lagrange_vals(gll_m, qf1), B.lagrange_grads(gll_m, qf1)
     Bmf, Gmf, nrefs = [], [], []

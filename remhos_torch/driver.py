@@ -1,9 +1,11 @@
 """Driver: setup, time loop and reporting (the remhos() entry equivalent).
 
-The port of `remhos_tpu.driver` for one device, a structured 2D or 3D mesh,
-the transport problems 0-7, the remap problems 10-17 and the solver
-families `-ho 1|2|3 -lo 0-5 -fct 0-4 -bt 0|1`, assembled or with `-pa`
-(`operator.py` picks the fused, the non-fused or the assembled stage):
+The port of `remhos_tpu.driver` for one device, a structured 1D, 2D or 3D
+mesh, the transport problems 0-7, the remap problems 10-17 and the solver
+families `-ho 1|2|3 -lo 0-5 -fct 0-4 -bt 0|1`, the monolithic `-mono 1|2`
+and the smoothness indicators `-si 1|2`, assembled or with `-pa` (in 1D
+always assembled; `operator.py` picks the fused, the non-fused or the
+assembled stage):
 `run(cfg) -> RunResult`, whose `final_mass_u` plays the role of the C
 entry's out-parameter (remhos.cpp:210).
 
@@ -112,10 +114,12 @@ def _echo_options(cfg: RunConfig):
         print(f"   --{f.name} {getattr(cfg, f.name)}")
 
 
-def _solver_config(cfg: RunConfig) -> SolverConfig:
-    """The operator's SolverConfig of a run configuration."""
+def _solver_config(cfg: RunConfig, dim: int) -> SolverConfig:
+    """The operator's SolverConfig of a run configuration on a
+    `dim`-dimensional mesh. In 1D the reference disables partial assembly
+    (remhos.cpp:474-480): a -pa run there is an assembled one."""
     return SolverConfig(problem=cfg.problem, ho=cfg.ho, lo=cfg.lo,
-                        fct=cfg.fct, mono=cfg.mono, pa=cfg.pa,
+                        fct=cfg.fct, mono=cfg.mono, pa=cfg.pa and dim > 1,
                         ode_solver=cfg.ode_solver,
                         bounds_type=cfg.bounds_type,
                         dt_control=cfg.dt_control,
@@ -139,7 +143,7 @@ def unported(cfg: RunConfig):
     if dim is None:
         return (f"mesh '{cfg.mesh}': general, curved and NURBS mesh files "
                 "(Queue 1, item 8)")
-    return solver_unported(_solver_config(cfg), dim)
+    return solver_unported(_solver_config(cfg, dim), dim)
 
 
 def build_operator(cfg: RunConfig):
@@ -180,7 +184,7 @@ def build_operator(cfg: RunConfig):
                                           mesh.bb_max, cfg.t_final,
                                           dt).to(dtype)
 
-    return Advection(disc, _solver_config(cfg), x0_nodes, v_nodes,
+    return Advection(disc, _solver_config(cfg, mesh.dim), x0_nodes, v_nodes,
                      dtype=dtype, device=device,
                      inflow=inflow_projection(cfg.problem, x0_nodes,
                                               disc)), dt
@@ -399,6 +403,8 @@ def run(cfg: RunConfig) -> RunResult:
                     timers={"wall_s": wall})
     res.cg_solves = adv.cg_stats["solves"]
     res.cg_iterations = adv.cg_stats["iterations"]
+    if adv.cfg.mono != 0:
+        res.mono_stats = dict(adv.mono_stats)
     if cfg.product_sync:
         mass_us = _mass(ml_final, S[1], C[1] if use_closure else None)
         s, _, _ = syncm.compute_ratio(S[1], S[0])

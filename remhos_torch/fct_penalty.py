@@ -12,8 +12,9 @@ lambda, and 110 halvings reach f64 precision with no data-dependent exit
 The penalty scale eps is element 0's size h/p (remhos_fct.cpp:963), h the
 dim-th root of its volume on the stage geometry.
 
-The smoothness-indicator branch (`-si`, remhos_fct.cpp:779-794) needs the
-indicator, which is not ported (ROADMAP.md Queue 1, item 5).
+With `-si` the per-dof bounds are first relaxed toward the new HO value
+where the solution is smooth (remhos_fct.cpp:779-794, the reference's only
+FCT with the smoothness indicator).
 """
 
 from __future__ import annotations
@@ -30,11 +31,11 @@ def _sum_z(lam, w, fL):
 
 def nonlinear_penalty(adv, geom, u, du_ho, du_lo, u_min, u_max, dt,
                       n_bisect=110):
-    if adv.cfg.smth_ind:
-        raise NotImplementedError(
-            "-fct 3 with -si needs the smoothness indicators (ROADMAP.md "
-            "Queue 1, item 5)")
     m = geom["ml"]
+    if adv.cfg.smth_ind:
+        si_dof = adv.smth.dof_values(adv.smth.compute(u))
+        u_min, u_max = adv.smth.update_bounds(u + dt * du_ho, u_min, u_max,
+                                              si_dof)
     # the clipped HO update, from u at the old time (remhos_fct.cpp:796-799)
     du_ho_star = torch.minimum((u_max - u) / dt,
                                torch.maximum(du_ho, (u_min - u) / dt))

@@ -1,6 +1,6 @@
 """Geometric factors of moving tensor meshes, as batched torch products.
 
-The port's copy of the `remhos_tpu.geometry` subset the PA paths use.
+The port's copy of `remhos_tpu.geometry`, for 1D, 2D and 3D meshes.
 Conventions: mesh nodes x[E, nm, dim] (lexicographic Gauss-Lobatto nodes),
 Jacobian J[e, q, a, b] = d x_a / d xi_b, held as per-entry planes
 J[d][b] -> [E, Q].
@@ -58,7 +58,9 @@ def volume_geometry(x, Bm, Gm):
 def det_adj(J):
     """(det J[...], adj J[..., dim, dim]) of J[..., dim, dim] in closed
     form, no linear solves; adj(J) = det(J) J^-1 is the transposed cofactor
-    matrix."""
+    matrix (in 1D the 1x1 identity)."""
+    if J.shape[-1] == 1:
+        return J[..., 0, 0], torch.ones_like(J)
     if J.shape[-1] == 2:
         a, b = J[..., 0, 0], J[..., 0, 1]
         c, d = J[..., 1, 0], J[..., 1, 1]
@@ -81,17 +83,48 @@ def det_adj(J):
     return det, adj
 
 
+def face_geometry(x, Bmf, Gmf, n_ref):
+    """The face points x_fq[E, nf, Qf, dim] and the scaled outward normals
+    nor[E, nf, Qf, dim] by Nanson's formula, n = adj(J)^T n_ref, from the
+    full face Jacobians: Bmf[nf, Qf, nm], Gmf[nf, Qf, nm, dim], n_ref[nf,
+    dim]. The route where `face_tangent_tables` gives None (1D)."""
+    A, E, dim = _nodes_matrix(x)
+    nf, Qf, nm = Bmf.shape
+    x_fq = (A @ Bmf.permute(2, 0, 1).reshape(nm, nf * Qf)).reshape(
+        E, dim, nf, Qf).permute(0, 2, 3, 1)
+    J = (A @ Gmf.permute(2, 0, 1, 3).reshape(nm, nf * Qf * dim)).reshape(
+        E, dim, nf, Qf, dim).permute(0, 2, 3, 1, 4)
+    _, adj = det_adj(J)
+    # (adj^T n_ref)_b = sum_d adj[d, b] n_ref[d], elementwise and summed
+    nor = (adj * n_ref[None, :, None, :, None]).sum(-2)
+    return x_fq, nor
+
+
+def volume_detj_va(x, Gm, v_q, sign):
+    """(det J[E, Q], va[E, Q, 1]) of a 1D mesh for the matrix-free
+    convection action: det J = dx/dxi and va = sign * adj(J) v = sign * v
+    (remhos_tpu/geometry.py:158-167). In 2D and 3D the stage kernels
+    (kernels 3 and 4) form both from the nodes."""
+    if x.shape[-1] != 1:
+        raise ValueError("volume_detj_va is the 1D route; 2D and 3D take "
+                         "the wdet and geom_conv kernels")
+    return jacobian_planes(x, Gm)[0][0], sign * v_q
+
+
 def face_tangent_tables(Gmf, n_ref):
     """Tangent-only face-normal tables (host numpy).
 
     A tensor element's reference normals are +-e_k, so the Nanson normal
     adj(J)^T n_ref is +-(column k of cof(J)): the cross product of the other
     (tangential) Jacobian columns in 3D, a rotated column in 2D. Returns
-    (Gmf_tan[nf, Qf, nm, dim-1], sign[nf]), or None when a reference normal
-    is not axis-aligned."""
+    (Gmf_tan[nf, Qf, nm, dim-1], sign[nf]), or None in 1D (a point face
+    has no tangent) and when a reference normal is not axis-aligned; the
+    normals then come from `face_geometry`."""
     Gmf = np.asarray(Gmf)
     n_ref = np.asarray(n_ref)
     dim = Gmf.shape[3]
+    if dim == 1:
+        return None
     k = np.abs(n_ref).argmax(axis=1)
     s = np.take_along_axis(n_ref, k[:, None], 1)[:, 0]
     if not np.allclose(np.abs(n_ref).sum(1), np.abs(s)):
@@ -153,7 +186,9 @@ def lumped_mass_poly(x0, v, disc):
     def pair(d, b):
         return (J0[d][b], Jv[d][b])
 
-    if dim == 2:
+    if dim == 1:
+        det_c = pair(0, 0)
+    elif dim == 2:
         p1 = prod2(pair(0, 0), pair(1, 1))
         p2 = prod2(pair(0, 1), pair(1, 0))
         det_c = tuple(a - b for a, b in zip(p1, p2))

@@ -17,8 +17,7 @@ import torch
 
 from . import assembly as asm
 
-# guards the weight denominators of an element whose dofs are all equal;
-# below float32 round-off, kept as the reference has it
+# guards the weight denominators of an element whose dofs are all equal
 EPS = 1.0e-15
 
 
@@ -44,28 +43,27 @@ def residual_distribution_core(u, z, du, ml, subcell=False,
     subcell_weights: [E, numSubcells, 2^dim] (Assembly::SubcellWeights);
     sub2ind: [numSubcells, 2^dim] long; gamma: the subcell blending factor
     (1.0 in remhos_lo.cpp:118)."""
-    nd = u.shape[1]
-
     xe_max = torch.amax(u, 1)
     xe_min = torch.amin(u, 1)
-    x_sum = u.sum(1)
     rhoP = z.clamp(min=0.0).sum(1)
     rhoN = z.clamp(max=0.0).sum(1)
-    sumWeightsP = nd * xe_max - x_sum + EPS
-    sumWeightsN = nd * xe_min - x_sum - EPS
-
-    weightP = (xe_max[:, None] - u) / sumWeightsP[:, None]
-    weightN = (xe_min[:, None] - u) / sumWeightsN[:, None]
+    # each weight's normaliser is the sum of its own numerators, equal in
+    # exact arithmetic to the reference's nd*x_max - sum(u) (remhos_lo.cpp:
+    # 130-131); that form cancels to EPS in f32 on a nearly constant
+    # element while the numerators do not, and the weights then sum far
+    # above 1 (mass lost, bounds broken)
+    numP = xe_max[:, None] - u
+    numN = xe_min[:, None] - u
+    weightP = numP / (numP.sum(1) + EPS)[:, None]
+    weightN = numN / (numN.sum(1) - EPS)[:, None]
 
     if subcell:
-        ndd = sub2ind.shape[1]
         u_sub = u[:, sub2ind]                            # [E, ns, ndd]
         fluct = (subcell_weights * u_sub).sum(-1)        # [E, ns]
-        xmax_s = torch.amax(u_sub, -1)
-        xmin_s = torch.amin(u_sub, -1)
-        xsum_s = u_sub.sum(-1)
-        swP = ndd * xmax_s - xsum_s + EPS
-        swN = ndd * xmin_s - xsum_s - EPS
+        nsP = torch.amax(u_sub, -1, keepdim=True) - u_sub   # [E, ns, ndd]
+        nsN = torch.amin(u_sub, -1, keepdim=True) - u_sub
+        swP = nsP.sum(-1) + EPS
+        swN = nsN.sum(-1) - EPS
         fP = fluct.clamp(min=0.0)
         fN = fluct.clamp(max=0.0)
         sumFP = fP.sum(1)
@@ -73,10 +71,8 @@ def residual_distribution_core(u, z, du, ml, subcell=False,
         # nodal weights: the subcell shares scattered onto the element dofs
         # (eq. 58-59). A dof is a corner of up to 2^dim subcells, so the
         # indices repeat and the shares accumulate.
-        nwP_sub = fP[:, :, None] * (xmax_s[:, :, None] - u_sub) \
-            / swP[:, :, None]
-        nwN_sub = fN[:, :, None] * (xmin_s[:, :, None] - u_sub) \
-            / swN[:, :, None]
+        nwP_sub = fP[:, :, None] * nsP / swP[:, :, None]
+        nwN_sub = fN[:, :, None] * nsN / swN[:, :, None]
         E = u.shape[0]
         flat = sub2ind.reshape(-1)
         nwP = torch.zeros_like(u).index_add_(1, flat, nwP_sub.reshape(E, -1))

@@ -1,11 +1,12 @@
-"""Structured quad/hex meshes as dense host arrays (numpy only).
+"""Structured segment/quad/hex meshes as dense host arrays (numpy only).
 
 The port's copy of the structured part of `remhos_tpu.mesh`: a grid of
 `shape` elements per axis (element id = ix + nx*iy + nx*ny*iz) given by its
 per-axis break points, optional periodicity, per-element Gauss-Lobatto node
 coordinates x[E, nm, dim], midpoint refinement, the registry of the
 reference's structured mesh files and the weak-scaling `default_mesh`
-factory. Face numbering follows MFEM's local face order.
+factory. Face numbering follows MFEM's local face order (a segment's faces:
+left, right).
 """
 
 from __future__ import annotations
@@ -16,13 +17,14 @@ import numpy as np
 
 from .basis import gauss_lobatto
 
+FACES_1D = ((0, 0), (0, 1))
 FACES_2D = ((1, 0), (0, 1), (1, 1), (0, 0))
 FACES_3D = ((2, 0), (1, 0), (0, 1), (1, 1), (0, 0), (2, 1))
 
 
 def faces_for_dim(dim: int):
     """Local faces as (axis, side), side 0 = low end, 1 = high end."""
-    return {2: FACES_2D, 3: FACES_3D}[dim]
+    return {1: FACES_1D, 2: FACES_2D, 3: FACES_3D}[dim]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,10 +92,6 @@ def _refine_breaks(b: np.ndarray) -> np.ndarray:
 def make_mesh_from_breaks(dim: int, breaks: tuple,
                           periodic: tuple[bool, ...],
                           mesh_order: int = 2) -> StructuredMesh:
-    if dim not in (2, 3):
-        raise NotImplementedError(
-            f"remhos_torch meshes are 2D or 3D, got dim={dim} "
-            "(ROADMAP.md Queue 1, item 6)")
     breaks = tuple(np.asarray(b, dtype=np.float64) for b in breaks)
     shape = tuple(len(b) - 1 for b in breaks)
     E = int(np.prod(shape))

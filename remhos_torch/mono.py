@@ -1,0 +1,214 @@
+"""Monolithic residual-distribution solver (`-mono 1|2`): the port of
+`remhos_tpu.mono` (MonoRDSolver, remhos_mono.cpp:25-356).
+
+One nonlinear pass gives the limited solution directly: per-dof limiter
+alphas, nonlinear (conservation-rescaled) flux lumping, optional subcell
+fluctuations (`-mono 2`), an optional smoothness indicator that relaxes the
+limiters in smooth regions (`-si`), and an inner fixed-point iteration that
+restores the consistent-mass accuracy (eqs. 27-29). It reads the assembled
+M, K_elem, bdrInt and ml, so it runs on the assembled stage only, as in the
+reference.
+
+The reference's inner loop walks each element on its own
+(remhos_mono.cpp:285-291). Here, as in the JAX package, one masked loop runs
+over all elements at once and an element freezes when its residual drops to
+TOL; a frozen element never changes again. The loop's exit test is a read
+back from the device, so it is made every `CHECK_EVERY` iterations, never
+past the JAX package's cap of 101 iterations: the iterations past the last
+element's freeze change nothing, so the result is the JAX package's
+whatever the interval.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import assembly as asm
+from . import basis as B
+from . import bounds as bnd
+from . import lo as lom
+from . import problems as prob
+
+EPS = 1.0e-15
+GAMMA = 10.0
+BETA = 10.0
+TOL = 1.0e-8
+# the JAX package's while_loop runs while it <= 100: at most 101 iterations
+MAX_ITER = 101
+# iterations between two exit tests of the inner loop (one read back each)
+CHECK_EVERY = 8
+
+
+def velocity_scale(mesh, disc, problem):
+    """scale[E] = vmax / (2 sqrt(dim) h / p) (remhos_mono.cpp:39-57), vmax
+    sampled at the reference's quadrature (qOrdE = OrderW + 2p +
+    2*OrderGrad, remhos_mono.cpp:46) on the initial mesh. Setup, numpy (the
+    velocity evaluated in f64)."""
+    dim, p, mo = mesh.dim, disc.p, mesh.mesh_order
+    orderW = mo * dim - 1
+    orderGrad = mo * (dim - 1) + p - 1
+    q_ord = orderW + 2 * p + 2 * max(orderGrad, 0)
+    q1, _ = B.gauss_legendre(B.min_gauss_points(q_ord))
+    Bm = B.tensor_mixed([B.lagrange_vals(B.gauss_lobatto(mo + 1), q1)] * dim)
+    x_q = np.einsum("qn,end->eqd", Bm, mesh.x)
+    v = prob.velocity_function(problem, torch.as_tensor(x_q), mesh.bb_min,
+                               mesh.bb_max).numpy()
+    vmax = np.sqrt((v * v).sum(-1)).max(axis=1)
+    return vmax / (2.0 * (np.sqrt(dim) * mesh.element_sizes() / p))
+
+
+def _rescale(c, sp, sn):
+    """The conservation rescaling of remhos_tools.cpp:945-968 and
+    remhos_mono.cpp:318-336: with positive and negative sums sp and sn, the
+    larger side is scaled down so that the parts cancel."""
+    tot = sp + sn
+    cp, cn = c.clamp(min=0.0), c.clamp(max=0.0)
+    return torch.where(
+        tot > EPS, cn - cp * (sn / torch.where(sp != 0, sp, 1.0)),
+        torch.where(tot < -EPS, cp - cn * (sp / torch.where(sn != 0, sn,
+                                                              1.0)), c))
+
+
+def nonlin_flux_lumping(u_face, u_nbr, bdrInt, alpha_face):
+    """NonlinFluxLumping (remhos_tools.cpp:915-973): the lumped face term
+    plus a per-face conservation-rescaled high-order correction,
+    [E, nf, fd]."""
+    xd = u_nbr - u_face
+    row = bdrInt.sum(dim=3)
+    lumped = row * xd
+    corr = ((bdrInt * xd[:, :, None, :]).sum(-1) - row * xd) * alpha_face
+    sp = corr.clamp(min=0.0).sum(dim=2, keepdim=True)
+    sn = corr.clamp(max=0.0).sum(dim=2, keepdim=True)
+    return lumped + _rescale(corr, sp, sn)
+
+
+def mono_rd_solution(adv, geom, u, dt):
+    """MonoRDSolver::CalcSolution (remhos_mono.cpp:60-356), batched over
+    the elements. `adv.mono_stats` counts the inner loops, their iterations
+    and their read-backs."""
+    du, d_full, xi_min, xi_max, si_dof = explicit_part(adv, geom, u)
+    m_it = torch.zeros_like(u)
+    if adv.cfg.problem not in (6, 7):      # mass limiting, remhos.cpp:999
+        m_it = consistent_mass_loop(adv, geom, u, du, d_full, xi_min,
+                                    xi_max, si_dof)
+    return (du + m_it) / geom["ml"]
+
+
+def explicit_part(adv, geom, u):
+    """Everything of the solution but the inner loop (remhos_mono.cpp:
+    60-260): (du, d_full, xi_min, xi_max, si_dof), du the limited
+    fluctuations with the face terms and the RD weighting, d_full the
+    unlimited ones, the dof bounds and the indicator at the dofs (None
+    without -si)."""
+    cfg = adv.cfg
+    K, bdrInt = geom["K_elem"], geom["bdrInt"]
+
+    el_min, el_max = bnd.elements_min_max(u)
+    xi_min, xi_max = adv.compute_bounds(el_min, el_max)
+
+    si_dof = None
+    if cfg.smth_ind:
+        si_dof = adv.smth.dof_values(adv.smth.compute(u))
+
+    z = asm.matvec(K, u)
+    d_full = z
+
+    # the per-dof limiter alpha (remhos_mono.cpp:128-154)
+    up = xi_max - u
+    dn = u - xi_min
+    alpha = torch.clamp(BETA * torch.minimum(up, dn)
+                        / (torch.maximum(up, dn) + EPS), max=1.0)
+    if cfg.smth_ind:
+        t = si_dof
+        bndN = torch.clamp(t * (2. * u - xi_max) + (1. - t) * xi_min,
+                           min=0.0)
+        bndP = torch.clamp(t * (2. * u - xi_min) + (1. - t) * xi_max,
+                           max=1.0)
+        aN = torch.clamp(BETA * (u - bndN) / (xi_max - u + EPS), max=1.0)
+        aP = torch.clamp(BETA * (bndP - u) / (u - xi_min + EPS), max=1.0)
+        mid = xi_min + xi_max
+        alpha = torch.where(mid > 2. * u + EPS, aN,
+                            torch.where(mid < 2. * u - EPS, aP, alpha))
+
+    du = alpha * z
+    z = z - alpha * z
+
+    # the face terms: nonlinear lumping with alpha (du) and alpha = 1 (d)
+    bdr = adv.bdr_dofs
+    u_face = asm.gather_face(u, bdr)
+    u_nbr = adv.gather_nbr(u, adv.inflow_face)
+    alpha_face = alpha[:, bdr]
+    du = asm.scatter_face_add(
+        du, nonlin_flux_lumping(u_face, u_nbr, bdrInt, alpha_face), bdr)
+    d_full = asm.scatter_face_add(
+        d_full, nonlin_flux_lumping(u_face, u_nbr, bdrInt,
+                                    torch.ones_like(alpha_face)), bdr)
+
+    # the residual distribution of the unsplit part z
+    du = du + _rd_weights(adv, geom, u, z)
+    return du, d_full, xi_min, xi_max, si_dof
+
+
+def consistent_mass_loop(adv, geom, u, du, d_full, xi_min, xi_max, si_dof):
+    """The inner consistent-mass iteration (remhos_mono.cpp:262-348) over
+    all elements at once, on `explicit_part`'s output; returns m_it[E,
+    nd]."""
+    M, ml = geom["M"], geom["ml"]
+    scale = adv.mono_scale[:, None]
+    Msum = M.sum(dim=2)
+    diff = d_full - du
+    t = si_dof if si_dof is not None else torch.zeros_like(u)
+    up = torch.minimum(xi_max - u, u - xi_min)
+    upG = torch.minimum(1.0 - u, u) if si_dof is not None else None
+
+    def body(m_it, done):
+        uDot = (du + m_it) / ml
+        uDotMin = uDot.amin(dim=1, keepdim=True)
+        uDotMax = uDot.amax(dim=1, keepdim=True)
+        # sum_j M_ij (uDot_i - uDot_j)
+        m_new = asm.matvec(M, -uDot) + Msum * uDot
+        m_new = m_new + torch.clamp(torch.maximum(
+            t, m_new.abs() / (diff.abs() + EPS)), max=1.0) * diff
+        spread = torch.maximum(uDotMax - uDot, uDot - uDotMin) + EPS
+        a = torch.clamp(BETA * scale * up / spread, max=1.0)
+        if si_dof is not None:
+            aG = torch.clamp(BETA * scale * upG / spread, max=1.0)
+            a = torch.minimum(torch.maximum(si_dof, a), aG)
+        m_new = m_new * a
+        m_new = _rescale(m_new, m_new.clamp(min=0.0).sum(1, keepdim=True),
+                         m_new.clamp(max=0.0).sum(1, keepdim=True))
+        m_it = torch.where(done[:, None], m_it, m_new)
+        res = m_new + du - ml * uDot
+        done = done | (torch.sqrt((res * res).sum(1)) <= TOL)
+        return m_it, done
+
+    k = CHECK_EVERY
+    m_it = torch.zeros_like(u)
+    done = torch.zeros(u.shape[0], dtype=torch.bool, device=u.device)
+    it = reads = 0
+    while it < MAX_ITER:
+        for _ in range(min(k, MAX_ITER - it)):
+            m_it, done = body(m_it, done)
+            it += 1
+        reads += 1
+        if not bool((~done).any()):
+            break
+    st = adv.mono_stats
+    st["solves"] += 1
+    st["iterations"] += it
+    st["max_iterations"] = max(st["max_iterations"], it)
+    st["readbacks"] += reads
+    return m_it
+
+
+def _rd_weights(adv, geom, u, z):
+    """The RD weighting of the remaining fluctuation (remhos_mono.cpp:
+    168-260): `residual_distribution_core`'s formulas without its face
+    accumulator and ml division, with the subcell blending GAMMA."""
+    sub_kw = {}
+    if adv.cfg.mono == 2:
+        sub_kw = dict(subcell=True, subcell_weights=geom["sub_w"],
+                      sub2ind=adv._sub2ind, gamma=GAMMA)
+    return lom.residual_distribution_core(u, z, torch.zeros_like(u),
+                                          torch.ones_like(u), **sub_kw)

@@ -1,7 +1,8 @@
 """The advection operator: stage geometry and the HO/LO/FCT dispatch.
 
 The port of `remhos_tpu.operator.Advection` for remap (problems 10-17) and
-transport (problems 0-7) on a structured 2D/3D mesh, with and without `-pa`.
+transport (problems 0-7) on a structured 1D/2D/3D mesh, with and without
+`-pa`.
 Stage functions work on the block state `S[nfields, E, nd]` (field 0 = u,
 field 1 = us for product remap) and return `(dS, aux)` with `aux =
 [dt_ratio, -violations]`, a 2-element tensor on the device that is never
@@ -46,9 +47,18 @@ volume and face geometry at the moved nodes, K_elem, bdrInt, M and ml;
 the Cholesky factors of M for `-ho 3` and every FCT; D for `-lo 1|2`; the
 subcell weights for `-lo 4`. Transport assembles them once. The solvers
 are `ho.py` (`-ho 1|2|3`), `lo.py` (`-lo 1|2|3|4|5`), `fct.py` (`-fct 2|4`),
-`fct_flux.py` (`-fct 1`) and `fct_penalty.py` (`-fct 3`): batched dense
-products and factorizations in plain PyTorch, as the JAX package runs them
-through XLA with no Pallas kernel. No product runs in TF32.
+`fct_flux.py` (`-fct 1`), `fct_penalty.py` (`-fct 3`, with `-si` its
+sharpened bounds) and the monolithic `mono.py` (`-mono 1|2`, which replaces
+the HO solution and reads M, K_elem and bdrInt): batched dense products and
+factorizations in plain PyTorch, as the JAX package runs them through XLA
+with no Pallas kernel. No product runs in TF32. The smoothness indicator
+(`si.py`, `-si 1|2`) is built once from the initial mesh.
+
+1D meshes never reach the stage kernels, as in the JAX package: the driver
+runs them assembled (the reference disables PA in 1D), and a 1D remap
+operator built with `-pa` takes `geometry.volume_detj_va` and
+`pa.conv_action` in plain PyTorch. Their face normals come from the face
+Jacobians (`geometry.face_geometry`: a point face has no tangent).
 
 The inflow values enter the LO solutions' (and the Neumann HO solution's)
 neighbour gather on physical boundaries (`inflow_face`,
@@ -74,6 +84,7 @@ from . import fct_penalty
 from . import geometry as geo
 from . import ho as hom
 from . import lo as lom
+from . import mono as monom
 from . import pa as pam
 from . import problems as prob
 from . import resolve_device
@@ -82,6 +93,7 @@ from . import subcell as subm
 from . import sync as syncm
 from . import verify as vfy
 from .discretization import Discretization
+from .si import SmoothnessIndicator
 from .ops import tables as tbl
 from .ops.geom_conv import geom_conv, geom_conv_tables
 from .ops.mega_stage import mega_stage
@@ -122,13 +134,8 @@ def solver_unported(cfg: SolverConfig, dim: int):
     """What of a solver configuration on a `dim`-dimensional mesh is not
     ported yet, naming its ROADMAP.md item, or None when the port runs
     it."""
-    if cfg.mono != 0 or cfg.smth_ind != 0:
-        return "the monolithic solvers and smoothness indicators " \
-               "(Queue 1, item 5)"
     if cfg.poly_bf16:
         return "the bf16 P16 stream (Queue 2, item 2)"
-    if dim not in (2, 3):
-        return "1D meshes (Queue 1, item 6)"
     return None
 
 
@@ -143,7 +150,12 @@ def solver_rejected(cfg: SolverConfig):
         return f"unsupported fct type {cfg.fct}"
     if cfg.pa and cfg.lo in (1, 2):
         return "discrete upwind has no PA path (matches the reference)"
-    if cfg.ho not in (1, 2, 3) and (cfg.fct != 0 or cfg.lo in (0, 5)):
+    if cfg.pa and cfg.mono != 0:
+        return ("the monolithic solver has no PA path: it reads the "
+                "assembled M, K_elem and bdrInt (the JAX package fails with "
+                "a KeyError)")
+    if cfg.mono == 0 and cfg.ho not in (1, 2, 3) and (
+            cfg.fct != 0 or cfg.lo in (0, 5)):
         return "no HO solver selected"
     if cfg.fct != 0 and cfg.lo not in (1, 2, 3, 4, 5):
         return "no LO solver selected"
@@ -192,7 +204,9 @@ class Advection:
         self.nbr_dof_local = torch.as_tensor(
             disc.dofmaps.nbr_dof_local, dtype=torch.long, device=self.device)
         self.masks = strm.edge_masks(self.shape, self.device)
-        self._wdet_tables = wdet_tables(disc, dtype, self.device)
+        # the wdet kernel is compiled for 2D and 3D; 1D takes the plain route
+        self._wdet_tables = (wdet_tables(disc, dtype, self.device)
+                             if disc.dim > 1 else None)
         self._cls = torch.as_tensor(tbl.class_of_dofs(disc.nd, disc.dim),
                                     dtype=torch.long, device=self.device)
         # the constant halves of aux, made once: no fill launch per stage
@@ -205,12 +219,24 @@ class Advection:
         # the bounds stencils' mesh tables, where compute_bounds reads them
         self._bounds_topo = (None if cfg.bounds_type == 0 else
                              dmm.bounds_topology(mesh, disc.p, self.device))
+        # the smoothness indicator's tables and the monolithic solver's
+        # velocity scale, made once from the initial mesh
+        self.smth = (None if not cfg.smth_ind else SmoothnessIndicator(
+            cfg.smth_ind, disc, dtype, self.device))
+        self.mono_scale = (None if cfg.mono == 0 else T(
+            monom.velocity_scale(mesh, disc, cfg.problem)))
+        # the monolithic solver's inner loops: solves, iterations (their
+        # sum and the most in one solve) and read-backs of the exit test
+        self.mono_stats = dict(solves=0, iterations=0, max_iterations=0,
+                               readbacks=0)
         # the reference's gate (its `_fused_stage`): the canonical remap
-        # family runs the fused stage kernels, everything else the
-        # composition of geom_conv (or, in transport, conv_action) with
-        # plain PyTorch
+        # family on a 2D or 3D mesh runs the fused stage kernels, everything
+        # else the composition of geom_conv (or, in transport and in 1D,
+        # conv_action) with plain PyTorch; -mono and -si never reach them
         self._fused_stage = (cfg.pa and cfg.exec_mode == 1 and cfg.ho == 3
-                             and cfg.lo in (0, 5) and cfg.fct in (0, 2))
+                             and cfg.lo in (0, 5) and cfg.fct in (0, 2)
+                             and cfg.mono == 0 and cfg.smth_ind == 0
+                             and disc.dim in (2, 3))
         if self._fused_stage:
             self._stage_tables = tbl.stage_ho_tables(disc, dtype,
                                                      self.device)
@@ -230,14 +256,19 @@ class Advection:
         self.Bface, self.w_fq = T(disc.Bface), T(disc.w_fq)
         self.bdr_dofs = torch.as_tensor(disc.dofmaps.bdr_dofs,
                                         dtype=torch.long, device=dev)
-        Gt, sign = geo.face_tangent_tables(disc.Gmf, disc.n_ref)
-        self._face_tan = (T(Gt), T(sign))
+        # the tangent-only face normals; None in 1D, where the normals come
+        # from the full face Jacobians (`geometry.face_geometry`)
+        ft = geo.face_tangent_tables(disc.Gmf, disc.n_ref)
+        self._face_tan = None if ft is None else (T(ft[0]), T(ft[1]))
+        if ft is None:
+            self.Bmf, self.Gmf = T(disc.Bmf), T(disc.Gmf)
+            self.n_ref = T(disc.n_ref)
         # inflow values at each element's own face dofs: the neighbour value
         # on physical boundaries in the LO solutions (remhos_tools.cpp:891)
         self.inflow_face = (None if inflow is None else
                             asm.gather_face(T(inflow), self.bdr_dofs))
         self._sub2ind = None
-        if self.cfg.lo == 4:
+        if self.cfg.lo == 4 or self.cfg.mono == 2:
             self._sub2ind = torch.as_tensor(disc.dofmaps.sub2ind,
                                             dtype=torch.long, device=dev)
             self._q1_grads = T(subm.q1_center_grads(disc.dim))
@@ -251,8 +282,17 @@ class Advection:
             self.Bu_w = self.Bu * self.w_q[:, None]
             self._transport_geom = self._transport_geometry(T)
             return
-        self._gc_tables = geom_conv_tables(disc, self.dtype, dev)
         self._v_fq_static = self._face_velocity(T)
+        if disc.dim == 1:
+            # kernels 3 and 4 are compiled for 2D and 3D: in 1D the stage
+            # geometry is volume_detj_va's and the convection action
+            # conv_action's, in plain PyTorch (remhos_tpu/operator.py:
+            # 242-268)
+            self.Gu, self.Gm = T(disc.Gu), T(disc.Gm)
+            self.Bu_w = self.Bu * self.w_q[:, None]
+            self._v_q_static = geo.interp_nodes(self.v_nodes, T(disc.Bm))
+            return
+        self._gc_tables = geom_conv_tables(disc, self.dtype, dev)
 
     def _face_velocity(self, T):
         """The remap mesh velocity at the face points [E, nf, Qf, dim]. It
@@ -262,6 +302,19 @@ class Advection:
         return geo.interp_nodes(
             self.v_nodes, T(self.disc.Bmf.reshape(nf * Qf, nm))).reshape(
                 self.v_nodes.shape[0], nf, Qf, -1)
+
+    def _face_normals(self, x):
+        """The scaled outward face normals [E, nf, Qf, dim] at the nodes x:
+        from the tangents, or in 1D from the full face Jacobians."""
+        if self._face_tan is not None:
+            return geo.face_normals_tangent(x, *self._face_tan)
+        return geo.face_geometry(x, self.Bmf, self.Gmf, self.n_ref)[1]
+
+    def _face_points_normals(self, x, Bmf):
+        """(x_fq, nor) at the nodes x, as `_face_normals` routes them."""
+        if self._face_tan is not None:
+            return geo.face_geometry_tangent(x, Bmf, *self._face_tan)
+        return geo.face_geometry(x, Bmf, self.Gmf, self.n_ref)
 
     def _velocity(self, pts):
         """A transport problem's velocity at points of the working dtype,
@@ -292,8 +345,7 @@ class Advection:
         disc, cfg = self.disc, self.cfg
         x = self.x0_nodes
         vol = geo.volume_geometry(x, T(disc.Bm), T(disc.Gm))
-        x_fq, nor = geo.face_geometry_tangent(x, T(disc.Bmf),
-                                              *self._face_tan)
+        x_fq, nor = self._face_points_normals(x, T(disc.Bmf))
         v_q, v_fq = self._velocity(vol["x_q"]), self._velocity(x_fq)
         wdet = self.w_q[None, :] * vol["detJ"]
         va = -(v_q[:, :, None, :] * vol["adjJ"]).sum(-1)
@@ -332,6 +384,9 @@ class Advection:
 
         Transport: the one static geometry made at construction.
 
+        1D remap with -pa: det J and va = adj J v by `volume_detj_va`, the
+        normals from the face Jacobians, in plain PyTorch (no kernel).
+
         Assembled stage: `_assemble(t)` (in transport made once)."""
         if self._fused_stage:
             return dict(t=t)
@@ -342,11 +397,16 @@ class Advection:
         if self.cfg.exec_mode == 0:
             return self._transport_geom
         xs = self.x0_nodes + t * self.v_nodes
-        nor = geo.face_normals_tangent(xs, *self._face_tan)
+        nor = self._face_normals(xs)
         vn = (self._v_fq_static * nor).sum(-1)
         wvn = -(self.w_fq[None, None, :] * (-vn.clamp(min=0.0)))
         geom = dict(t=t, xs=xs, wvn=wvn)
-        self._set_wdet(geom, wdet_kernel(xs, self._wdet_tables))
+        if self._wdet_tables is None:
+            detJ, geom["va"] = geo.volume_detj_va(xs, self.Gm,
+                                                  self._v_q_static, 1.0)
+            self._set_wdet(geom, self.w_q[None, :] * detJ)
+        else:
+            self._set_wdet(geom, wdet_kernel(xs, self._wdet_tables))
         if self.cfg.lo == 4:
             geom["sub_w"] = subm.subcell_weights(self, t)
         return geom
@@ -354,19 +414,20 @@ class Advection:
     def _assemble(self, t):
         """The assembled stage geometry at time t (remhos.cpp:1598-1676;
         remhos_tpu/operator.py:270-319): detJ, K_elem, bdrInt, M, ml; chol_L
-        for -ho 3; D for -lo 1|2; sub_w for -lo 4. The JAX package also
-        factors M for every FCT, where nothing reads the factors: the port
-        does not, and so runs the rows whose mesh tangles late in the
-        pseudo-time (readme-run11-cube3d: M is indefinite there, which
-        `torch.linalg.cholesky` refuses and XLA's Cholesky turns into NaN
-        factors that nothing reads)."""
+        for -ho 3; D for -lo 1|2; sub_w for -lo 4 and -mono 2. M is made for
+        every configuration (the monolithic solver reads it). The JAX
+        package also factors M for every FCT and -mono, where nothing reads
+        the factors: the port does not, and so runs the rows whose mesh
+        tangles late in the pseudo-time (readme-run11-cube3d: M is
+        indefinite there, which `torch.linalg.cholesky` refuses and XLA's
+        Cholesky turns into NaN factors that nothing reads)."""
         cfg = self.cfg
         if cfg.exec_mode == 1:
             x = self.x0_nodes + t * self.v_nodes
         else:
             x = self.x0_nodes
         vol = geo.volume_geometry(x, self.Bm, self.Gm)
-        x_fq, nor = geo.face_geometry_tangent(x, self.Bmf, *self._face_tan)
+        x_fq, nor = self._face_points_normals(x, self.Bmf)
         if cfg.exec_mode == 0:
             v_q, v_fq = self._velocity(vol["x_q"]), self._velocity(x_fq)
             sign = -1.0
@@ -387,7 +448,7 @@ class Advection:
         elif cfg.lo == 2:
             geom["D"] = lom.discrete_upwind_matrix(
                 lom.precond_convection_matrix(K_elem, M))
-        elif cfg.lo == 4:
+        if cfg.lo == 4 or cfg.mono == 2:
             geom["sub_w"] = subm.subcell_weights(self, t)
         return geom
 
@@ -539,14 +600,16 @@ class Advection:
     # ------------------------------------------------------------------
 
     def mult_unlimited(self, t, dt, S, geom=None):
-        """HO (or LO-only) update for all fields
+        """HO (or monolithic, or LO-only) update for all fields
         (AdvectionOperator::MultUnlimited, remhos.cpp:1596-1739)."""
         cfg = self.cfg
         if geom is None:
             geom = self.geometry(t)
         outs = []
         for k in range(S.shape[0]):
-            if cfg.fct == 0 and cfg.lo != 0:
+            if cfg.mono != 0:
+                outs.append(monom.mono_rd_solution(self, geom, S[k], dt))
+            elif cfg.fct == 0 and cfg.lo != 0:
                 outs.append(self.lo_solution(geom, S[k], dt=dt))
             else:
                 outs.append(self.ho_solution(geom, S[k]))

@@ -130,6 +130,8 @@ def u0_function(problem: int, x, bb_min, bb_max):
     X = _ref_coords(x, bb_min, bb_max)
     pe = problem % 10
     if pe in (0, 1):
+        if dim == 1:
+            return torch.exp(-40.0 * (X[..., 0] - 0.5) ** 2)
         rx, ry, cx, cy, w = 0.45, 0.25, 0.0, -0.2, 10.0
         if dim == 3:
             s = 1.0 + 0.25 * torch.cos(2 * math.pi * X[..., 2])

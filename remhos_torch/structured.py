@@ -30,6 +30,22 @@ def _strides(shape):
     return strides
 
 
+def _shift(arr, gdim, side, periodic, fill=None, edge_slab=None):
+    """Neighbour values along grid dimension `gdim` of a grid-shaped array:
+    entry i reads i+1 (side 1) or i-1 (side 0). On a periodic axis the roll
+    wraps; otherwise the edge slab reads `fill`, or `edge_slab` (given, it
+    also overrides a periodic wrap)."""
+    out = torch.roll(arr, -1 if side == 1 else 1, dims=gdim)
+    if periodic and edge_slab is None:
+        return out
+    idx = [slice(None)] * arr.ndim
+    idx[gdim] = slice(-1, None) if side == 1 else slice(0, 1)
+    idx = tuple(idx)
+    out[idx] = fill if edge_slab is None else edge_slab.reshape(
+        out[idx].shape)
+    return out
+
+
 def _edge_mask(E, shape, axis, side, device=None):
     """Boolean [E]: element lies on the (axis, side) edge of the grid."""
     dim = len(shape)

@@ -5,7 +5,8 @@ Every row of goldens/reference_goldens.json is handed to
 `remhos_torch.driver.run`. A row the port supports runs to its end and its
 'Final mass u' and 'Max value u' are held against the reference CI
 baseline at the baseline's print precision (10 significant digits: 5e-10
-relative), with the JAX runner's per-row tolerances and its `--f32` tier.
+relative), with the JAX runner's per-row tolerances and its `--f32` tier
+(which also holds the mass the f32 closure put back to CLOSURE_BUDGET).
 A row that needs unported code (`driver.unported`, from its configuration
 alone) is listed by name with the ROADMAP.md item it needs, whatever
 `--only` and `--skip` select. Any exception and any mismatch of a row that
@@ -33,6 +34,10 @@ from ..driver import run, unported
 GOLDENS = Path(__file__).resolve().parents[2] / "goldens" / \
     "reference_goldens.json"
 TOL = 5e-10             # the baseline prints 10 significant digits
+# the f32 tier's budget for the mass the closure put back, relative to the
+# initial mass (chip_smoke.py's closure_injected_rel limit): the closure
+# pins the mass, so a loss of the scheme shows here, not in the mass
+CLOSURE_BUDGET = 1e-4
 _ITEM = re.compile(r"Queue (\d+), item (\d+)")
 
 
@@ -66,6 +71,10 @@ def check_row(row, r, f32):
                          5.0 * row.get("loss_us", 0.0))
         if r.mass_loss_u > loss_bound:
             msgs.append(f"f32 conservation broken: {r.mass_loss_u:.3g}")
+        if r.mass_closure_injected_rel > CLOSURE_BUDGET:
+            msgs.append(f"f32 closure injected "
+                        f"{r.mass_closure_injected_rel:.3g} of the mass "
+                        f"(budget {CLOSURE_BUDGET:g})")
     else:
         if "loss_us" in row and not (
                 0.2 * row["loss_us"] <= r.mass_loss_us
@@ -107,9 +116,11 @@ def main(argv=None) -> int:
         r = run(cfg)
         msgs = check_row(row, r, args.f32)
         (failed if msgs else matched).append(name)
+        inj = (f"closure_injected_rel={r.mass_closure_injected_rel:.3g} "
+               if args.f32 else "")
         print(f"{'FAIL' if msgs else 'PASS'} {name:28s} "
               f"mass={r.final_mass_u:.10g} max={r.max_u:.10g} "
-              f"steps={r.steps} [{time.perf_counter() - t0:.1f}s] "
+              f"steps={r.steps} {inj}[{time.perf_counter() - t0:.1f}s] "
               f"{'; '.join(msgs)}", flush=True)
     print(f"\n{len(matched)} matched, {len(failed)} failed, {len(listed)} "
           f"listed as not ported")

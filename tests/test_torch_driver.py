@@ -146,18 +146,19 @@ def test_default_mesh_3d_rk6():
 @pytest.mark.parametrize("kw,item", [
     (dict(n_shards=2), "Queue 1, item 10"),
     (dict(shard_grid=(2,)), "Queue 1, item 10"),
-    (dict(dcn=True), "Queue 1, item 10"), (dict(mono=1), "Queue 1, item 5"),
+    (dict(dcn=True), "Queue 1, item 10"),
+    (dict(mono=1, save=True), "Queue 1, item 9"),
     (dict(vis=True), "Queue 1, item 9"), (dict(visit=True), "Queue 1, item 9"),
     (dict(save=True), "Queue 1, item 9"),
     (dict(profile_dir="prof"), "Queue 1, item 9"),
-    (dict(smth_ind=1), "Queue 1, item 5"),
-    (dict(fct=3, smth_ind=1), "Queue 1, item 5"),
+    (dict(smth_ind=1, mesh="star.mesh"), "Queue 1, item 8"),
+    (dict(fct=3, smth_ind=1, n_shards=2), "Queue 1, item 10"),
     (dict(mesh="star.mesh"), "Queue 1, item 8"),
-    (dict(mesh="periodic-segment"), "Queue 1, item 6"),
+    (dict(mesh="periodic-segment", visit=True), "Queue 1, item 9"),
     (dict(lo=1, pa=False, mesh="periodic-hexagon"), "Queue 1, item 8"),
-    (dict(fct=4, mono=2), "Queue 1, item 5"),
-    (dict(pa=False, mesh="periodic-segment"), "Queue 1, item 6"),
-    (dict(bounds_type=1, mono=1), "Queue 1, item 5"),
+    (dict(fct=4, mono=2, profile_dir="prof"), "Queue 1, item 9"),
+    (dict(pa=False, mesh="periodic-segment", dcn=True), "Queue 1, item 10"),
+    (dict(bounds_type=1, mono=1, mesh="ball-nurbs"), "Queue 1, item 8"),
     (dict(ho=1, pa=False, mesh="disc-nurbs"), "Queue 1, item 8")])
 def test_unported_options_raise(kw, item):
     cfg = RunConfig(device="cpu",

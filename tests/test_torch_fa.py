@@ -29,9 +29,13 @@ from remhos_tpu import ho as jho
 from remhos_tpu import lo as jlo
 from remhos_tpu.discretization import build_discretization as jbuild
 from remhos_tpu.mesh import make_cartesian_mesh as jmesh
+from remhos_tpu.si import SmoothnessIndicator as JSI
 
 from remhos_torch import assembly as asm
 from remhos_torch import fct, fct_flux, fct_penalty, ho, lo
+from remhos_torch.discretization import build_discretization
+from remhos_torch.mesh import make_cartesian_mesh
+from remhos_torch.si import SmoothnessIndicator
 from torch_threads import one_torch_thread  # noqa: F401
 
 DT = 0.01
@@ -302,11 +306,23 @@ def test_nonlinear_penalty(case):
 
 
 def test_nonlinear_penalty_with_si_names_its_item(case):
+    """-fct 3 with -si, which named its ROADMAP item until the smoothness
+    indicator was ported: the sharpened bounds (remhos_fct.cpp:779-794) of
+    both indicator types against the JAX package's, whose indicator tables
+    are f64."""
     c = case
-    adv = _adv(c, "torch")
-    adv.cfg.smth_ind = 1
+    dim = c.dim
+    disc = build_discretization(make_cartesian_mesh(
+        dim, c.jd.mesh.shape, (0.0,) * dim, (1.0,) * dim, (False,) * dim),
+        c.p)
     umin, umax = _bounds(c)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        fct_penalty.nonlinear_penalty(
-            adv, _geom(c, c.t), *map(c.t, (c.u, c.du_ho, c.du_lo, umin,
-                                           umax)), DT)
+    args = (c.u, c.du_ho, c.du_lo, umin, umax)
+    for si_type in (1, 2):
+        adv_t, adv_j = _adv(c, "torch"), _adv(c, "jax")
+        adv_t.cfg.smth_ind = adv_j.cfg.smth_ind = si_type
+        adv_t.smth = SmoothnessIndicator(si_type, disc, c.dtype, "cpu")
+        adv_j.smth = JSI(si_type, c.jd, c.jd.mesh.bb_min, c.jd.mesh.bb_max)
+        got = fct_penalty.nonlinear_penalty(adv_t, _geom(c, c.t),
+                                            *map(c.t, args), DT)
+        c.check(got, jpen.nonlinear_penalty(adv_j, _geom(c, c.j),
+                                            *map(c.j, args), DT))

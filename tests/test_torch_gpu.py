@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from remhos_torch import bench, bounds, driver, structured
+from remhos_torch import problems as prob
 from remhos_torch.config import RunConfig
 from remhos_torch.discretization import build_discretization
 from remhos_torch.mesh import make_cartesian_mesh
@@ -769,3 +770,66 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed"):
         ms.mega_stage(0.1, DT, u, unbr, x, x, adv._poly, tables,
                       bounds="dof")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mono,si", [(2, 2), (1, 1)])
+def test_short_path_h_matches_the_cpu(mono, si):
+    """Path H cut to a 24x24 mesh and 4 steps: -mono -si on the card, no
+    kernel launched, the same run as on the CPU to 1e-12 in f64, with
+    path H's gates."""
+    _cuda()
+    kw = dict(mesh="periodic-square", problem=4, rs_levels=3, order=2,
+              dt=0.005, t_final=0.03, max_tsteps=4, ho=0, lo=0, fct=0,
+              mono=mono, smth_ind=si, verbose=False)
+    ops.reset_launch_counts()
+    rc = driver.run(RunConfig(device="cuda", **kw))
+    rh = driver.run(RunConfig(device="cpu", **kw))
+    assert set(ops.launch_counts().values()) == {0}
+    assert abs(rc.final_mass_u - rh.final_mass_u) <= 1e-12 * rh.final_mass_u
+    assert abs(rc.max_u - rh.max_u) <= 1e-12 * rh.max_u
+    assert rc.mass_loss_u < 1e-11 and rc.max_u <= 1.0 + 1e-9
+
+
+@pytest.mark.gpu
+def test_short_path_i_matches_the_cpu():
+    """Path I cut to 32 elements and 20 steps: 1D -ho 3 -lo 4 -fct 2 on the
+    card, no kernel launched, the same run as on the CPU to 1e-12 in f64;
+    in f32 the repaired residual distribution keeps its bounds."""
+    _cuda()
+    kw = dict(mesh="periodic-segment", problem=0, rs_levels=3, order=3,
+              dt=0.001, t_final=1.0, max_tsteps=20, ho=3, lo=4, fct=2,
+              verbose=False)
+    ops.reset_launch_counts()
+    rc = driver.run(RunConfig(device="cuda", **kw))
+    rh = driver.run(RunConfig(device="cpu", **kw))
+    assert set(ops.launch_counts().values()) == {0}
+    assert abs(rc.final_mass_u - rh.final_mass_u) <= 1e-12 * rh.final_mass_u
+    assert abs(rc.max_u - rh.max_u) <= 1e-12 * rh.max_u
+    assert rc.mass_loss_u < 1e-13 and rc.max_u <= 1.0 + 1e-10
+    r32 = driver.run(RunConfig(device="cuda", dtype="float32", **kw))
+    assert r32.max_u <= 1.0 + 1e-6 and r32.mass_closure_injected_rel < 1e-4
+
+
+@pytest.mark.gpu
+def test_mono_loop_does_not_depend_on_its_exit_interval(monkeypatch):
+    """The inner consistent-mass loop tests its exit every k iterations on
+    the card: the same bits for k = 1, 8 and past the cap."""
+    _cuda()
+    from remhos_torch import mono
+    cfg = RunConfig(mesh="periodic-square", problem=4, rs_levels=3, order=2,
+                    dt=0.005, ho=0, lo=0, fct=0, mono=2, smth_ind=2,
+                    device="cuda", verbose=False)
+    adv, dt = driver.build_operator(cfg)
+    mesh = adv.disc.mesh
+    u, _ = driver.project_bernstein(
+        adv.x0_nodes, adv.disc.Bm_at_unodes,
+        lambda x: prob.u0_function(4, x, mesh.bb_min, mesh.bb_max))
+    geom = adv.geometry(0.0)
+    outs = []
+    for k in (1, mono.CHECK_EVERY, mono.MAX_ITER + 1):
+        monkeypatch.setattr(mono, "CHECK_EVERY", k)
+        outs.append(mono.mono_rd_solution(adv, geom, u, dt))
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    assert adv.mono_stats["solves"] == 3

@@ -110,7 +110,8 @@ def test_import_pulls_in_no_jax():
             "remhos_torch.tools.run_goldens, remhos_torch.tools.sweep, "
             "remhos_torch.tools.trace_drops, remhos_torch.ho, "
             "remhos_torch.fct_flux, remhos_torch.fct_penalty, "
-            "remhos_torch.bounds, remhos_torch.dofmaps; "
+            "remhos_torch.bounds, remhos_torch.dofmaps, "
+            "remhos_torch.mono, remhos_torch.si; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('remhos_tpu')]; "
             "assert not bad, bad")
@@ -150,19 +151,22 @@ def test_entry_points_default_to_cuda():
 def test_unported_configurations_raise():
     from remhos_torch.operator import Advection, SolverConfig
     case = bench.build_case(n=2, order=3, device="cpu", n_steps=2)
-    for cfg in (SolverConfig(problem=4, fct=3, smth_ind=1),
-                SolverConfig(lo=1, mono=1), SolverConfig(fct=1, mono=2),
-                SolverConfig(ho=1, smth_ind=2),
-                SolverConfig(mono=1), SolverConfig(smth_ind=1),
+    for cfg in (SolverConfig(problem=4, fct=3, smth_ind=1, poly_bf16=True),
+                SolverConfig(lo=1, mono=1, poly_bf16=True),
+                SolverConfig(fct=1, mono=2, poly_bf16=True),
+                SolverConfig(ho=1, smth_ind=2, poly_bf16=True),
+                SolverConfig(mono=1, poly_bf16=True),
+                SolverConfig(smth_ind=1, poly_bf16=True),
                 SolverConfig(poly_bf16=True),
                 SolverConfig(bounds_type=1, poly_bf16=True),
-                SolverConfig(pa=False, mono=1)):
+                SolverConfig(pa=False, mono=1, poly_bf16=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Advection(case.disc, cfg, case.adv.x0_nodes, case.adv.v_nodes,
                       device="cpu")
     # what the JAX package rejects raises ValueError
     for cfg in (SolverConfig(lo=1), SolverConfig(fct=1),
-                SolverConfig(ho=1), SolverConfig(ho=0)):
+                SolverConfig(ho=1), SolverConfig(ho=0),
+                SolverConfig(mono=1)):
         with pytest.raises(ValueError):
             Advection(case.disc, cfg, case.adv.x0_nodes, case.adv.v_nodes,
                       device="cpu")

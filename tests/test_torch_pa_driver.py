@@ -95,20 +95,21 @@ def test_dt_control_lo3():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(lo=1, mono=1), "Queue 1, item 5"),
-    (dict(lo=2, mesh="periodic-segment"), "Queue 1, item 6"),
-    (dict(fct=1, smth_ind=2), "Queue 1, item 5"),
-    (dict(fct=3, smth_ind=1), "Queue 1, item 5"),
+    (dict(lo=1, mono=1, save=True), "Queue 1, item 9"),
+    (dict(lo=2, mesh="periodic-segment", vis=True), "Queue 1, item 9"),
+    (dict(fct=1, smth_ind=2, mesh="star.mesh"), "Queue 1, item 8"),
+    (dict(fct=3, smth_ind=1, n_shards=2), "Queue 1, item 10"),
     (dict(fct=4, mesh="periodic-hexagon"), "Queue 1, item 8"),
     (dict(ho=1, profile_dir="prof"), "Queue 1, item 9"),
     (dict(ho=0, lo=3, dcn=True), "Queue 1, item 10"),
-    (dict(mono=1), "Queue 1, item 5"),
-    (dict(lo=4, mono=2), "Queue 1, item 5"),
-    (dict(smth_ind=1), "Queue 1, item 5"),
+    (dict(mono=1, dcn=True), "Queue 1, item 10"),
+    (dict(lo=4, mono=2, visit=True), "Queue 1, item 9"),
+    (dict(smth_ind=1, profile_dir="prof"), "Queue 1, item 9"),
     (dict(lo=3, pa=False, save=True), "Queue 1, item 9"),
     (dict(lo=3, vis=True), "Queue 1, item 9"),
     (dict(lo=3, n_shards=2), "Queue 1, item 10"),
-    (dict(lo=3, mesh="periodic-segment"), "Queue 1, item 6"),
+    (dict(lo=3, mesh="periodic-segment", shard_grid=(2,)),
+     "Queue 1, item 10"),
     (dict(lo=4, mesh="star.mesh"), "Queue 1, item 8"),
     (dict(lo=3, bounds_type=1, mesh="ball-nurbs"), "Queue 1, item 8")])
 def test_unported_options_still_raise(kw, item):
