@@ -132,9 +132,30 @@ It builds the CUDA kernels from the sources on first use, then:
       and `transport-ballsjacks-m2` in its f32 tier.
    No kernel and no kernel variant may launch on e-g: the JAX package runs
    -mono, -si and 1D through no Pallas kernel either;
+   h. path J, general meshes read back by path from MFEM files that
+      `vis.mfem_mesh_text` writes (a temporary directory): J1, the main
+      path's 24^3 box (mesh order 2, p=3) with every element's corner frame
+      turned by a random cube rotation from the seed, -p 10 -ho 3 -lo 5
+      -fct 2 -pa, dt = 0.2/320, in f64 for 100 steps against the unrotated
+      structured run (final mass 1e-12 relative, max u 1e-11) and in f32
+      for 320 steps with the Kahan combine and the full closure under path
+      F's gates; every stage is one launch of kernel 1's per-dof variant
+      (the CG-node overlap bounds of a general mesh), which is then held
+      against its plain version on the rotated mesh's own inputs (f32 and
+      f64); J2, the J1 mesh with -ho 2 -lo 4 -pa, f64, 20 steps, against
+      the structured run, with wdet and geom_conv held against their plain
+      versions on the rotated nodes; J3, inline-quad written at -rs 1 and
+      read back at -rs 4 (128^2 elements through the general refinement),
+      p=3, -p 14 -ho 3 -lo 5 -fct 2 -pa, f64, 100 steps against the registry
+      mesh at -rs 5, with -save (meshHO_final.mesh read back by the general
+      loader equals the final nodes to 1e-13; sltn_final.gf holds E*nd
+      values), then 10 steps with -prof, which must write a trace. Each run
+      prints its ms a step, its setup seconds and its launch counts;
 10. prints one JSON line per result, the wall seconds of each step and a
     `kernels` line (kernel 1's per-dof variant as a row of its own,
-    `variant_of` "mega_stage", its launches from path F);
+    `variant_of` "mega_stage", its launches from path F; it, wdet and
+    geom_conv also carry their launches and numbers on path J's general
+    meshes);
 11. ends with {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a path and read just after. Any
@@ -144,17 +165,21 @@ result.
 
 import contextlib
 import io
+import itertools
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from remhos_torch import bench, bounds, dofmaps, driver, mono, ops, pa
+from remhos_torch import (bench, bounds, dofmaps, driver, mono, ops, pa,
+                          umesh, umesh3d, vis)
 from remhos_torch import problems as prob
 from remhos_torch import structured
 from remhos_torch.config import RunConfig
@@ -311,6 +336,30 @@ SLICE10_ROWS = ("steady-mono1", "steady-mono2", "transport-1d-m1",
                 "transport-1d-m2", "transport-1d-m3", "transport-1d-m4",
                 "transport-1d-m5")
 F32_ROWS = ("transport-ballsjacks-m2",)
+# path J: general meshes at full width, read back by path from MFEM files
+# the port's writer makes. J1: the main path's 24^3 box (mesh order 2,
+# p=3) with every element's corner frame turned by a random cube rotation
+# from the seed; -p 10 -ho 3 -lo 5 -fct 2 -pa at dt = 0.2/320, in f64 for
+# 100 steps against the unrotated structured run, then in f32 for 320
+# steps (the Kahan combine and the full closure) under path F's gates; on
+# a general mesh the -bt 0 bounds are the CG-node overlap, so every stage
+# is one launch of kernel 1's per-dof variant. J2: the J1 mesh with -ho 2
+# -lo 4 -pa (kernels 3 and 4), f64, 20 steps, against the structured run.
+# J3: inline-quad written at -rs 1 and read back at -rs 4 (the general
+# quad refinement: 128^2 = 16,384 elements), p=3, -p 14 -ho 3 -lo 5 -fct 2
+# -pa, f64, 100 steps, against the registry mesh at -rs 5, with -save;
+# then 10 steps of it with -prof.
+PATH_J1 = dict(PATH_F, bounds_type=0, dtype="float64", max_tsteps=100)
+PATH_J1_F32 = dict(PATH_F, bounds_type=0)
+PATH_J2 = dict(PATH_J1, ho=2, lo=4, max_tsteps=20)
+PATH_J3 = dict(mesh="inline-quad", rs_levels=5, order=ORDER, problem=14,
+               ho=3, lo=5, fct=2, pa=True, dtype="float64", t_final=0.7,
+               dt=0.2 / 320, max_tsteps=100, verbose=False)
+# the general run against the structured one: the same elements in other
+# frames and numberings, so equal to round-off
+J_LIMITS = dict(mass_rel=1e-12, max_u=1e-11)
+# the written mesh read back, against the final nodes (%.16g text)
+J_SAVE_LIMIT = 1e-13
 # the orders kernels 1, 2 and 5 are also held at (p=3: step 3's checks);
 # p = 2-4 are compiled sizes of the core, p = 1 and 5 its runtime sizes
 ORDERS = (1, 2, 4, 5)
@@ -1597,6 +1646,257 @@ def check_vb_stage(device):
     return rec
 
 
+def cube_rotations():
+    """The 24 rotation matrices of the cube (axis permutations with signs,
+    det = +1)."""
+    rots = []
+    for perm in itertools.permutations(range(3)):
+        for signs in itertools.product((1, -1), repeat=3):
+            R = np.zeros((3, 3))
+            for a in range(3):
+                R[a, perm[a]] = signs[a]
+            if np.linalg.det(R) > 0:
+                rots.append(R)
+    return rots
+
+
+def scramble(corners, corner_pos, rng):
+    """Each hex's corner frame turned by a random cube rotation
+    (tests/test_umesh3d.py's `_scramble`): which old corner sits at each
+    new lexicographic position."""
+    rots = cube_rotations()
+    ref = np.stack([(np.arange(8) >> d) & 1 for d in range(3)], -1) - 0.5
+    new_c, new_p = np.empty_like(corners), np.empty_like(corner_pos)
+    for e in range(len(corners)):
+        R = rots[rng.integers(len(rots))]
+        old_of_new = ((ref @ R.T) > 0).astype(int) @ np.array([1, 2, 4])
+        new_c[e] = corners[e][old_of_new]
+        new_p[e] = corner_pos[e][old_of_new]
+    return new_c, new_p
+
+
+def write_rotated_box(path, rng):
+    """The main path's 24^3 box as a general mesh in rotated frames,
+    written as an MFEM file; returns the setup seconds."""
+    t0 = time.perf_counter()
+    box = make_cartesian_mesh(3, (N_MAIN,) * 3, (0.0,) * 3, (1.0,) * 3,
+                              (False,) * 3, 2)
+    corners, _ = vis._structured_corner_ids(box)
+    corner_pos = box.x[:, [0, 2, 6, 8, 18, 20, 24, 26]]
+    mesh = umesh3d.from_arrays_3d(*scramble(corners, corner_pos, rng), 2)
+    with open(path, "w") as fh:
+        fh.write(vis.mfem_mesh_text(mesh, mesh.x))
+    return time.perf_counter() - t0
+
+
+def timed_run(path, cfg_kw, device, launches):
+    """One driver.run with its launch counts; returns (result, record):
+    ms a step, the setup seconds (the run's wall outside its loop: mesh
+    file, tables, operator, mass reports), launches and kernel 1's
+    variants."""
+    cfg = RunConfig(device=str(device), **cfg_kw)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = driver.run(cfg)
+    total = time.perf_counter() - t0
+    n = expect_counts(path, launches(res.steps_total, 1))
+    rec = dict(path=path, mesh=cfg.mesh.split("/")[-1], dtype=cfg.dtype,
+               ho=cfg.ho, lo=cfg.lo, fct=cfg.fct, steps=res.steps,
+               ms_per_step=1e3 * res.timers["wall_s"] / res.steps,
+               setup_s=total - res.timers["wall_s"],
+               final_mass_u=res.final_mass_u, max_u=res.max_u,
+               min_u=res.min_u, u0_min=res.u0_min, u0_max=res.u0_max,
+               mass_loss_u_rel=res.mass_loss_u / abs(res.final_mass_u
+                                                      + res.mass_loss_u),
+               closure_injected_rel=res.mass_closure_injected_rel,
+               launches=n, variant_launches=ops.variant_counts()[
+                   "mega_stage"])
+    print(json.dumps(rec), flush=True)
+    gate(path, "steps", res.steps, cfg.max_tsteps, least=True)
+    return res, rec
+
+
+def hold_general(path, rec, ref):
+    """A general-mesh run against its structured counterpart (J_LIMITS)."""
+    d_mass = abs(rec["final_mass_u"] - ref["final_mass_u"]) / abs(
+        ref["final_mass_u"])
+    d_max = abs(rec["max_u"] - ref["max_u"])
+    gate(path, "final mass against the structured run", d_mass,
+         J_LIMITS["mass_rel"])
+    gate(path, "max u against the structured run", d_max, J_LIMITS["max_u"])
+    return dict(mass_rel_diff=d_mass, max_u_diff=d_max)
+
+
+def expect_variants(path, rec, T, dof):
+    want = dict(T=T, dof=dof)
+    if rec["variant_launches"] != want:
+        raise RuntimeError(f"{path}: kernel 1's variants launched "
+                           f"{rec['variant_launches']}, expected {want}")
+
+
+def check_kernel_dof_general(label, adv, adv64, dt, rng):
+    """Kernel 1's per-dof variant on a general mesh's own inputs: a random
+    u, its gather through the per-element tables and its CG-node overlap
+    bounds (the operator's), against the plain version (`hold`)."""
+    dtype = adv.dtype
+    E, nd = adv._poly.shape[0], adv._stage_tables["nd"]
+    u = torch.as_tensor(rng.random((E, nd)), dtype=dtype, device=adv.device)
+    unbr = adv.gather_nbr(u).reshape(E, -1)
+    xmin, xmax = (b.contiguous() for b in adv.compute_bounds(
+        *bounds.elements_min_max(u)))
+    t, dt = as_dtype(0.1, dtype), as_dtype(dt, dtype)
+    P, tb = adv._poly, adv._stage_tables
+    args = (t, dt, u, unbr, xmin, xmax, P, tb)
+    n_cg = ms.default_sweeps(dtype)
+    got = ms.mega_stage(*args, bounds="dof")
+    torch.cuda.synchronize()
+    ref = ms.mega_stage_reference(*args, n_cg, "dof")
+    ref64 = None
+    if dtype == torch.float32:
+        ref64 = ms.mega_stage_reference(
+            t, dt, *f64_inputs(u, unbr, xmin, xmax, P),
+            adv64._stage_tables, n_cg, "dof")
+    torch.cuda.synchronize()
+    err, rel, prel = hold(label, "du", got, ref, ref64, LIMITS[dtype])
+    res = dict(check=label, kernel="mega_stage", variant="dof", E=E,
+               max_abs_err=err, rel_err=rel, limit=LIMITS[dtype],
+               plain_f32_rel_err=prel,
+               ms=time_ms(lambda: ms.mega_stage(*args, bounds="dof"), 20),
+               plain_ms=time_ms(
+                   lambda: ms.mega_stage_reference(*args, n_cg, "dof"), 5))
+    res.update(bound(*stage_cost(tb, P, n_cg, kind="mega_dof"), dtype))
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def run_path_j(device, rng):
+    """Path J: general meshes at full width (PATH_J1..3). Returns the
+    records: the runs, the kernel checks on the rotated mesh's inputs and
+    the output checks."""
+    out = dict(runs={}, checks={})
+    with tempfile.TemporaryDirectory(prefix="remhos_path_j_") as tmp:
+        box = str(Path(tmp) / "rotated_box.mesh")
+        out["write_s"] = write_rotated_box(box, rng)
+        j1 = dict(PATH_J1, mesh=box, rs_levels=0)
+        # J1, f64: the rotated box against the structured one
+        _, rec = timed_run("J1", j1, device, mega_launches)
+        expect_variants("J1", rec, 0, rec["launches"]["mega_stage"])
+        _, ref = timed_run("J1 structured", PATH_J1, device, mega_launches)
+        expect_variants("J1 structured", ref, ref["launches"]["mega_stage"],
+                        0)
+        rec.update(hold_general("J1", rec, ref))
+        out["runs"].update(J1=rec, J1_structured=ref)
+        # J1, f32: the Kahan combine and the full closure, path F's gates
+        _, r32 = timed_run("J1 f32", dict(PATH_J1_F32, mesh=box,
+                                          rs_levels=0), device,
+                           mega_launches)
+        expect_variants("J1 f32", r32, 0, r32["launches"]["mega_stage"])
+        gate("J1 f32", "mass_loss_u_rel", r32["mass_loss_u_rel"],
+             F_LIMITS["mass_loss_u_rel"])
+        gate("J1 f32", "closure_injected_rel", r32["closure_injected_rel"],
+             F_LIMITS["closure_injected_rel"])
+        gate("J1 f32", "max_u", r32["max_u"],
+             r32["u0_max"] + F_LIMITS["bounds"])
+        gate("J1 f32", "min_u", r32["min_u"],
+             r32["u0_min"] - F_LIMITS["bounds"], least=True)
+        out["runs"]["J1_f32"] = r32
+        # kernel 1's per-dof variant on the rotated mesh's own inputs
+        adv64, dt = driver.build_operator(RunConfig(device=str(device),
+                                                    **j1))
+        adv32, _ = driver.build_operator(RunConfig(
+            device=str(device), **dict(j1, dtype="float32")))
+        for prec, adv in (("f32", adv32), ("f64", adv64)):
+            out["checks"][f"mega_stage_dof_{prec}"] = \
+                check_kernel_dof_general(f"J1 rotated 3d N={N_MAIN} {prec}",
+                                         adv, adv64, dt, rng)
+        del adv32, adv64
+        torch.cuda.empty_cache()
+        # J2: -ho 2 -lo 4 on the rotated box (kernels 3 and 4)
+        j2 = dict(PATH_J2, mesh=box, rs_levels=0)
+        _, rec = timed_run("J2", j2, device, nonfused_launches)
+        _, ref = timed_run("J2 structured", PATH_J2, device,
+                           nonfused_launches)
+        rec.update(hold_general("J2", rec, ref))
+        out["runs"].update(J2=rec, J2_structured=ref)
+        for prec in ("f32", "f64"):
+            adv, _ = driver.build_operator(RunConfig(
+                device=str(device), **dict(j2, dtype="float" + prec[1:])))
+            label = f"J2 rotated 3d N={N_MAIN} {prec}"
+            out["checks"][f"wdet_{prec}"] = check_wdet(label, adv)
+            out["checks"][f"geom_conv_{prec}"] = check_geom_conv(label, adv,
+                                                                 rng)
+            del adv
+        torch.cuda.empty_cache()
+        # J3: 2D, written at -rs 1, read back with the levels left to the
+        # registry run's (-rs 4 of -rs 5), with -save
+        rs_back = PATH_J3["rs_levels"] - 1
+        quad = str(Path(tmp) / "inline_quad_rs1.mesh")
+        m = load_mesh("inline-quad", 1)
+        with open(quad, "w") as fh:
+            fh.write(vis.mfem_mesh_text(m, m.x))
+        save_dir = Path(tmp) / "save"
+        save_dir.mkdir()
+        cwd = Path.cwd()
+        os.chdir(save_dir)
+        try:
+            _, rec = timed_run("J3", dict(PATH_J3, mesh=quad,
+                                          rs_levels=rs_back, save=True),
+                               device, mega_launches)
+        finally:
+            os.chdir(cwd)
+        expect_variants("J3", rec, 0, rec["launches"]["mega_stage"])
+        _, ref = timed_run("J3 registry", PATH_J3, device, mega_launches)
+        expect_variants("J3 registry", ref, ref["launches"]["mega_stage"], 0)
+        rec.update(hold_general("J3", rec, ref))
+        out["runs"].update(J3=rec, J3_registry=ref)
+        out["save"] = check_saved(save_dir)
+        # -prof: 10 steps of J3 under the profiler
+        prof = Path(tmp) / "prof"
+        res, rec = timed_run("J3 -prof", dict(PATH_J3, mesh=quad,
+                                              rs_levels=rs_back,
+                                              max_tsteps=10,
+                                              profile_dir=str(prof)),
+                             device, mega_launches)
+        size = os.path.getsize(res.trace_path)
+        with open(res.trace_path) as fh:
+            kernels = sum(1 for e in json.load(fh)["traceEvents"]
+                          if e.get("cat") == "kernel"
+                          and "mega_stage" in e.get("name", ""))
+        if not size or Path(res.trace_path).parent != prof:
+            raise RuntimeError(f"J3 -prof: no trace in {prof}")
+        out["prof"] = dict(trace_bytes=size, mega_stage_kernel_events=kernels,
+                           launches=rec["launches"]["mega_stage"])
+        print(json.dumps(dict(check="J3 -prof", **out["prof"])), flush=True)
+    print(json.dumps(dict(path="J", write_s=out["write_s"],
+                          save=out["save"])), flush=True)
+    return out
+
+
+def check_saved(save_dir):
+    """J3's -save files: meshHO_final.mesh read back by the general loader
+    equals the final nodes of sltn_final.npz (J_SAVE_LIMIT), and
+    sltn_final.gf holds E * nd values."""
+    with np.load(save_dir / "sltn_final.npz") as z:
+        x, u, shape = z["x"], z["u"], z["shape"]
+    back = umesh.load_general_mesh(str(save_dir / "meshHO_final.mesh"))
+    err = float(np.abs(back.x - x).max())
+    gate("J3 -save", "mesh read back against the final nodes", err,
+         J_SAVE_LIMIT)
+    gf = (save_dir / "sltn_final.gf").read_text()
+    n = len(gf.split("Ordering: 0")[1].split())
+    if n != u.size or tuple(shape) != (u.shape[0],):
+        raise RuntimeError(f"J3 -save: {n} field values, shape {shape}, "
+                           f"expected {u.size} and ({u.shape[0]},)")
+    return dict(nodes_max_abs_err=err, field_values=n, elements=u.shape[0])
+
+
+def general_rows(path_j, name):
+    """A kernel's numbers on path J's rotated mesh, f32 and f64."""
+    return {k: {f: path_j["checks"][f"{name}_{k}"][f] for f in (
+        "max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        for k in ("f32", "f64")}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1749,6 +2049,11 @@ def main():
     # 9g. the tenth slice's golden rows, and the repaired f32 -lo 4 row
     run_slice10_goldens(dev)
     done("tenth slice golden rows")
+    # 9h. path J: general meshes (rotated 24^3 hexes, refined quads), the
+    # output files and the profiler
+    path_j = run_path_j(dev, np.random.default_rng(SEED + 5))
+    torch.cuda.empty_cache()
+    done("path J")
     print(json.dumps({"seconds": seconds,
                       "trace_retakes": trc.capture_counted.retakes}),
           flush=True)
@@ -1797,14 +2102,18 @@ def main():
             check_trace_ms=wdet_checks["3d_f32"]["trace_ms"],
             launches_main_path=main_counts["wdet"],
             launches_path_a=rec_a["launches"]["wdet"],
-            launches_path_d=rec_path_d["launches"]["wdet"]),
+            launches_path_d=rec_path_d["launches"]["wdet"],
+            launches_path_j2=path_j["runs"]["J2"]["launches"]["wdet"],
+            general_mesh=general_rows(path_j, "wdet")),
         row("geom_conv", "remhos_torch/ops/csrc/geom_conv.cu", pk + ":110",
             rec_c["launches"]["geom_conv"], gc_checks["3d_f32"],
             gc_checks["3d_f64"], gc_checks,
             check_trace_ms=gc_checks["3d_f32"]["trace_ms"],
             without_wdet=gc_checks["3d_f32"]["without_wdet"],
             without_wdet_f64=gc_checks["3d_f64"]["without_wdet"],
-            launches_path_d=rec_path_d["launches"]["geom_conv"]),
+            launches_path_d=rec_path_d["launches"]["geom_conv"],
+            launches_path_j2=path_j["runs"]["J2"]["launches"]["geom_conv"],
+            general_mesh=general_rows(path_j, "geom_conv")),
     ]
     d32, d64 = dof_checks["3d_f32"], dof_checks["3d_f64"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
@@ -1821,6 +2130,11 @@ def main():
         T_ms=d32["T_ms"], f64_T_ms=d64["T_ms"],
         trace_ms=tools["trace_ms"]["mega_stage_dof"],
         check_trace_ms=d32["trace_ms"],
+        launches_path_j1=path_j["runs"]["J1"]["launches"]["mega_stage"],
+        launches_path_j3=path_j["runs"]["J3"]["launches"]["mega_stage"],
+        general_mesh={k: {f: path_j["checks"][f"mega_stage_dof_{k}"][f]
+                          for f in keys}
+                      for k in ("f32", "f64")},
         checks=[{k: c[k] for k in ("check", "max_abs_err", "rel_err",
                                    "limit", "vs_T_max_abs_err")}
                 for c in dof_checks.values()]))

@@ -1,5 +1,5 @@
 """Batched full-assembly operators and the DG face gather/scatter: the port
-of `remhos_tpu.assembly` for structured meshes.
+of `remhos_tpu.assembly`.
 
 The assembled (FA) path keeps its matrices as dense per-element batches,
 as the reference's ParBilinearForm assembly does per element
@@ -73,6 +73,20 @@ def face_upwind_matrices(v_fq, nor, w_fq, Bface, exec_mode):
 def gather_face(u, bdr_dofs):
     """u_face[E, nf, fd] from u[E, nd]; bdr_dofs[nf, fd] is a long tensor."""
     return u[:, bdr_dofs]
+
+
+def gather_nbr_face(u, nbr_elem, nbr_dof_local, bdr_value=None):
+    """u on the NEIGHBOUR side of each face, u_nbr[E, nf, fd], through index
+    tables (general meshes; remhos_tpu/assembly.py:70-87): nbr_elem[E, nf]
+    (long, -1 on a physical boundary) and nbr_dof_local[E, nf, fd] or the
+    shared [nf, fd] table (long). Boundary faces take bdr_value[E, nf, fd]
+    (the inflow at this element's own face dofs, remhos_tools.cpp:891) or
+    0. A plain index gather: no sum, so no order to keep."""
+    if nbr_dof_local.dim() == 2:
+        nbr_dof_local = nbr_dof_local[None]
+    valid = (nbr_elem >= 0)[:, :, None]
+    vals = u[nbr_elem.clamp(min=0)[:, :, None], nbr_dof_local]
+    return torch.where(valid, vals, 0.0 if bdr_value is None else bdr_value)
 
 
 def scatter_face_add(y, contrib, bdr_dofs):

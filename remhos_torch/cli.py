@@ -5,11 +5,14 @@
         -ho 2 -lo 3 -fct 2 -pa
 
 The run is on the card unless `-d cpu` asks for the plain PyTorch versions
-of the kernels on the CPU. The output lines are the driver's (Final mass u /
-Max value u / Mass loss u, remhos.cpp:1423-1436), so grep-based golden flows
-(autotest/test.sh) work unchanged. Flags whose code is not ported yet
-(`-shards` > 1, `-dcn`, `-vis`, `-save`, `-visit`, `-prof`) raise
-NotImplementedError naming their ROADMAP.md item.
+of the kernels on the CPU. `-m` takes a registry mesh name or any MFEM mesh
+file (quads, hexes, curved H1 and NURBS). The output lines are the
+driver's (Final mass u / Max value u / Mass loss u, remhos.cpp:1423-1436),
+so grep-based golden flows (autotest/test.sh) work unchanged. `-save`,
+`-visit`, `-vis` and `-prof DIR` write the reference's output files, stream
+to GLVis and record a profiler trace. The flags whose code is not ported
+yet (`-shards` > 1, `-dcn`) raise NotImplementedError naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations

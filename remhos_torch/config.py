@@ -4,7 +4,7 @@ The port's copy of `remhos_tpu.config`. Field names match the reference
 long-option spellings so runbooks transfer. Two differences: `device` names
 the torch device (None means CUDA, and raises without one), and there is no
 `use_pallas`: the port has one implementation of each path. Options whose
-code is not ported yet keep their fields; `driver.run` raises
+code is not ported yet (sharding) keep their fields; `driver.run` raises
 NotImplementedError for them.
 """
 
@@ -93,3 +93,5 @@ class RunResult:
     u0_min: float = 0.0
     u0_max: float = 0.0
     timers: dict | None = None
+    # -prof: the Chrome trace file of the time loop
+    trace_path: str = ""

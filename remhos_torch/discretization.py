@@ -1,7 +1,8 @@
 """Discretization bundle: the static host tables of the remap path.
 
 The port's copy of `remhos_tpu.discretization` for structured meshes of
-dimension 1, 2 and 3.
+dimension 1, 2 and 3 and for general quad and hex meshes (`umesh.py`,
+`umesh3d.py`), whose dof maps carry per-element neighbour tables.
 Integration rules mirror MFEM's defaults:
 - volume: 2*p + mesh_order*dim - 1 (MassIntegrator / ConvectionIntegrator);
 - face: mesh_order*dim - 1 + 2*p on the (dim-1)-face (DGTraceIntegrator).
@@ -56,7 +57,14 @@ class Discretization:
 
 def build_discretization(mesh: StructuredMesh, p: int) -> Discretization:
     dim, mo = mesh.dim, mesh.mesh_order
-    dofmaps = build_dofmaps(dim, p)
+    if getattr(mesh, "structured", True):
+        dofmaps = build_dofmaps(dim, p)
+    elif dim == 2:
+        from .umesh import build_general_dofmaps
+        dofmaps = build_general_dofmaps(mesh, p)
+    else:
+        from .umesh3d import build_general_dofmaps_3d
+        dofmaps = build_general_dofmaps_3d(mesh, p)
 
     q1, w1 = B.gauss_legendre(B.min_gauss_points(2 * p + mo * dim - 1))
     Bu1, Gu1 = B.bernstein_vals(p, q1), B.bernstein_grads(p, q1)

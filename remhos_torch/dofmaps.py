@@ -1,12 +1,15 @@
-"""Static dof-topology tables of a structured mesh (host numpy).
+"""Static dof-topology tables (host numpy): the port of
+`remhos_tpu.dofmaps`.
 
-The port's copy of the `remhos_tpu.dofmaps` subset the Cartesian paths
-use: the element-local dofs on each face (`bdr_dofs`), the matching dof on
-the face neighbour (`nbr_dof_local`) and the corner dofs of the p^dim
-subcells (`sub2ind`). All elements of a structured grid share one
-orientation, so the neighbour dof is the same tangential position on the
-opposite face. `bounds_topology` adds the mesh-wide tables of the bounds
-stencils: the face-neighbour elements and the global CG node of each dof.
+The element-local dofs on each face (`bdr_dofs`), the matching dof on the
+face neighbour (`nbr_dof_local`) and the corner dofs of the p^dim subcells
+(`sub2ind`). All elements of a structured grid share one orientation, so
+there the neighbour dof is the same tangential position on the opposite
+face, one [nfaces, fd] table for every element. A general mesh
+(`umesh.build_general_dofmaps`, `umesh3d.build_general_dofmaps_3d`) has a
+table per element and face, [E, nfaces, fd], and carries its face
+neighbours and global CG nodes in the DofMaps. `bounds_topology` gives the
+bounds stencils those mesh-wide tables on a device.
 """
 
 from __future__ import annotations
@@ -64,8 +67,15 @@ class DofMaps:
     fd: int                      # dofs per face
     nfaces: int
     bdr_dofs: np.ndarray         # [nfaces, fd] local dof ids on each face
-    nbr_dof_local: np.ndarray    # [nfaces, fd] matching dof in the neighbour
+    nbr_dof_local: np.ndarray    # [nfaces, fd] (structured) or
+    #                              [E, nfaces, fd] (general) matching dof in
+    #                              the neighbour
     sub2ind: np.ndarray          # [p^dim, 2^dim] corner dofs of each subcell
+    # general meshes only: face neighbours (-1 on a physical boundary), the
+    # global CG (GLL) node of each dof and their count
+    nbr_elem: np.ndarray = None  # [E, nfaces]
+    cg_idx: np.ndarray = None    # [E, nd]
+    n_cg: int = 0
 
 
 def build_dofmaps(dim: int, p: int) -> DofMaps:
@@ -129,13 +139,22 @@ def cg_node_ids(shape, periodic, p: int):
     return (g * gstrides).sum(-1), int(np.prod(gshape))
 
 
-def bounds_topology(mesh, p: int, device) -> BoundsTopology:
-    """The bounds tables of a structured mesh at order p on `device`."""
-    cg_idx, n_cg = cg_node_ids(mesh.shape, mesh.periodic, p)
-
+def bounds_topology(mesh, p: int, device, dofmaps=None) -> BoundsTopology:
+    """The bounds tables of a mesh at order p on `device`: computed for a
+    structured mesh, read from its `dofmaps` (at order p) for a general
+    one."""
     def L(a):
-        return torch.as_tensor(a, dtype=torch.long, device=device)
+        return torch.as_tensor(np.asarray(a), dtype=torch.long,
+                               device=device)
 
-    return BoundsTopology((p + 1) ** mesh.dim,
-                          L(neighbour_elements(mesh.shape, mesh.periodic)),
+    nd = (p + 1) ** mesh.dim
+    if not getattr(mesh, "structured", True):
+        if dofmaps is None or dofmaps.cg_idx is None or dofmaps.p != p:
+            raise ValueError("a general mesh's bounds tables come from its "
+                             f"DofMaps at order {p}")
+        return BoundsTopology(nd, L(dofmaps.nbr_elem), L(dofmaps.cg_idx),
+                              dofmaps.n_cg)
+    cg_idx, n_cg = cg_node_ids(mesh.shape, mesh.periodic, p)
+    return BoundsTopology(nd, L(neighbour_elements(mesh.shape,
+                                                   mesh.periodic)),
                           L(cg_idx), n_cg)

@@ -1,7 +1,9 @@
 """Driver: setup, time loop and reporting (the remhos() entry equivalent).
 
 The port of `remhos_tpu.driver` for one device, a structured 1D, 2D or 3D
-mesh, the transport problems 0-7, the remap problems 10-17 and the solver
+mesh or a general quad or hex mesh read from an MFEM file (`umesh.py`,
+`umesh3d.py`, `nurbs.py`), the transport problems 0-7, the remap problems
+10-17 and the solver
 families `-ho 1|2|3 -lo 0-5 -fct 0-4 -bt 0|1`, the monolithic `-mono 1|2`
 and the smoothness indicators `-si 1|2`, assembled or with `-pa` (in 1D
 always assembled; `operator.py` picks the fused, the non-fused or the
@@ -22,8 +24,15 @@ Kahan-compensated combine and, every step, the FULL f64 mass closure pinning
 `bench.py` runs the incremental closure instead; each mirrors its own
 counterpart.
 
-Not ported yet, and raising NotImplementedError with their ROADMAP.md item
-when asked for: sharding, `vis`, `visit`, `save` and `profile_dir`.
+Output (`vis.py`): `-visit` writes a VisIt collection at step 0 and every
+`vis_steps`, `-vis` streams the GLVis windows then, and `-save` writes
+meshHO_final.mesh, sltn_final.gf and sltn_final.npz at the end
+(remhos_tpu/driver.py:304-318, 407-426, 485-500). `-prof` records the time
+loop with torch.profiler into a Chrome trace under `profile_dir`
+(`utils.trace.loop_profiler`).
+
+Not ported yet, and raising NotImplementedError with its ROADMAP.md item
+when asked for: sharding over several devices.
 """
 
 from __future__ import annotations
@@ -41,10 +50,12 @@ from . import problems as prob
 from . import resolve_device, synchronize
 from . import steppers
 from . import sync as syncm
+from . import vis as vism
 from .config import RunConfig, RunResult
 from .discretization import build_discretization
-from .mesh import default_mesh, load_mesh, registry_dim
-from .operator import Advection, SolverConfig, solver_unported
+from .mesh import default_mesh, load_mesh
+from .operator import Advection, SolverConfig
+from .utils import trace as trc
 
 
 def project_bernstein(x_nodes, Bm_at_unodes, func):
@@ -132,18 +143,11 @@ def _solver_config(cfg: RunConfig, dim: int) -> SolverConfig:
 def unported(cfg: RunConfig):
     """What of `cfg` is not ported yet, naming its ROADMAP.md item, or None
     when the port runs it. Decided from the configuration alone: no mesh or
-    table is built."""
+    table is built. (A solver option the port lacks raises when the
+    operator is built, `operator.solver_unported`.)"""
     if cfg.n_shards > 1 or cfg.shard_grid is not None or cfg.dcn:
         return "sharding over several devices (Queue 1, item 10)"
-    if cfg.vis or cfg.visit or cfg.save:
-        return "vis, visit and save output (Queue 1, item 9)"
-    if cfg.profile_dir:
-        return "the profiler trace of the loop (Queue 1, item 9)"
-    dim = cfg.dim if cfg.mesh == "default" else registry_dim(cfg.mesh)
-    if dim is None:
-        return (f"mesh '{cfg.mesh}': general, curved and NURBS mesh files "
-                "(Queue 1, item 8)")
-    return solver_unported(_solver_config(cfg, dim), dim)
+    return None
 
 
 def build_operator(cfg: RunConfig):
@@ -262,7 +266,8 @@ def run(cfg: RunConfig) -> RunResult:
         # (remhos_fct.hpp:176).
         conservative = cfg.fct != 3 and (
             (exec_mode == 1 and cfg.ode_solver in (3, 4, 6))
-            or (exec_mode == 0 and all(mesh.periodic)))
+            or (exec_mode == 0 and getattr(mesh, "structured", True)
+                and all(mesh.periodic)))
         use_closure = (dtype == torch.float32 and cfg.closure
                        and conservative)
         step = steppers.make_rk_step(adv.stage_function(), cfg.ode_solver,
@@ -295,6 +300,23 @@ def run(cfg: RunConfig) -> RunResult:
         ti_total = ti
         if cfg.verbose:
             print(f"Resumed from {cfg.checkpoint_path} at step {ti}, t={t:g}")
+
+    def x_at(t):
+        """The mesh nodes at (pseudo-)time t."""
+        return x0_nodes + t * v_nodes if exec_mode == 1 else x0_nodes
+
+    def output(t, ti, visit):
+        """The VisIt snapshot and the GLVis frames of step ti
+        (remhos.cpp:1036-1070, 1307-1328)."""
+        if visit:
+            vism.visit_save(cfg.visit_prefix, mesh, x_at(t), S[0], cfg.order,
+                            t, ti)
+        if cfg.vis:
+            vism.stream_fields(cfg, mesh, x_at(t), S[0],
+                               S[1] if cfg.product_sync else None)
+
+    # the initial frames, and the initial collection of a fresh run
+    output(t, ti, cfg.visit and ti == 0)
     steady = cfg.problem in (6, 7, 8)
     res_prev = S[0]
     residual = 0.0
@@ -306,6 +328,9 @@ def run(cfg: RunConfig) -> RunResult:
     C = torch.zeros_like(S) if use_closure else None
     inj_acc = torch.zeros((), dtype=f64, device=device)
     synchronize(device)
+    # -prof: the loop under torch.profiler (the reference's Caliper loop
+    # annotation, remhos.cpp:1143-1150)
+    prof = trc.loop_profiler(device) if cfg.profile_dir else None
     wall0 = time.perf_counter()
     while not done:
         dt_real = min(dt, t_final - t)
@@ -384,8 +409,15 @@ def run(cfg: RunConfig) -> RunResult:
         if cfg.verbose and (done or ti % cfg.vis_steps == 0):
             print(f"time step: {ti}, time: {t:.6g}, dt: {dt:.6g}, "
                   f"residual: {residual:.6g}")
+        if (cfg.visit or cfg.vis) and (done or ti % cfg.vis_steps == 0):
+            output(t, ti, cfg.visit)
     synchronize(device)
     wall = time.perf_counter() - wall0
+    trace_path = ""
+    if prof is not None:
+        trace_path = trc.write_loop_trace(prof, cfg.profile_dir, device)
+        if cfg.verbose:
+            print(f"Profiler trace written to {cfg.profile_dir}")
 
     # --- final mass / max (remhos.cpp:1382-1436) ---
     ml_final = adv.lumped_mass(t) if exec_mode == 1 else masses
@@ -400,7 +432,7 @@ def run(cfg: RunConfig) -> RunResult:
                     mass_closure_injected_rel=(
                         float(inj_acc) / max(abs(mass0_u), 1e-300)
                         if use_closure else 0.0),
-                    timers={"wall_s": wall})
+                    timers={"wall_s": wall}, trace_path=trace_path)
     res.cg_solves = adv.cg_stats["solves"]
     res.cg_iterations = adv.cg_stats["iterations"]
     if adv.cfg.mono != 0:
@@ -421,6 +453,20 @@ def run(cfg: RunConfig) -> RunResult:
             # the reference appends L1, L2 and Linf (remhos.cpp:1452-1469)
             with open("errors.txt", "a") as fh:
                 fh.write("%.12g %.12g %.12g\n" % errs)
+
+    if cfg.save:
+        # the reference's artifacts (remhos.cpp:1365-1380): an MFEM mesh and
+        # grid function, loadable by GLVis and by `umesh.load_general_mesh`
+        x_final = x_at(t)
+        np.savez("sltn_final.npz", u=S[0].cpu().numpy(),
+                 x=x_final.cpu().numpy(), t=t,
+                 shape=np.asarray(mesh.shape
+                                  if getattr(mesh, "structured", True)
+                                  else (mesh.num_elements,)))
+        vism.save_final(mesh, x_final, S[0], cfg.order)
+        if cfg.verbose:
+            print("Saved final solution to meshHO_final.mesh / "
+                  "sltn_final.gf (+ sltn_final.npz)")
 
     if cfg.verbose:
         if device.type == "cuda":

@@ -6,12 +6,14 @@ per-axis break points, optional periodicity, per-element Gauss-Lobatto node
 coordinates x[E, nm, dim], midpoint refinement, the registry of the
 reference's structured mesh files and the weak-scaling `default_mesh`
 factory. Face numbering follows MFEM's local face order (a segment's faces:
-left, right).
+left, right). `load_mesh` hands any other mesh file to the general loader
+(`umesh.load_general_mesh`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -157,16 +159,37 @@ def registry_dim(name: str):
     return None if spec is None else spec["dim"]
 
 
+def find_mesh_file(name: str):
+    """The path of a mesh file that is not in the registry, as the JAX
+    package searches it: `name` as a path, then `<key>.mesh` under
+    $REMHOS_REF_DATA; None when neither exists."""
+    candidates = [name]
+    data_dir = os.environ.get("REMHOS_REF_DATA")
+    if data_dir:
+        candidates.append(os.path.join(data_dir,
+                                       _registry_key(name) + ".mesh"))
+    for c in candidates:
+        if os.path.isfile(c):
+            return c
+    return None
+
+
 def load_mesh(name: str, rs_levels: int = 0, mesh_order: int = 2):
-    """A registry mesh by name (with or without a path and `.mesh`) plus
-    serial refinements (remhos.cpp:448-449). Any other mesh file needs the
-    general loader, which is not ported."""
+    """A registry mesh by name (with or without a path and `.mesh`), or any
+    other MFEM mesh file through the general loader (`umesh.py`: quads,
+    hexes, curved H1 and NURBS meshes), plus serial refinements
+    (remhos.cpp:448-449). Raises FileNotFoundError when a name is neither
+    in the registry nor a file (`find_mesh_file`)."""
     key = _registry_key(name)
     if key not in _REGISTRY:
-        raise NotImplementedError(
-            f"mesh '{name}': remhos_torch loads the structured registry "
-            f"meshes {sorted(_REGISTRY)} only; general, curved and NURBS "
-            "mesh files are not ported yet (ROADMAP.md Queue 1, item 8)")
+        path = find_mesh_file(name)
+        if path is None:
+            raise FileNotFoundError(
+                f"mesh '{name}': not a registry mesh {sorted(_REGISTRY)} "
+                "and no such file (searched as a path, then as "
+                f"'{key}.mesh' under $REMHOS_REF_DATA)")
+        from .umesh import load_general_mesh
+        return load_general_mesh(path, rs_levels, mesh_order)
     spec = _REGISTRY[key]
     m = make_mesh_from_breaks(spec["dim"], spec["breaks"], spec["periodic"],
                               mesh_order)

@@ -1,8 +1,8 @@
 """The advection operator: stage geometry and the HO/LO/FCT dispatch.
 
 The port of `remhos_tpu.operator.Advection` for remap (problems 10-17) and
-transport (problems 0-7) on a structured 1D/2D/3D mesh, with and without
-`-pa`.
+transport (problems 0-7) on a structured 1D/2D/3D mesh or a general quad or
+hex mesh (`umesh.py`, `umesh3d.py`), with and without `-pa`.
 Stage functions work on the block state `S[nfields, E, nd]` (field 0 = u,
 field 1 = us for product remap) and return `(dS, aux)` with `aux =
 [dt_ratio, -violations]`, a 2-element tensor on the device that is never
@@ -63,6 +63,14 @@ Jacobians (`geometry.face_geometry`: a point face has no tangent).
 The inflow values enter the LO solutions' (and the Neumann HO solution's)
 neighbour gather on physical boundaries (`inflow_face`,
 remhos_tools.cpp:891).
+
+General meshes (remhos_tpu/operator.py:133-141, 371-380, 713-737): each
+element has its own frame, so the neighbour gather reads per-element tables
+(`assembly.gather_nbr_face`) and the `-bt 0` bounds are the CG-node overlap
+(`bounds.overlap_bounds`); on the mega stage they reach kernel 1 through
+its per-dof variant, as `-bt 1` does. The stage kernels themselves take the
+same inputs as on a grid: each element's nodes in its own lexicographic
+frame and the neighbour values at its own face dofs.
 
 A configuration the JAX package rejects raises ValueError as it does
 (`solver_rejected`); one that is not ported yet raises NotImplementedError
@@ -130,10 +138,9 @@ class SolverConfig:
         return prob.exec_mode_of(self.problem)
 
 
-def solver_unported(cfg: SolverConfig, dim: int):
-    """What of a solver configuration on a `dim`-dimensional mesh is not
-    ported yet, naming its ROADMAP.md item, or None when the port runs
-    it."""
+def solver_unported(cfg: SolverConfig):
+    """What of a solver configuration is not ported yet, naming its
+    ROADMAP.md item, or None when the port runs it."""
     if cfg.poly_bf16:
         return "the bf16 P16 stream (Queue 2, item 2)"
     return None
@@ -175,7 +182,7 @@ class Advection:
         """v_nodes: the remap mesh velocity (None in transport mode);
         inflow[E, nd]: the inflow values of the transport problems 6 and 7
         (None elsewhere)."""
-        why = solver_unported(cfg, disc.dim)
+        why = solver_unported(cfg)
         if why is not None:
             raise NotImplementedError(
                 f"remhos_torch: {why} is not ported yet (ROADMAP.md)")
@@ -193,17 +200,26 @@ class Advection:
                 "remhos_torch: TF32 matmuls are on; every product of the "
                 "port runs in true float32 (remhos_torch/__init__.py)")
         mesh = disc.mesh
-        self.shape, self.periodic = mesh.shape, mesh.periodic
 
         def T(a):
             return torch.as_tensor(a).to(device=self.device, dtype=dtype)
 
+        def L(a):
+            return torch.as_tensor(a, dtype=torch.long, device=self.device)
+
+        # a structured grid gathers its neighbours by shifts along the
+        # element axes, a general mesh through its per-element tables
+        self.structured = getattr(mesh, "structured", True)
+        if self.structured:
+            self.shape, self.periodic = mesh.shape, mesh.periodic
+            self.masks = strm.edge_masks(self.shape, self.device)
+        else:
+            self.nbr_elem = L(disc.dofmaps.nbr_elem)
+
         self.x0_nodes = T(x0_nodes)
         self.v_nodes = None if v_nodes is None else T(v_nodes)
         self.w_q, self.Bu = T(disc.w_q), T(disc.Bu)
-        self.nbr_dof_local = torch.as_tensor(
-            disc.dofmaps.nbr_dof_local, dtype=torch.long, device=self.device)
-        self.masks = strm.edge_masks(self.shape, self.device)
+        self.nbr_dof_local = L(disc.dofmaps.nbr_dof_local)
         # the wdet kernel is compiled for 2D and 3D; 1D takes the plain route
         self._wdet_tables = (wdet_tables(disc, dtype, self.device)
                              if disc.dim > 1 else None)
@@ -217,8 +233,9 @@ class Advection:
         # stage solves inside its kernels and leaves them 0)
         self.cg_stats = dict(solves=0, iterations=0)
         # the bounds stencils' mesh tables, where compute_bounds reads them
-        self._bounds_topo = (None if cfg.bounds_type == 0 else
-                             dmm.bounds_topology(mesh, disc.p, self.device))
+        self._bounds_topo = (
+            None if cfg.bounds_type == 0 and self.structured else
+            dmm.bounds_topology(mesh, disc.p, self.device, disc.dofmaps))
         # the smoothness indicator's tables and the monolithic solver's
         # velocity scale, made once from the initial mesh
         self.smth = (None if not cfg.smth_ind else SmoothnessIndicator(
@@ -229,6 +246,10 @@ class Advection:
         # sum and the most in one solve) and read-backs of the exit test
         self.mono_stats = dict(solves=0, iterations=0, max_iterations=0,
                                readbacks=0)
+        # the tangent-only face-normal tables; None in 1D, where the
+        # normals come from the full face Jacobians (`geometry.face_geometry`)
+        ft = geo.face_tangent_tables(disc.Gmf, disc.n_ref)
+        self._face_tan = None if ft is None else (T(ft[0]), T(ft[1]))
         # the reference's gate (its `_fused_stage`): the canonical remap
         # family on a 2D or 3D mesh runs the fused stage kernels, everything
         # else the composition of geom_conv (or, in transport and in 1D,
@@ -236,6 +257,7 @@ class Advection:
         self._fused_stage = (cfg.pa and cfg.exec_mode == 1 and cfg.ho == 3
                              and cfg.lo in (0, 5) and cfg.fct in (0, 2)
                              and cfg.mono == 0 and cfg.smth_ind == 0
+                             and self._face_tan is not None
                              and disc.dim in (2, 3))
         if self._fused_stage:
             self._stage_tables = tbl.stage_ho_tables(disc, dtype,
@@ -256,11 +278,7 @@ class Advection:
         self.Bface, self.w_fq = T(disc.Bface), T(disc.w_fq)
         self.bdr_dofs = torch.as_tensor(disc.dofmaps.bdr_dofs,
                                         dtype=torch.long, device=dev)
-        # the tangent-only face normals; None in 1D, where the normals come
-        # from the full face Jacobians (`geometry.face_geometry`)
-        ft = geo.face_tangent_tables(disc.Gmf, disc.n_ref)
-        self._face_tan = None if ft is None else (T(ft[0]), T(ft[1]))
-        if ft is None:
+        if self._face_tan is None:
             self.Bmf, self.Gmf = T(disc.Bmf), T(disc.Gmf)
             self.n_ref = T(disc.n_ref)
         # inflow values at each element's own face dofs: the neighbour value
@@ -360,6 +378,9 @@ class Advection:
     def gather_nbr(self, u, bdr_value=None):
         """u_nbr[E, nf, fd]; bdr_value[E, nf, fd] or 0 on physical
         boundaries."""
+        if not self.structured:
+            return asm.gather_nbr_face(u, self.nbr_elem, self.nbr_dof_local,
+                                       bdr_value)
         return strm.gather_nbr_structured(u, self.shape, self.periodic,
                                           self.nbr_dof_local, self.masks,
                                           bdr_value)
@@ -577,9 +598,10 @@ class Advection:
 
     def compute_bounds(self, el_min, el_max, active_el=None):
         """Per-dof bounds (remhos_tpu/operator.py:371-380): at -bt 0 the
-        overlap stencil by the structured separable pass, at -bt 1 the
-        sparsity stencil (expanded views of one value per element)."""
-        if self.cfg.bounds_type == 0:
+        overlap stencil, by the structured separable pass on a grid and
+        over the global CG nodes on a general mesh; at -bt 1 the sparsity
+        stencil (expanded views of one value per element)."""
+        if self.cfg.bounds_type == 0 and self.structured:
             return strm.overlap_bounds_structured(
                 el_min, el_max, self.shape, self.periodic, self.disc.p,
                 active_el=active_el, masks=self.masks, cls=self._cls)
@@ -754,14 +776,15 @@ class Advection:
     def _mega_stage(self, t, dt, S):
         """The limited stage of a single field: bounds and gather (functions
         of u alone) as torch glue, then HO + LO + lumped mass + ClipScale in
-        one kernel. At -bt 0 the bounds are the class-major overlap stencil,
-        otherwise `compute_bounds`' per-dof bounds, made contiguous for the
-        kernel's per-dof variant (remhos_tpu/operator.py:713-737). aux is
-        None: the constant [inf, 0]."""
+        one kernel. At -bt 0 on a structured grid the bounds are the
+        class-major overlap stencil, otherwise (-bt 1, or a general mesh)
+        `compute_bounds`' per-dof bounds, made contiguous for the kernel's
+        per-dof variant (remhos_tpu/operator.py:713-737). aux is None: the
+        constant [inf, 0]."""
         u = S[0]
         el_min, el_max = bnd.elements_min_max(u)
         u_nbr = self.gather_nbr(u).reshape(u.shape[0], -1)
-        if self.cfg.bounds_type == 0:
+        if self.cfg.bounds_type == 0 and self.structured:
             smin, smax = strm.overlap_stencil_T(el_min, el_max, self.shape,
                                                 self.periodic, self.masks)
             du = mega_stage(t, dt, u, u_nbr, smin, smax, self._poly,

@@ -164,9 +164,10 @@ def face_descriptors(disc):
     disc.Gmf, and disc.Bmf (`face_factor_rebuild`)."""
     ft = geo.face_tangent_tables(disc.Gmf, disc.n_ref)
     if ft is None:
-        raise NotImplementedError(
+        raise ValueError(
             "the stage from the nodes needs axis-aligned reference normals "
-            "(ROADMAP.md Queue 1, item 8)")
+            "(a tensor element of dimension 2 or 3; a 1D point face has no "
+            "tangent)")
     Gt, sgn = ft
     n_ref = np.asarray(disc.n_ref)
     dim = n_ref.shape[1]
@@ -331,9 +332,10 @@ def build_poly_tables(x0, v, disc):
 
     ft = geo.face_tangent_tables(disc.Gmf, disc.n_ref)
     if ft is None:
-        raise NotImplementedError(
+        raise ValueError(
             "polynomial stage geometry needs axis-aligned reference normals "
-            "(ROADMAP.md Queue 1, item 8)")
+            "(a tensor element of dimension 2 or 3; a 1D point face has no "
+            "tangent)")
     Gt, sgn = ft
     GT1 = T((Gt[..., 0] * sgn[:, None, None]).transpose(2, 0, 1)
             .reshape(nm, FQ))

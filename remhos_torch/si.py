@@ -63,6 +63,11 @@ class SmoothnessIndicator:
         self.param = 5.0 if si_type == 1 else 3.0
         dim, p = disc.dim, max(disc.p, 1)
         mesh = disc.mesh
+        if not getattr(mesh, "structured", True):
+            # the JAX package's si.py reads mesh.shape as well, and fails
+            raise ValueError("the smoothness indicator (-si) runs on "
+                             "structured meshes: its fine grid is the "
+                             "element grid's")
         nsub = p ** dim                                  # subcells per element
 
         def T(a):

@@ -1,5 +1,5 @@
 """Subcell weights of the Bernstein subcell residual-distribution scheme
-(`-lo 4`): the port of `remhos_tpu.subcell` for structured meshes.
+(`-lo 4`, `-mono 2`): the port of `remhos_tpu.subcell`.
 
 The reference builds a p-times-refined "subcell mesh" whose Q1 cells connect
 the Bernstein control points (remhos.cpp:797-832) and integrates one-row
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from . import problems as prob
+from .dofmaps import face_dof_table
 from .geometry import det_adj
 
 
@@ -39,11 +40,20 @@ def q1_center_grads(dim: int) -> np.ndarray:
 
 
 def boundary_node_mask(mesh, ref_nodes_u) -> np.ndarray:
-    """[E, nd] True where the (uniform) node of a structured mesh lies on a
-    physical, non-periodic boundary: the reference zeroes the subcell
-    velocity there (remhos.cpp:841-852). The reference coordinates 0 and 1
-    are exact in `ref_nodes_u` (linspace end points)."""
+    """[E, nd] True where the (uniform) node lies on a physical,
+    non-periodic boundary: the reference zeroes the subcell velocity there
+    (remhos.cpp:841-852). On a general mesh, the nodes of the faces without
+    a neighbour; on a structured one, the reference coordinates 0 and 1
+    (exact in `ref_nodes_u`, linspace end points) of the elements at a
+    non-periodic end of an axis."""
     E = mesh.num_elements
+    if not getattr(mesh, "structured", True):
+        nd = ref_nodes_u.shape[0]
+        bdr = face_dof_table(round(nd ** (1.0 / mesh.dim)) - 1, mesh.dim)
+        mask = np.zeros((E, nd), dtype=bool)
+        for f in range(mesh.nfaces):
+            mask[np.ix_(mesh.nbr_elem[:, f] < 0, bdr[f])] = True
+        return mask
     eidx = np.stack(np.unravel_index(np.arange(E), mesh.shape, order="F"),
                     axis=-1)
     mask = np.zeros((E, ref_nodes_u.shape[0]), dtype=bool)

@@ -8,9 +8,12 @@ baseline at the baseline's print precision (10 significant digits: 5e-10
 relative), with the JAX runner's per-row tolerances and its `--f32` tier
 (which also holds the mass the f32 closure put back to CLOSURE_BUDGET).
 A row that needs unported code (`driver.unported`, from its configuration
-alone) is listed by name with the ROADMAP.md item it needs, whatever
-`--only` and `--skip` select. Any exception and any mismatch of a row that
-runs fails the run.
+alone) is listed by name with the ROADMAP.md item it needs, and a row whose
+mesh file is absent (the reference's `.mesh` files are not in the
+repository; `mesh.find_mesh_file` looks for them by path, then under
+$REMHOS_REF_DATA) as "needs <name>.mesh, absent", whatever `--only` and
+`--skip` select. Any exception and any mismatch of a row that runs fails
+the run.
 
     python -m remhos_torch.tools.run_goldens [--device cpu] [--f32]
         [--only NAME ...] [--skip NAME ...]
@@ -30,6 +33,7 @@ from pathlib import Path
 
 from ..config import RunConfig
 from ..driver import run, unported
+from ..mesh import find_mesh_file, registry_dim
 
 GOLDENS = Path(__file__).resolve().parents[2] / "goldens" / \
     "reference_goldens.json"
@@ -99,7 +103,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     rows = json.loads(GOLDENS.read_text())["runs"]
-    matched, failed, listed = [], [], {}
+    matched, failed, listed, absent = [], [], {}, {}
     for row in rows:
         name = row["name"]
         cfg = RunConfig(verbose=False, device=args.device, **row["cfg"],
@@ -109,6 +113,13 @@ def main(argv=None) -> int:
             m = _ITEM.search(why)
             listed[name] = f"Queue {m.group(1)}, item {m.group(2)}"
             print(f"NOT PORTED {name:28s} {listed[name]}: {why}")
+            continue
+        mesh = cfg.mesh
+        if (mesh != "default" and registry_dim(mesh) is None
+                and find_mesh_file(mesh) is None):
+            stem = mesh[:-len(".mesh")] if mesh.endswith(".mesh") else mesh
+            absent[name] = f"needs {stem.split('/')[-1]}.mesh, absent"
+            print(f"ABSENT     {name:28s} {absent[name]}")
             continue
         if (args.only and name not in args.only) or name in args.skip:
             continue
@@ -123,9 +134,9 @@ def main(argv=None) -> int:
               f"steps={r.steps} {inj}[{time.perf_counter() - t0:.1f}s] "
               f"{'; '.join(msgs)}", flush=True)
     print(f"\n{len(matched)} matched, {len(failed)} failed, {len(listed)} "
-          f"listed as not ported")
+          f"listed as not ported, {len(absent)} without their mesh file")
     print(json.dumps({"matched": matched, "failed": failed,
-                      "not_ported": listed}))
+                      "not_ported": listed, "absent": absent}))
     return 1 if failed or not matched else 0
 
 

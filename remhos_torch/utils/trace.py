@@ -18,7 +18,8 @@ functions of `utils/cost.py` instead.
 
 Used by `bench.run(..., trace=True)` (kernel and glue time per stage, the
 glue's top ops, idle share) and `utils/fom.py` (the phase ablation timed by
-device time).
+device time). The driver's `-prof` records its time loop with
+`loop_profiler` and writes it with `write_loop_trace`.
 """
 
 from __future__ import annotations
@@ -73,6 +74,31 @@ def capture_trace(fn, quiet_s=CAPTURE_QUIET_S):
             return json.load(f)
     finally:
         os.unlink(path)
+
+
+def loop_profiler(device):
+    """A started torch.profiler recording of the driver's time loop (-prof):
+    CPU activity, and CUDA activity on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def write_loop_trace(prof, profile_dir, device) -> str:
+    """Stop `loop_profiler`'s recording (after the device's queued work) and
+    write its Chrome trace into profile_dir; returns the file's path."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir,
+                        f"remhos_loop_{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 def port_kernel_of(name):

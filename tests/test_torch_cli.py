@@ -11,8 +11,8 @@ the ROADMAP.md items the port's NotImplementedError messages name.
   state (final mass and max u 1e-14 relative); the JAX package's
   `load_state` reads the port's file; a path that is not `.npz` raises;
 - `run_goldens --device cpu --only transport-cube-m3pa` exits 0 and lists
-  the 15 rows the port does not run (38 of 53 run), each with its ROADMAP
-  item;
+  the 15 rows whose reference mesh file is absent (38 of 53 run), each as
+  "needs <name>.mesh, absent";
 - every "Queue N, item M" in the port's sources is an open item of
   ROADMAP.md's Queue 1 or 2.
 """
@@ -143,8 +143,9 @@ def test_run_goldens_lists_the_rest(capsys):
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rec["matched"] == ["transport-cube-m3pa"] and not rec["failed"]
     rows = json.loads(run_goldens.GOLDENS.read_text())["runs"]
-    assert len(rows) == 53 and len(rec["not_ported"]) == 15
-    supported = {r["name"] for r in rows} - set(rec["not_ported"])
+    assert len(rows) == 53 and len(rec["absent"]) == 15
+    assert not rec["not_ported"]
+    supported = {r["name"] for r in rows} - set(rec["absent"])
     kinds = ("remap-cube3d", "remap-pacman", "transport-ballsjacks",
              "transport-cube")
     fa = {f"{kind}-m{m}" for kind in kinds for m in (1, 2, 5)} | {
@@ -160,8 +161,11 @@ def test_run_goldens_lists_the_rest(capsys):
         f"transport-1d-m{m}" for m in range(1, 6)}
     assert len(fa) == 23 and supported == fa | pa | mono_1d
     assert len(supported) == 38
-    for item in rec["not_ported"].values():
-        assert item == "Queue 1, item 8"
+    meshes = {r["name"]: r["cfg"]["mesh"] for r in rows}
+    for name, why in rec["absent"].items():
+        assert why == f"needs {meshes[name]}.mesh, absent"
+        assert meshes[name] in ("periodic-hexagon", "disc-nurbs",
+                                "ball-nurbs")
 
 
 def _open_items(roadmap):
@@ -187,8 +191,7 @@ def test_unported_messages_name_open_roadmap_items():
     for f in (ROOT / "remhos_torch").rglob("*.py"):
         for q, i in re.findall(r"Queue (\d), item (\d+)", f.read_text()):
             named.add((int(q), int(i)))
-    # the items still open: Queue 1 items 8, 9 and 10, Queue 2 items 1
-    # and 2
-    assert len(named) >= 5
+    # the items still open: Queue 1 item 10, Queue 2 items 1 and 2
+    assert len(named) >= 3
     for q, i in sorted(named):
         assert q in (1, 2) and i in items[q], (q, i)

@@ -833,3 +833,55 @@ def test_mono_loop_does_not_depend_on_its_exit_interval(monkeypatch):
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
     assert adv.mono_stats["solves"] == 3
+
+
+def _rotated_box_file(path, n, seed):
+    """An n^3 unit box as a general hex mesh whose elements' corner frames
+    are turned by random cube rotations, written by the port's writer."""
+    import itertools
+    from remhos_torch import umesh3d, vis
+    box = make_cartesian_mesh(3, (n,) * 3, (0.0,) * 3, (1.0,) * 3,
+                              (False,) * 3)
+    corners, _ = vis._structured_corner_ids(box)
+    pos = box.x[:, [0, 2, 6, 8, 18, 20, 24, 26]]
+    rots = [R for R in (np.eye(3)[list(p)] * np.array(s)[:, None]
+                        for p in itertools.permutations(range(3))
+                        for s in itertools.product((1, -1), repeat=3))
+            if np.linalg.det(R) > 0]
+    ref = np.stack([(np.arange(8) >> d) & 1 for d in range(3)], -1) - 0.5
+    rng = np.random.default_rng(seed)
+    for e in range(len(corners)):
+        R = rots[rng.integers(len(rots))]
+        old = ((ref @ R.T) > 0).astype(int) @ np.array([1, 2, 4])
+        corners[e], pos[e] = corners[e][old], pos[e][old]
+    mesh = umesh3d.from_arrays_3d(corners, pos, 2)
+    Path(path).write_text(vis.mfem_mesh_text(mesh, mesh.x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lo,ho", [(5, 3), (4, 2)])
+def test_general_mesh_run_matches_the_cpu(lo, ho, tmp_path):
+    """A rotated 4^3 box read by path: the card's run (kernel 1's per-dof
+    variant, or kernels 3 and 4) equals the CPU's plain run and the
+    structured grid's to 1e-12."""
+    _cuda()
+    path = tmp_path / "box.mesh"
+    _rotated_box_file(path, 4, 3)
+    kw = dict(problem=10, order=3, ho=ho, lo=lo, fct=2, pa=True, dt=DT,
+              t_final=0.7, max_tsteps=6, verbose=False)
+    ops.reset_launch_counts()
+    rc = driver.run(RunConfig(mesh=str(path), rs_levels=0, device="cuda",
+                              **kw))
+    n = ops.launch_counts()
+    if lo == 5:
+        assert n["mega_stage"] == 18
+        assert ops.variant_counts()["mega_stage"] == dict(T=0, dof=18)
+    else:
+        assert n["geom_conv"] == 36 and n["wdet"] == 20
+    rh = driver.run(RunConfig(mesh=str(path), rs_levels=0, device="cpu",
+                              **kw))
+    rs = driver.run(RunConfig(mesh="default", dim=3, elem_per_shard=64,
+                              device="cuda", **kw))
+    for r in (rh, rs):
+        assert abs(rc.final_mass_u - r.final_mass_u) <= 1e-12 * r.final_mass_u
+        assert abs(rc.max_u - r.max_u) <= 1e-11
