@@ -12,7 +12,12 @@ It builds the CUDA kernels from the sources on first use, then:
    in f32 and f64 (wdet and geom_conv also at the golden rows' shape, in
    step 9): the mega stage; its per-dof variant (bounds "dof", on the
    sparsity bounds of -bt 1), also against the "T" variant on the same
-   inputs with the stencil expanded to dofs; the HO stage with and without its LO
+   inputs with the stencil expanded to dofs; its element-major variant
+   (bounds "E", the [E, 3^dim] stencil of a sharded grid) against its plain
+   version and bit for bit against "T" on the same stencil values, also at
+   p = 2 and 4 (E_ORDERS); kernels 1 and 2 reading the bf16 va/vn stream
+   (P16, f32, 3D and 2D) against their P16 plain versions evaluated in f64
+   on the same bf16 values; the HO stage with and without its LO
    output and once with n_cg == 0; wdet; geom_conv; the HO stage from the
    nodes (kernel 5) with its defaults, n_cg=0, with_face=False and mode=-1;
    the element-local GL CG (kernel 6) with its defaults, with every 7th
@@ -97,8 +102,9 @@ It builds the CUDA kernels from the sources on first use, then:
       (N=24, p=3, 320 steps, best of 4 windows, with the p=4 leg, the f64
       leg, the 40-step f32-vs-f64 cross check, the sweep (24|32) x (3|4)
       and its peak, and the phase FOMs): it must be verified, every leg
-      must have run (`legs_skipped` only "shardmap:unported") and kernel 1
-      must have launched 3 x 320 x 4 times over the timed windows;
+      must have run (`legs_skipped` empty; the one-shard `shardmap` leg
+      verified) and kernel 1 must have launched 3 x 320 x 4 times over the
+      timed windows;
    b. path E, transport at full width through driver.run: periodic-cube
       refined to 24^3, p=3, problem 0, `-ho 3 -lo 5 -fct 2 -pa` in f32 with
       the Kahan combine and the full closure (the mesh is all periodic),
@@ -151,11 +157,29 @@ It builds the CUDA kernels from the sources on first use, then:
       loader equals the final nodes to 1e-13; sltn_final.gf holds E*nd
       values), then 10 steps with -prof, which must write a trace. Each run
       prints its ms a step, its setup seconds and its launch counts;
+   i. path K, sharded runs of the main path's configuration at full width
+      (24^3, p=3): K1, one rank in this process (NCCL), f64 100 steps and
+      f32 320 steps, each against the unsharded run (f64: 1e-13 in final
+      mass and max u; f32, which runs without the closure: the open-mode
+      drift budget and u within its initial range to 1e-5), every stage one
+      launch of kernel 1's "E" variant and none of "T"; K2, 4 ranks sharing
+      the card (gloo, every exchange staged through host memory, the bytes
+      printed), z slabs and a (2, 2) grid, and K3, 5 ranks on the general
+      route (one ghost element; kernel 1's per-dof variant, no "E" or "T"),
+      f64, 20 steps, each against the unsharded run at 1e-13, in one spawn;
+      then the harness entry `graft_entry.entry()` with no device: on the
+      card, one step equal to the CPU step to 1e-12 of max|S|;
+   j. the bf16 P16 stream: the record's f32 leg with BENCH_POLY_BF16=1
+      (verified: the closure's injection budget and the 2-step cross check;
+      its value printed beside the headline's of step 9a), every kernel-1
+      launch reading P16; then path A with poly_bf16 for 40 steps, every
+      kernel-2 launch reading P16, under path A's gates;
 10. prints one JSON line per result, the wall seconds of each step and a
-    `kernels` line (kernel 1's per-dof variant as a row of its own,
-    `variant_of` "mega_stage", its launches from path F; it, wdet and
-    geom_conv also carry their launches and numbers on path J's general
-    meshes);
+    `kernels` line (kernel 1's variants as rows of their own, `variant_of`
+    "mega_stage": the per-dof one with its launches from path F, the
+    element-major one from path K1 f32, P16 from its record leg; kernel 2's
+    P16 row from path A P16; the per-dof variant, wdet and geom_conv also
+    carry their launches and numbers on path J's general meshes);
 11. ends with {"ok": true, "device": {...}}.
 
 Every launch count is set to 0 just before a path and read just after. Any
@@ -194,8 +218,10 @@ from remhos_torch.ops import mega_stage as ms
 from remhos_torch.ops import stage_ho as sh
 from remhos_torch.ops import stage_core as core
 from remhos_torch.ops import stage_ho_nodes as shn
+from remhos_torch.ops import tables as tbl
 from remhos_torch.ops import wdet as wd
 from remhos_torch.ops.stage_core import as_dtype
+from remhos_torch.parallel import launch
 from remhos_torch.tools import kernelbench, microbench, run_goldens
 from remhos_torch.utils import fom
 from remhos_torch.utils import trace as trc
@@ -360,9 +386,48 @@ PATH_J3 = dict(mesh="inline-quad", rs_levels=5, order=ORDER, problem=14,
 J_LIMITS = dict(mass_rel=1e-12, max_u=1e-11)
 # the written mesh read back, against the final nodes (%.16g text)
 J_SAVE_LIMIT = 1e-13
+# path K: sharded runs of the main path's configuration at full width
+# (24^3, p=3, -p 10 -ho 3 -lo 5 -fct 2 -pa, dt = 0.2/320). K1: one rank,
+# NCCL, in this process, against the unsharded run: f64 100 steps, then f32
+# 320 steps (the sharded f32 run has no closure: the open-mode drift
+# budget, K_DRIFT, gates it). K2: 4 ranks sharing the card (gloo), along z
+# (4 slabs of 6) and on a (2, 2) grid; K3: 5 ranks, the general route
+# (24 % 5 != 0: one ghost element); f64, 20 steps. The mesh is `-m default`
+# with -epm 24^3 and the shards as shard_grid, so the mesh stays 24^3.
+PATH_K = dict(mesh="default", dim=3, elem_per_shard=N_MAIN ** 3, order=ORDER,
+              problem=10, ho=3, lo=5, fct=2, pa=True, t_final=0.7,
+              dt=0.2 / 320, verbose=False)
+PATH_K1 = dict(PATH_K, dtype="float64", max_tsteps=100)
+PATH_K1_F32 = dict(PATH_K, dtype="float32", max_tsteps=STEPS)
+PATH_K2 = dict(PATH_K, dtype="float64", max_tsteps=20)
+K_GRIDS = (("K2 z", (4,)), ("K2 (2, 2)", (2, 2)), ("K3 general", (5,)))
+# sharded against unsharded, final mass and max u (absolute), f64
+K_LIMIT = 1e-13
+# f32 bounds: bench.verify's tolerance
+K_BOUNDS = 1e-5
+
+
+def k_drift(n_steps, dt):
+    """bench.verify's open-mode drift budget of an f32 run without closure
+    (remhos_torch/bench.py; bench.py:314-338): the GCL term, the random walk
+    and the systematic stage rounding."""
+    gcl = n_steps * max(5e-7 * (dt / 0.02) ** 4, 3e-11)
+    sys_rate = 8e-9 * max(1.0, dt / 6.25e-4)
+    return gcl + 1e-7 * n_steps ** 0.5 + sys_rate * n_steps
+
+
+# the bf16 P16 stream: the record's f32 leg with BENCH_POLY_BF16=1 (kernel
+# 1), then path A with poly_bf16 for 40 steps (kernel 2: two fields), gates
+# as path A's
+P16_RECORD_ENV = dict(RECORD_ENV, BENCH_POLY_BF16="1", BENCH_DUAL="0",
+                      BENCH_TRACE="0", BENCH_PHASES="0")
+PATH_A16 = dict(PATH_A, poly_bf16=True, max_tsteps=40)
+A16_LIMITS = dict(A_LIMITS, min_steps=40)
 # the orders kernels 1, 2 and 5 are also held at (p=3: step 3's checks);
 # p = 2-4 are compiled sizes of the core, p = 1 and 5 its runtime sizes
 ORDERS = (1, 2, 4, 5)
+# the other orders kernel 1's "E" variant is held at (p=3: step 3's)
+E_ORDERS = (2, 4)
 # f32 stage kernels in 3D at p >= 4 (`stage_limit`)
 F32_HIGH_ORDER_LIMIT = 1e-3
 # the (p, mesh order) pairs wdet and geom_conv are also held at (p=3, mesh
@@ -545,6 +610,113 @@ def check_kernel_dof(label, adv, adv64, dt, rng, traced=False):
             lambda: ms.mega_stage(*args, bounds="dof"), "mega_stage")
     print(json.dumps(res), flush=True)
     return res
+
+
+def check_kernel_E(label, adv, adv64, dt, rng, traced=False):
+    """Kernel 1's element-major variant (bounds "E", the [E, 3^dim] stencil
+    a shard of a sharded grid gives it) on random u: equal to the "T"
+    variant bit for bit on the same stencil values (the transpose), and
+    against its plain version (`hold`, `stage_limit`); raises otherwise.
+    Returns the measured numbers."""
+    dtype = adv.dtype
+    u, unbr, smin, smax = stage_inputs(adv, rng)
+    emin, emax = adv.compute_bounds_stencil(*bounds.elements_min_max(u))
+    if not (torch.equal(emin, smin.T) and torch.equal(emax, smax.T)):
+        raise RuntimeError(f"{label}: the element-major stencil is not the "
+                           "transpose of the class-major one")
+    t, dt = as_dtype(0.1, dtype), as_dtype(dt, dtype)
+    P, tb = adv._poly, adv._stage_tables
+    args = (t, dt, u, unbr, emin, emax, P, tb)
+    n_cg = ms.default_sweeps(dtype)
+    got = ms.mega_stage(*args, bounds="E")
+    du_T = ms.mega_stage(t, dt, u, unbr, smin, smax, P, tb)
+    torch.cuda.synchronize()
+    if not torch.equal(got, du_T):
+        raise RuntimeError(f"{label}: kernel 1's \"E\" variant differs from "
+                           f"\"T\" by {float((got - du_T).abs().max()):g}")
+    ref = ms.mega_stage_reference(*args, n_cg, "E")
+    ref64 = None
+    if dtype == torch.float32:
+        ref64 = ms.mega_stage_reference(
+            t, dt, *f64_inputs(u, unbr, emin, emax, P), adv64._stage_tables,
+            n_cg, "E")
+    torch.cuda.synchronize()
+    lim = stage_limit(adv)
+    err, rel, prel = hold(label + " element-major", "du", got, ref, ref64,
+                          lim)
+    res = dict(check=label, kernel="mega_stage", variant="E", E=u.shape[0],
+               p=adv.disc.p, max_abs_err=err, rel_err=rel,
+               limit=lim if lim is not None else "plain f32",
+               plain_f32_rel_err=prel, vs_T="bit for bit",
+               ms=time_ms(lambda: ms.mega_stage(*args, bounds="E"), 20),
+               T_ms=time_ms(lambda: ms.mega_stage(
+                   t, dt, u, unbr, smin, smax, P, tb), 20),
+               plain_ms=time_ms(
+                   lambda: ms.mega_stage_reference(*args, n_cg, "E"), 5))
+    res.update(bound(*stage_cost(tb, P, n_cg, kind="mega_elem"), dtype))
+    if traced:
+        res["trace_ms"] = traced_ms(
+            lambda: ms.mega_stage(*args, bounds="E"), "mega_stage")
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def check_p16(label, adv, adv64, dt, rng, traced=False):
+    """Kernels 1 ("T") and 2 (with LO) reading the bf16 va/vn stream P16
+    (f32; the operator's own x0 and v through build_poly_tables(...,
+    va_vn_bf16=True)) against their P16 plain versions evaluated in f64 on
+    the same bf16 values (`hold`, LIMITS; wdet, read from the f32 P alone,
+    at WDET_LIMITS in f32); raises beyond them. Returns {kernel: record}."""
+    u, unbr, smin, smax = stage_inputs(adv, rng)
+    P, P16 = tbl.build_poly_tables(adv.x0_nodes, adv.v_nodes, adv.disc,
+                                   va_vn_bf16=True)
+    tb, tb64 = adv._stage_tables, adv64._stage_tables
+    t, dt = as_dtype(0.1, torch.float32), as_dtype(dt, torch.float32)
+    n_cg = ms.default_sweeps(torch.float32)
+    u64, unbr64, smin64, smax64, P64 = f64_inputs(u, unbr, smin, smax, P)
+    mega = lambda: ms.mega_stage(t, dt, u, unbr, smin, smax, P, tb, P16=P16)
+    ho = lambda: sh.stage_ho(t, u, unbr, P, tb, dt=dt, with_lo=True, P16=P16)
+    out = {}
+    for name, kern, ref32, ref64, cost in (
+            ("mega_stage", lambda: (mega(),),
+             lambda: (ms.mega_stage_reference(t, dt, u, unbr, smin, smax, P,
+                                              tb, n_cg, "T", P16),),
+             lambda: (ms.mega_stage_reference(t, dt, u64, unbr64, smin64,
+                                              smax64, P64, tb64, n_cg, "T",
+                                              P16),),
+             stage_cost(tb, P, n_cg, P16=P16)),
+            ("stage_ho", ho,
+             lambda: sh.stage_ho_poly_reference(t, u, unbr, P, tb, n_cg,
+                                                dt=dt, with_lo=True, P16=P16),
+             lambda: sh.stage_ho_poly_reference(t, u64, unbr64, P64, tb64,
+                                                n_cg, dt=dt, with_lo=True,
+                                                P16=P16),
+             stage_cost(tb, P, n_cg, "ho", True, P16=P16))):
+        got = kern()
+        torch.cuda.synchronize()
+        refs, refs64 = ref32(), ref64()
+        names = ("du", "wdet", "du_LO")[:len(refs)]
+        limits = (LIMITS[torch.float32], WDET_LIMITS[torch.float32],
+                  LIMITS[torch.float32])
+        # wdet in its working type: no mass inverse amplifies its rounding
+        errs = {k: hold(f"{label} {name} P16", k, g, r,
+                        None if k == "wdet" else r64, lim)
+                for k, g, r, r64, lim in zip(names, got, refs, refs64,
+                                             limits)}
+        rec = dict(check=label, kernel=name, variant="P16", E=u.shape[0],
+                   max_abs_err=max(errs[k][0] for k in names if k != "wdet"),
+                   rel_err={k: errs[k][1] for k in names},
+                   plain_f32_rel_err={k: errs[k][2] for k in names},
+                   limit=LIMITS[torch.float32],
+                   P_bytes=P.numel() * 4, P16_bytes=P16.numel() * 2,
+                   ms=time_ms(kern, 20),
+                   plain_ms=time_ms(ref32, 5))
+        rec.update(bound(*cost, torch.float32))
+        if traced:
+            rec["trace_ms"] = traced_ms(kern, name)
+        print(json.dumps(rec), flush=True)
+        out[name] = rec
+    return out
 
 
 def check_stage_ho(label, adv, adv64, dt, rng, with_lo, n_cg=None,
@@ -939,9 +1111,12 @@ def order_checks(label, adv, adv64, dt, rng):
 
 def check_other_orders(dev, rng):
     """order_checks and kernel 6 at ORDERS, 3D N=24 and 2D 16x16, f32 and
-    f64: {kernel: {key: record}}. Kernel 6 draws from its own stream."""
+    f64, and kernel 1's "E" variant at E_ORDERS: {kernel: {key: record}}
+    ("mega_stage_E" for the variant). Kernel 6 and the "E" checks draw from
+    streams of their own."""
     out = {}
     rng6 = np.random.default_rng(SEED + 5)
+    rng_e = np.random.default_rng(SEED + 7)
     for p in ORDERS:
         for tag, n, dim in (("3d", N_MAIN, 3), ("2d", 16, 2)):
             case = bench.build_case(n, p, torch.float32, dev, n_steps=STEPS,
@@ -952,6 +1127,9 @@ def check_other_orders(dev, rng):
                 recs = order_checks(label, adv, case.adv64, case.dt, rng)
                 recs["gl_cg"] = check_gl_cg(label, adv, adv._stage_tables,
                                             rng6)
+                if p in E_ORDERS:
+                    recs["mega_stage_E"] = check_kernel_E(
+                        label, adv, case.adv64, case.dt, rng_e)
                 for k, r in recs.items():
                     out.setdefault(k, {})[f"p{p}_{tag}_{prec}"] = r
             del case
@@ -1088,7 +1266,7 @@ def run_path_f(device):
                                         if k != "bounds"},
                           device, mega_launches)
     variants = ops.variant_counts()["mega_stage"]
-    want = dict(T=0, dof=rec["launches"]["mega_stage"])
+    want = dict(T=0, E=0, dof=rec["launches"]["mega_stage"], P16=0)
     if variants != want:
         raise RuntimeError(f"F: kernel 1's variants launched {variants}, "
                            f"expected {want}")
@@ -1245,7 +1423,9 @@ def split_nonfused_stage(device):
     return rec
 
 
-_PER_DOF = re.compile(r"mega_stage_kernel(<[^()]*\btrue>|I.*Lb1EE)")
+# kernel 1's per-dof flag: the fifth template argument (DOF, then BF16)
+_PER_DOF = re.compile(
+    r"mega_stage_kernel(<[^,()]*, \d+, \d+, \d+, true\b|I.*Lb1ELb[01]EE)")
 
 
 def trace_seven_kernels(case, rng):
@@ -1385,8 +1565,11 @@ def run_record(device):
     problems = []
     if rec["verified"] is not True:
         problems.append("not verified")
-    if rec["legs_skipped"] != ["shardmap:unported"]:
+    if rec["legs_skipped"] != []:
         problems.append(f"legs skipped: {rec['legs_skipped']}")
+    if rec.get("shardmap_verified") is not True or not \
+            rec.get("shardmap_value", 0) > 0:
+        problems.append("the shardmap leg did not run verified")
     if rec["kernels"]["mega_stage"] != want:
         problems.append(f"kernel 1 launched {rec['kernels']['mega_stage']} "
                         f"times over the windows, expected {want}")
@@ -1727,8 +1910,8 @@ def hold_general(path, rec, ref):
     return dict(mass_rel_diff=d_mass, max_u_diff=d_max)
 
 
-def expect_variants(path, rec, T, dof):
-    want = dict(T=T, dof=dof)
+def expect_variants(path, rec, T, dof, E=0, P16=0):
+    want = dict(T=T, E=E, dof=dof, P16=P16)
     if rec["variant_launches"] != want:
         raise RuntimeError(f"{path}: kernel 1's variants launched "
                            f"{rec['variant_launches']}, expected {want}")
@@ -1890,6 +2073,144 @@ def check_saved(save_dir):
     return dict(nodes_max_abs_err=err, field_values=n, elements=u.shape[0])
 
 
+def k_record(path, res, ref, counts=None, variants=None):
+    """A sharded run of path K against its unsharded run: printed, gated at
+    K_LIMIT (f64) and returned."""
+    rec = dict(path=path, shards=res.shards, steps=res.steps,
+               ms_per_step=1e3 * res.timers["wall_s"] / res.steps,
+               final_mass_u=res.final_mass_u, max_u=res.max_u,
+               mass_diff=abs(res.final_mass_u - ref.final_mass_u),
+               max_u_diff=abs(res.max_u - ref.max_u),
+               unsharded_ms_per_step=1e3 * ref.timers["wall_s"] / ref.steps,
+               halo_staged_bytes=res.halo_staged_bytes,
+               launches=counts, variant_launches=variants)
+    print(json.dumps(rec), flush=True)
+    gate(path, "steps", res.steps, ref.steps, least=True)
+    return rec
+
+
+def run_path_k(device):
+    """Path K: K1 (one rank, NCCL, in this process; f64 and f32), K2 (4
+    ranks sharing the card, gloo, z slabs and a (2, 2) grid) and K3 (5
+    ranks, the general route), each against the unsharded run. Returns the
+    records by name."""
+    out = {}
+    dev = str(device)
+    ref = driver.run(RunConfig(device=dev, **PATH_K1))
+    ops.reset_launch_counts()
+    res = driver.run(RunConfig(device=dev, shard_grid=(1,), **PATH_K1))
+    want = dict(T=0, E=bench.STAGES * res.steps_total, dof=0, P16=0)
+    v = ops.variant_counts()["mega_stage"]
+    if v != want:
+        raise RuntimeError(f"K1: kernel 1's variants {v}, expected {want}")
+    out["K1"] = k_record("K1 f64, 1 rank NCCL", res, ref,
+                         ops.launch_counts(), v)
+    for k in ("mass_diff", "max_u_diff"):
+        gate("K1", k, out["K1"][k], K_LIMIT)
+    ref32 = driver.run(RunConfig(device=dev, **PATH_K1_F32))
+    ops.reset_launch_counts()
+    res32 = driver.run(RunConfig(device=dev, shard_grid=(1,),
+                                 **PATH_K1_F32))
+    v = ops.variant_counts()["mega_stage"]
+    want = dict(T=0, E=bench.STAGES * res32.steps_total, dof=0, P16=0)
+    if v != want:
+        raise RuntimeError(f"K1 f32: kernel 1's variants {v}, expected "
+                           f"{want}")
+    rec = k_record("K1 f32, 1 rank NCCL, no closure", res32, ref32,
+                   ops.launch_counts(), v)
+    m0 = res32.final_mass_u + res32.mass_loss_u
+    rec.update(mass_loss_u_rel=res32.mass_loss_u / abs(m0),
+               drift_budget=k_drift(res32.steps, PATH_K1_F32["dt"]),
+               unsharded_closure_injected_rel=ref32.mass_closure_injected_rel,
+               min_u=res32.min_u, u0_min=res32.u0_min, u0_max=res32.u0_max)
+    print(json.dumps(dict(path="K1 f32 gates", **{k: rec[k] for k in (
+        "mass_loss_u_rel", "drift_budget", "max_u", "min_u")})), flush=True)
+    gate("K1 f32", "mass loss", rec["mass_loss_u_rel"], rec["drift_budget"])
+    gate("K1 f32", "max u", res32.max_u, res32.u0_max + K_BOUNDS)
+    gate("K1 f32", "min u", res32.min_u, res32.u0_min - K_BOUNDS, least=True)
+    out["K1 f32"] = rec
+    # K2 and K3: one spawn of 5 ranks on the card (gloo, staged)
+    ref = driver.run(RunConfig(device=dev, **PATH_K2))
+    t0 = time.perf_counter()
+    runs = launch.spawn_run(
+        [RunConfig(device=dev, shard_grid=g, **PATH_K2) for _, g in K_GRIDS],
+        5, dev, timeout_s=600.0, counted=True)
+    spawn_s = time.perf_counter() - t0
+    for (name, grid), (res, counts, variants) in zip(K_GRIDS, runs):
+        n = bench.STAGES * res.steps_total
+        want = (dict(T=0, E=n, dof=0, P16=0) if name.startswith("K2")
+                else dict(T=0, E=0, dof=n, P16=0))
+        if variants["mega_stage"] != want:
+            raise RuntimeError(f"{name}: kernel 1's variants on rank 0 "
+                               f"{variants['mega_stage']}, expected {want}")
+        rec = k_record(f"{name}, grid {grid}, gloo", res, ref, counts,
+                       variants["mega_stage"])
+        rec["spawn_s_all_three"] = spawn_s
+        for k in ("mass_diff", "max_u_diff"):
+            gate(name, k, rec[k], K_LIMIT)
+        out[name] = rec
+    return out
+
+
+def check_graft_entry():
+    """The harness entry `graft_entry.entry()` with no device: its state
+    and operator on the card, one RK3 step equal to the CPU step of the
+    same state to 1e-12 of max|S| (the assembled path's Cholesky solves
+    round differently on the two devices)."""
+    from remhos_torch import graft_entry
+    fn, args = graft_entry.entry()
+    if args[0].device.type != "cuda":
+        raise RuntimeError(f"graft entry: state on {args[0].device}")
+    out = fn(*args)
+    fn_c, args_c = graft_entry.entry("cpu")
+    ref = fn_c(*args_c)
+    rel = float((out.cpu() - ref).abs().max() / ref.abs().max())
+    print(json.dumps(dict(check="graft_entry.entry() on the card",
+                          shape=list(out.shape), max_rel_diff_vs_cpu=rel)),
+          flush=True)
+    gate("graft entry", "max rel diff vs the CPU step", rel, 1e-12)
+
+
+def run_p16(device, record):
+    """The bf16 stream on the main path: the record's f32 leg with
+    BENCH_POLY_BF16=1 (verified by the closure's injection budget and the
+    2-step f32-vs-f64 cross check), its value beside the headline's from
+    this call; then path A with poly_bf16 (kernel 2 on two fields). Every
+    kernel-1 launch of the leg and every kernel-2 launch of the path must
+    read P16. Returns (the leg's record, path A16's record)."""
+    ops.reset_launch_counts()
+    rec = bench.main(device=device, env=P16_RECORD_ENV)
+    v = ops.variant_counts()["mega_stage"]
+    if not (rec["verified"] is True and rec["cross_check"]["status"] == "ran"
+            and rec.get("poly_bf16") is True):
+        raise RuntimeError(f"P16 record leg not verified: {rec}")
+    # the f32 operator's launches read P16: the warm-up and the timed
+    # windows and the cross check's 2 f32 steps; the cross check's 2 f64
+    # steps take the f64 operator, which has no P16 ("T")
+    steps = int(P16_RECORD_ENV["BENCH_STEPS"])
+    reps = int(P16_RECORD_ENV["BENCH_REPS"])
+    want = bench.STAGES * (steps * (reps + 1) + 2)
+    if v != dict(T=want + 2 * bench.STAGES, E=0, dof=0, P16=want):
+        raise RuntimeError(f"P16 record leg: variants {v}, expected {want} "
+                           "P16 launches")
+    rec["variant_launches"] = v
+    print(json.dumps(dict(check="P16 record leg", value=rec["value"],
+                          headline_value=record["value"],
+                          mass_closure_injected_rel=rec[
+                              "mass_closure_injected_rel"],
+                          f32_vs_f64_2step_rel=rec["f32_vs_f64_2step_rel"],
+                          headline_f32_vs_f64_2step_rel=record[
+                              "f32_vs_f64_2step_rel"],
+                          variant_launches=v)), flush=True)
+    a16 = run_driver_path("A P16", PATH_A16, A16_LIMITS, device)
+    n16 = sh.stage_ho.variant_launches["P16"]
+    if n16 != a16["launches"]["stage_ho"]:
+        raise RuntimeError(f"A P16: {n16} P16 launches of kernel 2, "
+                           f"expected {a16['launches']['stage_ho']}")
+    a16["P16_launches"] = n16
+    return rec, a16
+
+
 def general_rows(path_j, name):
     """A kernel's numbers on path J's rotated mesh, f32 and f64."""
     return {k: {f: path_j["checks"][f"{name}_{k}"][f] for f in (
@@ -1932,8 +2253,12 @@ def main():
     rng_new = np.random.default_rng(SEED + 1)
     checks, ho_checks, wdet_checks, gc_checks = {}, {}, {}, {}
     new_checks, dof_checks = {}, {}
-    # kernel 1's per-dof variant draws from a stream of its own too
+    # kernel 1's per-dof variant draws from a stream of its own too, and so
+    # do its element-major variant and the P16 checks
     rng_dof = np.random.default_rng(SEED + 4)
+    rng_e = np.random.default_rng(SEED + 6)
+    rng_16 = np.random.default_rng(SEED + 8)
+    e_checks, p16_checks = {}, {}
     for tag, n, dim in (("3d", N_MAIN, 3), ("2d", 16, 2)):
         case = bench.build_case(n, ORDER, torch.float32, dev, n_steps=STEPS,
                                 dim=dim)
@@ -1945,6 +2270,13 @@ def main():
             dof_checks[key] = check_kernel_dof(f"{size} {prec}", adv,
                                                case.adv64, case.dt, rng_dof,
                                                traced=key == "3d_f32")
+            e_checks[key] = check_kernel_E(f"{size} {prec}", adv, case.adv64,
+                                           case.dt, rng_e,
+                                           traced=key == "3d_f32")
+            if prec == "f32":
+                p16_checks[tag] = check_p16(f"{size} f32", adv, case.adv64,
+                                            case.dt, rng_16,
+                                            traced=tag == "3d")
             for with_lo in (True, False):
                 k2 = key + ("_lo" if with_lo else "")
                 ho_checks[k2] = check_stage_ho(
@@ -2054,6 +2386,15 @@ def main():
     path_j = run_path_j(dev, np.random.default_rng(SEED + 5))
     torch.cuda.empty_cache()
     done("path J")
+    # 9i. path K: sharded runs (1 rank NCCL; 4 and 5 ranks sharing the card)
+    path_k = run_path_k(dev)
+    check_graft_entry()
+    torch.cuda.empty_cache()
+    done("path K")
+    # 9j. the bf16 P16 stream: the record's f32 leg, path A with poly_bf16
+    p16_rec, path_a16 = run_p16(dev, record)
+    torch.cuda.empty_cache()
+    done("P16")
     print(json.dumps({"seconds": seconds,
                       "trace_retakes": trc.capture_counted.retakes}),
           flush=True)
@@ -2138,6 +2479,41 @@ def main():
         checks=[{k: c[k] for k in ("check", "max_abs_err", "rel_err",
                                    "limit", "vs_T_max_abs_err")}
                 for c in dof_checks.values()]))
+    e32, e64 = e_checks["3d_f32"], e_checks["3d_f64"]
+    e_all = dict(e_checks, **order_recs.get("mega_stage_E", {}))
+    kernels.insert(2, dict(
+        name="mega_stage_E", variant_of="mega_stage",
+        bounds="element-major [E, 3^dim] (a shard of a sharded grid; the "
+               "JAX kernel's bounds_stencil=True)",
+        route="cuda", source="remhos_torch/ops/csrc/mega_stage.cu",
+        replaces=pk + ":889", launches=path_k["K1 f32"]["variant_launches"][
+            "E"], max_abs_err=e32["max_abs_err"], ms=e32["ms"],
+        plain_ms=e32["plain_ms"], bound_ms=e32["bound_ms"],
+        bound_by=e32["bound_by"], library_ms=None,
+        f64={k: e64[k] for k in keys}, T_ms=e32["T_ms"],
+        f64_T_ms=e64["T_ms"], vs_T="bit for bit", trace_ms=e32["trace_ms"],
+        launches_path_k1_f64=path_k["K1"]["variant_launches"]["E"],
+        launches_path_k2_rank0={k: path_k[k]["variant_launches"]["E"]
+                                for k in ("K2 z", "K2 (2, 2)")},
+        orders={k: {f: r[f] for f in keys} for k, r in order_recs.get(
+            "mega_stage_E", {}).items()},
+        checks=[{k: c[k] for k in ("check", "max_abs_err", "rel_err",
+                                   "limit")} for c in e_all.values()]))
+    m16, h16 = p16_checks["3d"]["mega_stage"], p16_checks["3d"]["stage_ho"]
+    kernels.insert(3, dict(
+        name="mega_stage_P16", variant_of="mega_stage",
+        stream="va and vn in bf16 (P16), w_q det J in f32 (the JAX "
+               "package's poly_bf16), class-major bounds",
+        route="cuda", source="remhos_torch/ops/csrc/mega_stage.cu + "
+                             "stage_core.cuh",
+        replaces=pk + ":889", launches=p16_rec["variant_launches"]["P16"],
+        max_abs_err=m16["max_abs_err"], ms=m16["ms"],
+        plain_ms=m16["plain_ms"], bound_ms=m16["bound_ms"],
+        bound_by=m16["bound_by"], library_ms=None, trace_ms=m16["trace_ms"],
+        record_value=p16_rec["value"], headline_value=record["value"],
+        checks=[{k: c["mega_stage"][k] for k in ("check", "max_abs_err",
+                                                 "rel_err", "limit")}
+                for c in p16_checks.values()]))
     k5, k6, k7 = (new_checks[k] for k in ("stage_ho_nodes", "gl_cg",
                                           "gather_nbr"))
     tl = tools["launches"]
@@ -2166,6 +2542,18 @@ def main():
             library_trace_ms=k7["3d_f32"]["library_trace_ms"],
             microbench_ms=tools["microbench"]["gather kernel"]),
     ]
+    kernels.insert(5, dict(
+        name="stage_ho_P16", variant_of="stage_ho",
+        stream="va and vn in bf16 (P16), w_q det J in f32",
+        route="cuda", source="remhos_torch/ops/csrc/stage_ho.cu + "
+                             "stage_core.cuh",
+        replaces=pk + ":809", launches=path_a16["P16_launches"],
+        max_abs_err=h16["max_abs_err"], ms=h16["ms"],
+        plain_ms=h16["plain_ms"], bound_ms=h16["bound_ms"],
+        bound_by=h16["bound_by"], library_ms=None, trace_ms=h16["trace_ms"],
+        checks=[{k: c["stage_ho"][k] for k in ("check", "max_abs_err",
+                                               "rel_err", "limit")}
+                for c in p16_checks.values()]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -33,11 +33,22 @@ BENCH_P (3), BENCH_STEPS (320), BENCH_DT (0.2/steps), BENCH_REPS (4),
 BENCH_DUAL, BENCH_P4, BENCH_CROSSCHECK, BENCH_VERIFY, BENCH_DTYPE
 (float32), BENCH_CLOSURE (1|full|0), BENCH_PHASES, BENCH_TRACE,
 BENCH_BUDGET_S (1100), BENCH_SWEEP, BENCH_SWEEP_FULL, BENCH_PEAK_VERIFY,
-BENCH_STEPS_F64 (40), BENCH_STEPS_SWEEP (80), BENCH_CROSSDUMP. The TPU's
-BENCH_PALLAS=0 (the plain version on the device, which the port does not
-offer on the card), BENCH_POLY_BF16=1 and BENCH_SHARDED > 0 raise
-ValueError naming their ROADMAP.md item. The legs of the dual record take
-their sizes as function arguments; nothing here writes os.environ.
+BENCH_STEPS_F64 (40), BENCH_STEPS_SWEEP (80), BENCH_CROSSDUMP,
+BENCH_POLY_BF16 (0: 1 streams va and vn in bf16, f32 only; the closure's
+injection budget and the cross checks are its gates), BENCH_SHARDED (0: n
+runs the same production loop sharded over a process group of n,
+`sharded_record`) and BENCH_SHARDED_LEG (1: the dual record's one-shard
+leg). The TPU's BENCH_PALLAS=0 (the plain version on the device, which the
+port does not offer on the card) raises ValueError. The legs of the dual
+record take their sizes as function arguments; nothing here writes
+os.environ.
+
+The sharded loop (bench.py:441-490) is the production loop in a process
+group: each rank runs its block through `parallel.sharded`'s step with the
+Kahan-compensated combine and no closure, so it is verified against the
+open-mode drift budget. One shard runs in this process (NCCL on the card,
+gloo on the CPU), more in spawned ranks (`parallel.launch.spawn`), with
+rank 0's record returned.
 """
 
 from __future__ import annotations
@@ -78,7 +89,7 @@ SWEEP_POINTS = ((24, 3), (32, 3), (24, 4), (32, 4))
 # less of BENCH_BUDGET_S is left. These are estimates with margin; the
 # record's `leg_wall_s` gives each leg's measured seconds.
 LEG_COST_S = dict(p4=60.0, float64=40.0, sweep=60.0, peak=60.0,
-                  phases=150.0)
+                  phases=150.0, shardmap=60.0)
 
 
 def _env_on(env, name, default="1"):
@@ -94,12 +105,6 @@ def knobs(env=None) -> dict:
             "BENCH_PALLAS=0 asks for the plain version on the device; the "
             "port runs its kernels on the card (the plain versions are the "
             "CPU's and the tests' references), ROADMAP.md Queue 2")
-    if _env_on(env, "BENCH_POLY_BF16", "0"):
-        raise ValueError("BENCH_POLY_BF16=1: the bf16 P16 stream is not "
-                         "ported (ROADMAP.md Queue 2, item 2)")
-    if int(env.get("BENCH_SHARDED", "0")) > 0:
-        raise ValueError("BENCH_SHARDED: sharding over several devices is "
-                         "not ported (ROADMAP.md Queue 1, item 10)")
     steps = int(env.get("BENCH_STEPS", "320"))
     closure = env.get("BENCH_CLOSURE", "1")
     if closure not in ("1", "full", "0"):
@@ -123,7 +128,10 @@ def knobs(env=None) -> dict:
         peak_verify=_env_on(env, "BENCH_PEAK_VERIFY"),
         steps_f64=int(env.get("BENCH_STEPS_F64", "40")),
         steps_sweep=int(env.get("BENCH_STEPS_SWEEP", "80")),
-        crossdump=env.get("BENCH_CROSSDUMP", ""))
+        crossdump=env.get("BENCH_CROSSDUMP", ""),
+        poly_bf16=_env_on(env, "BENCH_POLY_BF16", "0"),
+        sharded=int(env.get("BENCH_SHARDED", "0")),
+        sharded_leg=_env_on(env, "BENCH_SHARDED_LEG"))
 
 
 def device_line(device) -> str:
@@ -162,13 +170,16 @@ class Case:
 
 
 def build_case(n=24, order=3, dtype=torch.float32, device=None,
-               n_steps=320, dt=None, dim=3, closure="1") -> Case:
+               n_steps=320, dt=None, dim=3, closure="1",
+               poly_bf16=False) -> Case:
     """bench.build_case (bench.py:128-208) on `device` (None -> CUDA).
 
     dtype float32: the production case, with the mass closure of
     `closure` ("1": incremental every step and one full at the end; "full":
     the full closure every step; "0": none). float64: the
-    reference-precision case, with neither (as bench.py runs it)."""
+    reference-precision case, with neither (as bench.py runs it).
+    poly_bf16: the working operator streams va and vn in bf16 (f32 only;
+    the f64 verification operator never does)."""
     device = resolve_device(device)
     mesh = make_cartesian_mesh(dim, (n,) * dim, (0.0,) * dim, (1.0,) * dim,
                                (False,) * dim)
@@ -199,8 +210,9 @@ def build_case(n=24, order=3, dtype=torch.float32, device=None,
             case.closure = st.make_mass_closure(case.mlk32, case.sig, m0)
             if closure == "1":
                 case.closure_inc = st.make_mass_closure_inc(case.mlk32)
-        case.adv = Advection(disc, cfg, x0.to(dtype), v.to(dtype),
-                             dtype=dtype, device=device)
+        case.adv = Advection(
+            disc, dataclasses.replace(cfg, poly_bf16=poly_bf16),
+            x0.to(dtype), v.to(dtype), dtype=dtype, device=device)
     elif dtype != f64:
         raise TypeError(f"build_case takes float32 or float64, not {dtype}")
     case.step = st.make_rk_step(case.adv.stage_function(), 3,
@@ -448,16 +460,96 @@ def run(case: Case, reps=1, warmup=False, verify_state=True,
     return result
 
 
+def sharded_record(case: Case, n_shards: int, reps=1, verify_state=True):
+    """The production loop of `case` sharded over a process group of
+    n_shards ranks (bench.py:441-490, make_sharded_loop), which this
+    process must be a rank of: each rank's block through
+    `parallel.sharded`'s step with the Kahan-compensated combine and no
+    closure, timed over `reps` windows after one warm-up, the final state
+    gathered and verified against the open-mode drift budget. Every rank
+    returns the record."""
+    from .parallel import launch
+    from .parallel.sharded import make_sharded_step, shard_arrays
+    adv = case.adv
+    dev = case.u0.device
+    comm, sstep, perm = make_sharded_step(
+        case.disc.mesh, adv.cfg, case.disc.p, (n_shards,), 3,
+        group=launch.current_group(), dtype=case.u0.dtype, device=dev,
+        loop=case.n_steps)
+    S, x0, v, _ = shard_arrays(comm, case.u0[None], adv.x0_nodes,
+                               adv.v_nodes, None, perm=perm)
+    inv = torch.as_tensor(np.argsort(perm), device=dev)
+
+    def loop():
+        return sstep(S, 0.0, case.dt, x0, v, None)[0]
+
+    loop()                                       # warm-up window
+    before = ops.launch_counts()
+    wall = float("inf")
+    for _ in range(max(1, reps)):
+        synchronize(dev)
+        comm.barrier()
+        t0 = time.perf_counter()
+        out = loop()
+        synchronize(dev)
+        comm.barrier()
+        wall = min(wall, time.perf_counter() - t0)
+    launches = {k: n - before[k] for k, n in ops.launch_counts().items()}
+    uT = comm.all_gather(out[0]).index_select(0, inv)
+    rel_loss = None
+    if verify_state:
+        rel_loss, _ = verify(case.adv64, case.u0, uT, case.dt, case.n_steps)
+    stage_calls = case.n_steps * STAGES
+    fom = 1e-6 * case.ndofs * stage_calls / wall
+    case.u_final = uT
+    return {
+        "metric": "fom_total_p%d_%dd_remap_pa_%s_sharded%d" % (
+            case.disc.p, case.disc.dim,
+            "f32" if case.u0.dtype == torch.float32 else "f64", n_shards),
+        "ndofs": case.ndofs, "value": fom, "unit": "MDOF*stages/s",
+        "vs_baseline": fom / BASELINE_FOM, "verified": bool(verify_state),
+        "mass_rel_loss": rel_loss, "mass_closure_injected_rel": None,
+        "steps": case.n_steps, "windows": max(1, reps), "wall_s": wall,
+        "ms_per_stage": 1e3 * wall / stage_calls, "shards": n_shards,
+        "halo_staged_bytes": comm.staged_bytes,
+        "kernels": launches, "device": device_line(dev)}
+
+
+def _sharded_leg(n, p, steps, dt, dtype, reps, verify_state, device,
+                 n_shards, poly_bf16):
+    """A rank's part of a sharded leg (run in each spawned rank)."""
+    case = build_case(n, p, dtype, device, n_steps=steps, dt=dt,
+                      closure="0", poly_bf16=poly_bf16)
+    return sharded_record(case, n_shards, reps, verify_state)
+
+
 def leg(n, p, steps, dt=None, dtype=torch.float32, reps=4, closure="1",
         verify_state=True, crosscheck=True, trace=False, phases=False,
-        device=None, keep_steps=0):
+        device=None, keep_steps=0, shards=0, poly_bf16=False):
     """One leg of a record: build the case at (n, p), time it and verify
     it (`run`). Returns (record, u after keep_steps steps of the same loop
-    from the initial state or None, u after the last timed window)."""
+    from the initial state or None, u after the last timed window). With
+    `shards` > 0 the leg is the sharded loop (`sharded_record`): in this
+    process for one shard, in spawned ranks for more; its kept state is
+    None."""
+    if shards:
+        from .parallel import launch
+        args = (n, p, steps, dt, dtype, reps, verify_state, device, shards,
+                poly_bf16)
+        if launch.current_group() is not False:
+            rec = _sharded_leg(*args)
+        elif shards == 1:
+            with launch.in_process_group(device):
+                rec = _sharded_leg(*args)
+        else:
+            rec = launch.spawn(_sharded_leg, shards, device, *args)
+        return rec, None, None
     case = build_case(n, p, dtype, device, n_steps=steps, dt=dt,
-                      closure=closure)
+                      closure=closure, poly_bf16=poly_bf16)
     rec = run(case, reps=reps, warmup=True, verify_state=verify_state,
               crosscheck=crosscheck, trace=trace, phases=phases)
+    if poly_bf16:
+        rec["poly_bf16"] = True
     kept = run_steps(case, keep_steps)[0] if keep_steps else None
     return rec, kept, case.u_final
 
@@ -471,8 +563,8 @@ def main(device=None, env=None) -> dict:
         k["n"], k["p"], k["steps"], dt=k["dt"], dtype=dtype, reps=k["reps"],
         closure=k["closure"], verify_state=k["verify"],
         crosscheck=k["crosscheck"], trace=k["trace"], phases=k["phases"],
-        device=device)
-    if k["crossdump"]:
+        device=device, shards=k["sharded"], poly_bf16=k["poly_bf16"])
+    if k["crossdump"] and u_final is not None:
         np.save(k["crossdump"], u_final.double().cpu().numpy())
     print(json.dumps(rec), flush=True)
     print(f"# {rec['ndofs']} dofs, {k['steps']} steps, {rec['wall_s']:.3f} s"
@@ -490,14 +582,18 @@ def main_dual(device=None, env=None) -> dict:
     most complete. An optional leg is skipped, and listed in
     `legs_skipped`, when less of the budget is left than its `LEG_COST_S`;
     one that fails is listed as "<tag>:failed" with its traceback on
-    stderr. The sharded leg is always listed as "shardmap:unported".
-    `leg_wall_s` gives the seconds of each leg that ran. Each leg's tensors
-    are freed before the next leg."""
+    stderr. With BENCH_SHARDED_LEG (default on), the headline's loop also
+    runs sharded over a process group of one (`sharded_record`), after the
+    cross check: `shardmap_value`, `shardmap_mass_rel_loss` and
+    `shardmap_overhead_vs_unsharded` (bench.py:775-790). BENCH_POLY_BF16=1
+    runs the f32 legs with the bf16 va/vn stream. `leg_wall_s` gives the
+    seconds of each leg that ran. Each leg's tensors are freed before the
+    next leg."""
     k = knobs(env)
     dev = resolve_device(device)
     t_start = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
-    skipped = ["shardmap:unported"]
+    skipped = []
 
     def remaining():
         return k["budget_s"] - (time.perf_counter() - t_start)
@@ -514,7 +610,7 @@ def main_dual(device=None, env=None) -> dict:
             return {}, None, None
         kw = dict(dict(reps=k["reps"], closure=k["closure"],
                        verify_state=k["verify"], crosscheck=k["crosscheck"],
-                       device=dev), **kw)
+                       device=dev, poly_bf16=k["poly_bf16"]), **kw)
         t0 = time.perf_counter()
         try:
             return leg(**kw)
@@ -580,6 +676,20 @@ def main_dual(device=None, env=None) -> dict:
                               and result["crosscheck_40step"] == "passed")
     del u32, u64
     flush()
+    # 4a. the headline's loop sharded over a group of one: the overhead of
+    # the halo plumbing against the unsharded number (bench.py:775-790)
+    if k["sharded_leg"]:
+        sh, _, _ = run_leg("shardmap", LEG_COST_S["shardmap"], n=n, p=p,
+                           steps=steps, dt=dt, reps=1, shards=1)
+        if sh:
+            result.update(
+                shardmap_value=sh["value"],
+                shardmap_mass_rel_loss=sh["mass_rel_loss"],
+                shardmap_verified=sh["verified"],
+                shardmap_kernels=sh["kernels"],
+                shardmap_overhead_vs_unsharded=1.0 - sh["value"]
+                / head["value"])
+            flush()
     # 5. the N x p sweep, reusing the legs already run
     if k["sweep"]:
         pts = list(SWEEP_POINTS)

@@ -10,9 +10,12 @@ file (quads, hexes, curved H1 and NURBS). The output lines are the
 driver's (Final mass u / Max value u / Mass loss u, remhos.cpp:1423-1436),
 so grep-based golden flows (autotest/test.sh) work unchanged. `-save`,
 `-visit`, `-vis` and `-prof DIR` write the reference's output files, stream
-to GLVis and record a profiler trace. The flags whose code is not ported
-yet (`-shards` > 1, `-dcn`) raise NotImplementedError naming their
-ROADMAP.md item.
+to GLVis and record a profiler trace. `-shards n` runs the run sharded over
+n ranks: under `torchrun` (or any initialized process group) it joins that
+group; otherwise it starts the ranks itself (`parallel.launch.spawn_run`:
+gloo processes on the CPU, NCCL with one rank per card, gloo with the ranks
+sharing cuda:0 where there are more ranks than cards). `-dcn` is accepted
+and changes nothing (a process group has no slice index).
 """
 
 from __future__ import annotations
@@ -103,6 +106,23 @@ def config_from_args(args) -> RunConfig:
 
 
 def main(argv=None) -> int:
+    """Run the configuration of argv. Started by torchrun (its RANK and
+    WORLD_SIZE in the environment) with no process group yet, it joins the
+    group torchrun gives (`init_method="env://"`) for the run."""
+    import os
+
+    import torch.distributed as dist
+
     from .driver import run
-    run(config_from_args(build_parser().parse_args(argv)))
+    from .parallel import launch
+    cfg = config_from_args(build_parser().parse_args(argv))
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ and \
+            not dist.is_initialized():
+        launch.init_from_env(cfg.device)
+        try:
+            run(cfg)
+        finally:
+            dist.destroy_process_group()
+        return 0
+    run(cfg)
     return 0

@@ -3,9 +3,9 @@
 The port's copy of `remhos_tpu.config`. Field names match the reference
 long-option spellings so runbooks transfer. Two differences: `device` names
 the torch device (None means CUDA, and raises without one), and there is no
-`use_pallas`: the port has one implementation of each path. Options whose
-code is not ported yet (sharding) keep their fields; `driver.run` raises
-NotImplementedError for them.
+`use_pallas`: the port has one implementation of each path. `n_shards`,
+`shard_grid` and `dcn` run a sharded run over a process group
+(`driver.run`, `parallel/`).
 """
 
 from __future__ import annotations
@@ -53,6 +53,9 @@ class RunConfig:
     vis_port: int = 19916
     profile_dir: str = ""            # -prof: a profiler trace of the loop
     dtype: str = "float64"
+    poly_bf16: bool = False          # f32 fused stage: va/vn in bf16 (the
+                                     # JAX package's SolverConfig.poly_bf16;
+                                     # ignored in f64)
     closure: bool = True             # f32 conservative mass closure: Kahan-
                                      # compensated RK combine + per-step pin
                                      # of <ml(t), u+c> to the t=0 invariant
@@ -95,3 +98,7 @@ class RunResult:
     timers: dict | None = None
     # -prof: the Chrome trace file of the time loop
     trace_path: str = ""
+    # a sharded run: its ranks, and the bytes its communication staged
+    # through host memory (gloo with the ranks sharing a card)
+    shards: int = 1
+    halo_staged_bytes: int = 0

@@ -9,7 +9,9 @@ layouts:
 - `remhos_tpu` pads every quadrature segment of its stage tables and of P
   to S = 128 * ceil(max(Q, FQ) / 128) columns;
 - its face tables are block-diagonal [nf*fd, nf*Qf] / [nf*Qf, nd] matrices;
-- its bounds class expansion is a one-hot [3^dim, nd] matrix EXP.
+- its bounds class expansion is a one-hot [3^dim, nd] matrix EXP;
+- its bf16 stream (`build_poly_tables(..., va_vn_bf16=True)`) is P = [WDET]
+  and P16 = [VA16 | VN16], bf16 (numpy's ml_dtypes bfloat16 on this side).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.tables import _dof_faces, poly_layout
+from .ops.tables import _dof_faces, poly16_layout, poly_layout
 
 DISC_FIELDS = ("w_q", "Bu", "Gu", "Bm", "Gm", "w_fq", "Bface", "Bmf", "Gmf",
                "n_ref", "ref_nodes_u", "Bm_at_unodes", "Bgl", "A_gl2b")
@@ -81,3 +83,20 @@ def poly(P, dim, Q, FQ, S, dtype=torch.float64, device="cpu"):
     out = np.concatenate([P[:, i * S:i * S + n] for i, n in enumerate(lens)],
                          axis=1)
     return tensor(out, dtype, device)
+
+
+def poly16(P, P16, dim, Q, FQ, S, dtype=torch.float32, device="cpu"):
+    """`build_poly_tables(..., va_vn_bf16=True)`'s P [E, nkd*S] and P16
+    [E, (nkv*dim + nkn)*S] -> the port's (P [E, width], P16 [E, width16]
+    bf16) (`ops.tables.poly16_layout`), padding stripped. The bf16 values
+    pass through float32 unchanged (every bf16 value is an f32 value), so
+    both packages read the same coefficients."""
+    lay = poly16_layout(dim, Q, FQ)
+    P, P16 = np.asarray(P), np.asarray(P16).astype(np.float32)
+    wd = np.concatenate([P[:, i * S:i * S + Q] for i in range(lay["nkd"])],
+                        axis=1)
+    lens = [Q] * (lay["nkv"] * dim) + [FQ] * lay["nkn"]
+    vv = np.concatenate([P16[:, i * S:i * S + n] for i, n in enumerate(lens)],
+                        axis=1)
+    return (tensor(wd, dtype, device),
+            tensor(vv, torch.float32, device).to(torch.bfloat16))

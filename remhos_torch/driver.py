@@ -31,8 +31,19 @@ meshHO_final.mesh, sltn_final.gf and sltn_final.npz at the end
 loop with torch.profiler into a Chrome trace under `profile_dir`
 (`utils.trace.loop_profiler`).
 
-Not ported yet, and raising NotImplementedError with its ROADMAP.md item
-when asked for: sharding over several devices.
+Sharded runs (remhos_tpu/driver.py:202-226): with `n_shards` > 1 or a
+`shard_grid`, `run` runs in a process group of prod(shard_grid) ranks, one
+block of elements each (`parallel/`). Under an initialized group (torchrun,
+or `parallel.launch.spawn_run`) it joins it; with none it starts the ranks
+itself (`spawn_run`; one shard runs in this process, in a group of one).
+Every rank builds the global mesh, the mesh velocity and the initial state,
+then keeps its own block and builds its own operator once. The f32 closure
+is off, as in the JAX package; global sums, maxima and the steady-state
+residual are reduced over the ranks; checkpoints are saved and resumed in
+global element order (any shard count resumes any checkpoint); `-visit`,
+`-vis` and `-save` write the fields gathered in global order, from rank 0.
+Every rank returns the same RunResult. `-mono` and `-si` with shards raise
+NotImplementedError, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -52,9 +63,10 @@ from . import steppers
 from . import sync as syncm
 from . import vis as vism
 from .config import RunConfig, RunResult
+from .parallel import launch
 from .discretization import build_discretization
-from .mesh import default_mesh, load_mesh
-from .operator import Advection, SolverConfig
+from .mesh import default_mesh, load_mesh, registry_dim
+from .operator import Advection, SolverConfig, solver_rejected
 from .utils import trace as trc
 
 
@@ -137,26 +149,34 @@ def _solver_config(cfg: RunConfig, dim: int) -> SolverConfig:
                         product_sync=cfg.product_sync,
                         smth_ind=cfg.smth_ind,
                         verify_bounds=cfg.verify_bounds,
-                        use_masks=cfg.use_masks)
+                        use_masks=cfg.use_masks, poly_bf16=cfg.poly_bf16)
 
 
 def unported(cfg: RunConfig):
     """What of `cfg` is not ported yet, naming its ROADMAP.md item, or None
-    when the port runs it. Decided from the configuration alone: no mesh or
-    table is built. (A solver option the port lacks raises when the
-    operator is built, `operator.solver_unported`.)"""
-    if cfg.n_shards > 1 or cfg.shard_grid is not None or cfg.dcn:
-        return "sharding over several devices (Queue 1, item 10)"
+    when the port runs it (every option of the JAX package's driver is
+    ported). Decided from the configuration alone: no mesh or table is
+    built."""
     return None
 
 
 def build_operator(cfg: RunConfig):
     """(adv, dt): the operator of a run on its mesh (in remap with the mesh
     velocity in `adv.v_nodes`, in transport with the inflow values of
-    problems 6 and 7), and the run's initial dt. `run` starts here; callers
-    that want the stage functions, the kernels' tables or the nodes of a
-    configuration without running it do too. Raises NotImplementedError,
-    naming the ROADMAP.md item, for what `unported` names."""
+    problems 6 and 7), and the run's initial dt. `run` starts here for an
+    unsharded run; callers that want the stage functions, the kernels'
+    tables or the nodes of a configuration without running it do too."""
+    su = _setup(cfg)
+    return Advection(su["disc"], _solver_config(cfg, su["mesh"].dim),
+                     su["x0"], su["v"], dtype=su["dtype"],
+                     device=su["device"], inflow=su["inflow"]), su["dt"]
+
+
+def _setup(cfg: RunConfig) -> dict:
+    """What every rank of a run builds alike: the global mesh and its
+    discretization, the initial dt, the nodes x0 and (remap) the mesh
+    velocity v in the working dtype, the inflow values of problems 6 and 7
+    (None elsewhere), the device and the dtype."""
     why = unported(cfg)
     if why is not None:
         raise NotImplementedError(
@@ -188,17 +208,17 @@ def build_operator(cfg: RunConfig):
                                           mesh.bb_max, cfg.t_final,
                                           dt).to(dtype)
 
-    return Advection(disc, _solver_config(cfg, mesh.dim), x0_nodes, v_nodes,
-                     dtype=dtype, device=device,
-                     inflow=inflow_projection(cfg.problem, x0_nodes,
-                                              disc)), dt
+    return dict(mesh=mesh, disc=disc, dt=dt, x0=x0_nodes, v=v_nodes,
+                inflow=inflow_projection(cfg.problem, x0_nodes, disc),
+                device=device, dtype=dtype)
 
 
-def l1_errors(adv, u, problem, x):
-    """(L1, L2, Linf) of u[E, nd] against the exact solution of problem 4
-    (its initial condition) or 7 (its inflow profile) on the nodes x, at
-    the volume rule (remhos.cpp:1438-1470)."""
-    disc, mesh = adv.disc, adv.disc.mesh
+def l1_error_parts(adv, u, problem, x):
+    """[sum w |e|, sum w e^2, max |e|] (f64, on the device) of u[E, nd]
+    against the exact solution of problem 4 (its initial condition) or 7
+    (its inflow profile) on the nodes x, at the volume rule
+    (remhos.cpp:1438-1470): the parts a sharded run reduces over ranks."""
+    disc = adv.disc
 
     def T(a):
         return torch.as_tensor(a, dtype=x.dtype, device=x.device)
@@ -206,24 +226,120 @@ def l1_errors(adv, u, problem, x):
     vol = geo.volume_geometry(x, T(disc.Bm), T(disc.Gm))
     u_q = u @ adv.Bu.T
     if problem == 4:
-        ex_q = prob.u0_function(problem, vol["x_q"], mesh.bb_min,
-                                mesh.bb_max)
+        ex_q = prob.u0_function(problem, vol["x_q"], adv.bb_min, adv.bb_max)
     else:
         ex_q = prob.inflow_function(problem, vol["x_q"])
     wdet = adv.w_q[None, :] * vol["detJ"]
     err = (u_q - ex_q).abs()
-    return (float((wdet * err).sum()), float((wdet * err ** 2).sum().sqrt()),
-            float(err.max()))
+    return torch.stack([(wdet * err).sum(), (wdet * err ** 2).sum(),
+                        err.max()]).to(torch.float64)
+
+
+def l1_errors(adv, u, problem, x):
+    """(L1, L2, Linf) of u[E, nd] (`l1_error_parts`)."""
+    p = l1_error_parts(adv, u, problem, x).tolist()
+    return p[0], math.sqrt(p[1]), p[2]
+
+
+class _Local:
+    """The reductions and gathers of an unsharded run: the rank's own
+    values (`_Shards` is the sharded run's)."""
+
+    root = True
+    staged_bytes = 0
+
+    def sum(self, x):
+        return float(x)
+
+    def max_min(self, x):
+        return tuple(torch.stack([x.max(), x.min()]).tolist())
+
+    def max(self, x):
+        return float(x.max())
+
+    def live(self, a):
+        return a
+
+    def gather(self, S):
+        return S
+
+
+class _Shards(_Local):
+    """A sharded run's reductions over the ranks: sums and extrema of the
+    live rows (ghost rows excluded), and the state gathered in global
+    element order on every rank."""
+
+    def __init__(self, comm, perm, E_real):
+        self.comm, self.E_real = comm, E_real
+        self.root = comm.rank == 0
+        n_loc = len(perm) // comm.size
+        self.n_live = max(0, min(n_loc, E_real - comm.rank * n_loc))
+        self.inv_perm = np.empty(E_real, dtype=np.int64)
+        self.inv_perm[perm[:E_real]] = np.arange(E_real)
+
+    @property
+    def staged_bytes(self):
+        return self.comm.staged_bytes
+
+    def sum(self, x):
+        return float(self.comm.all_sum(x.to(torch.float64).reshape(1)))
+
+    def max_min(self, x):
+        x = self.live(x)
+        m = self.comm.all_max(torch.stack([x.max(), -x.min()]))
+        return float(m[0]), -float(m[1])
+
+    def max(self, x):
+        return float(self.comm.all_max(self.live(x).max().reshape(1)))
+
+    def live(self, a):
+        """The rows of a per-element array [E_loc, ...] that are not
+        ghosts."""
+        return a[:self.n_live]
+
+    def gather(self, S):
+        """S[nf, E_loc, nd] of every rank, in global element order."""
+        g = self.comm.all_gather(S.transpose(0, 1).contiguous())
+        idx = torch.as_tensor(self.inv_perm, device=g.device)
+        return g.index_select(0, idx).transpose(0, 1)
+
+
+def _sharded_entry(cfg: RunConfig, grid):
+    """None where this process runs its rank of the sharded configuration
+    itself (a process group is initialized), else the RunResult of the run
+    it starts: in a group of one in this process, or in prod(grid) spawned
+    ranks. What the JAX package rejects raises here, before any rank
+    starts."""
+    if cfg.mono != 0 or cfg.smth_ind:
+        raise NotImplementedError(
+            "monolithic/smoothness-indicator solvers run single-shard "
+            "(serial in the reference too, remhos_mono.cpp:285)")
+    dim = cfg.dim if cfg.mesh == "default" else registry_dim(cfg.mesh)
+    if dim is not None:           # a mesh file's dim is known once read
+        why = solver_rejected(_solver_config(cfg, dim))
+        if why is not None:
+            raise ValueError(why)
+    if launch.current_group() is not False:
+        return None
+    n = int(np.prod(grid))
+    if n == 1:
+        with launch.in_process_group(cfg.device):
+            return run(cfg)
+    return launch.spawn_run(cfg, n, cfg.device)
 
 
 def run(cfg: RunConfig) -> RunResult:
-    if cfg.verbose:
-        _echo_options(cfg)
-    adv, dt = build_operator(cfg)
-    device, dtype, f64 = adv.device, adv.dtype, torch.float64
-    disc, mesh = adv.disc, adv.disc.mesh
-    x0_nodes, v_nodes = adv.x0_nodes, adv.v_nodes
-    exec_mode = adv.cfg.exec_mode
+    grid = launch.shard_grid_of(cfg)
+    if grid is not None:
+        res = _sharded_entry(cfg, grid)
+        if res is not None:
+            return res
+    su = _setup(cfg)
+    device, dtype, f64 = su["device"], su["dtype"], torch.float64
+    disc, mesh, dt = su["disc"], su["mesh"], su["dt"]
+    x0_nodes, v_nodes = su["x0"], su["v"]
+    scfg = _solver_config(cfg, mesh.dim)
+    exec_mode = scfg.exec_mode
     # remap runs in pseudo-time [0, 1] (remhos.cpp:1128-1134)
     t_final = 1.0 if exec_mode == 1 else cfg.t_final
 
@@ -239,6 +355,26 @@ def run(cfg: RunConfig) -> RunResult:
         fields.append(u0 * s0)
     S = torch.stack(fields).to(dtype)
 
+    # --- the operator: of the whole mesh, or of this rank's block ---
+    if grid is None:
+        adv = Advection(disc, scfg, x0_nodes, v_nodes, dtype=dtype,
+                        device=device, inflow=su["inflow"])
+        red = _Local()
+    else:
+        from .parallel.sharded import make_sharded_step, shard_arrays
+        comm, sharded_step, perm = make_sharded_step(
+            mesh, scfg, cfg.order, grid, cfg.ode_solver,
+            group=launch.current_group(), dcn=cfg.dcn, dtype=dtype,
+            device=device)
+        E_real = S.shape[1]
+        S, x0_loc, v_loc, infl_loc = shard_arrays(
+            comm, S, x0_nodes, v_nodes, su["inflow"], perm=perm,
+            n_real=E_real)
+        adv = sharded_step.bind(x0_loc, v_loc, infl_loc)
+        red = _Shards(comm, perm, E_real)
+    if cfg.verbose and red.root:
+        _echo_options(cfg)
+
     # --- initial masses (remhos.cpp:1072-1081) ---
     # The reporting sums run in f64 whatever the working precision (the
     # reference's masses are f64): in f32 this measures the TRAJECTORY's
@@ -247,14 +383,24 @@ def run(cfg: RunConfig) -> RunResult:
 
     def _mass(ml, field, comp=None):
         s = field.to(f64) if comp is None else field.to(f64) + comp.to(f64)
-        return float((ml.to(f64) * s).sum())
+        return red.sum((ml.to(f64) * s).sum())
 
     mass0_u = _mass(masses, S[0])
     mass0_us = _mass(masses, S[1]) if cfg.product_sync else 0.0
 
     # --- stepper ---
-    use_closure = False
-    if cfg.ode_solver <= 10:
+    # `compensated`: the Kahan combine carries C; `use_closure`: the mass
+    # closure also pins <ml(t), u + c> every step
+    use_closure = compensated = False
+    if grid is not None:
+        # the sharded step: its aux reduced over the ranks; no closure (as
+        # the JAX package runs it, remhos_tpu/driver.py:226); in f32 with
+        # standard RK the Kahan combine, as the bench's sharded loop runs it
+        # (the JAX driver's plain f32 combine drifts ~3e-8 of the mass a
+        # step)
+        compensated = dtype == torch.float32 and cfg.ode_solver <= 10
+        step = sharded_step.stepper(compensated)
+    elif cfg.ode_solver <= 10:
         # f32 production numerics: Kahan-compensated RK combine + per-step
         # conservative mass closure. The closure is only valid where the
         # SCHEME conserves <ml(t), u> to round-off: remap with RK3/4/6
@@ -268,8 +414,8 @@ def run(cfg: RunConfig) -> RunResult:
             (exec_mode == 1 and cfg.ode_solver in (3, 4, 6))
             or (exec_mode == 0 and getattr(mesh, "structured", True)
                 and all(mesh.periodic)))
-        use_closure = (dtype == torch.float32 and cfg.closure
-                       and conservative)
+        use_closure = compensated = (dtype == torch.float32 and cfg.closure
+                                     and conservative)
         step = steppers.make_rk_step(adv.stage_function(), cfg.ode_solver,
                                      compensated=use_closure)
         if use_closure:
@@ -297,8 +443,13 @@ def run(cfg: RunConfig) -> RunResult:
     if cfg.resume and cfg.checkpoint_path:
         S_ck, t, dt, ti = ckpt.load_state(cfg.checkpoint_path)
         S = torch.as_tensor(S_ck).to(device=device, dtype=dtype)
+        if grid is not None:
+            # checkpoints hold S in GLOBAL element order: any shard grid
+            # resumes any checkpoint
+            S = shard_arrays(comm, S, x0_nodes, None, None, perm=perm,
+                             n_real=E_real)[0]
         ti_total = ti
-        if cfg.verbose:
+        if cfg.verbose and red.root:
             print(f"Resumed from {cfg.checkpoint_path} at step {ti}, t={t:g}")
 
     def x_at(t):
@@ -307,13 +458,17 @@ def run(cfg: RunConfig) -> RunResult:
 
     def output(t, ti, visit):
         """The VisIt snapshot and the GLVis frames of step ti
-        (remhos.cpp:1036-1070, 1307-1328)."""
+        (remhos.cpp:1036-1070, 1307-1328), in global element order, from
+        rank 0."""
+        Sg = red.gather(S)
+        if not red.root:
+            return
         if visit:
-            vism.visit_save(cfg.visit_prefix, mesh, x_at(t), S[0], cfg.order,
-                            t, ti)
+            vism.visit_save(cfg.visit_prefix, mesh, x_at(t), Sg[0],
+                            cfg.order, t, ti)
         if cfg.vis:
-            vism.stream_fields(cfg, mesh, x_at(t), S[0],
-                               S[1] if cfg.product_sync else None)
+            vism.stream_fields(cfg, mesh, x_at(t), Sg[0],
+                               Sg[1] if cfg.product_sync else None)
 
     # the initial frames, and the initial collection of a fresh run
     output(t, ti, cfg.visit and ti == 0)
@@ -323,18 +478,19 @@ def run(cfg: RunConfig) -> RunResult:
     check_global = (cfg.verify_bounds and cfg.problem % 10 not in (6, 7)
                     and (cfg.lo != 0 or cfg.mono != 0))
     if check_global:
-        u_max_glob, u_min_glob = float(S[0].max()), float(S[0].min())
+        u_max_glob, u_min_glob = red.max_min(S[0])
     fetch_aux = cfg.verify_bounds or cfg.dt_control != 0
-    C = torch.zeros_like(S) if use_closure else None
+    C = torch.zeros_like(S) if compensated else None
     inj_acc = torch.zeros((), dtype=f64, device=device)
     synchronize(device)
     # -prof: the loop under torch.profiler (the reference's Caliper loop
     # annotation, remhos.cpp:1143-1150)
-    prof = trc.loop_profiler(device) if cfg.profile_dir else None
+    prof = (trc.loop_profiler(device) if cfg.profile_dir and red.root
+            else None)
     wall0 = time.perf_counter()
     while not done:
         dt_real = min(dt, t_final - t)
-        if use_closure:
+        if compensated:
             S_new, C_new, aux = step(S, C, t, dt_real)
         else:
             S_new, aux = step(S, t, dt_real)   # aux = [dt_ratio, -violations]
@@ -354,7 +510,7 @@ def run(cfg: RunConfig) -> RunResult:
                 f"remhos_torch/verify.py")
         if cfg.dt_control != 0:
             if ratio < 1.0:
-                if cfg.verbose:
+                if cfg.verbose and red.root:
                     print(f"Repeat / decrease dt: {dt_real} --> {0.85 * dt}")
                 ti -= 1
                 dt = 0.85 * dt
@@ -365,14 +521,15 @@ def run(cfg: RunConfig) -> RunResult:
                 dt *= 1.02
         S = S_new
         t += dt_real
+        if compensated:
+            C = C_new
         if use_closure:
             # pin <ml(t), u + c> to the t=0 invariant; the injected-mass
             # accumulator stays on the device (no per-step fetch) and is
             # reported at exit, so the closure can never silently absorb
             # a conservation bug
-            c_u, deficit = closure(S[0], C_new[0], t)
+            c_u, deficit = closure(S[0], C[0], t)
             inj_acc = inj_acc + deficit.abs()
-            C = C_new
             C[0] = c_u
 
         if not steady:
@@ -381,7 +538,7 @@ def run(cfg: RunConfig) -> RunResult:
             # the reference divides by the current (post-dt-control) dt,
             # remhos.cpp:1287, not by the t_final-clamped dt_real
             diff = (masses * S[0] - masses * res_prev) / dt
-            residual = float(torch.sqrt((diff * diff).sum()))
+            residual = math.sqrt(red.sum((diff * diff).sum()))
             if residual < 1e-12 and t >= 1.0:
                 done = True
                 S = S.clone()
@@ -390,8 +547,7 @@ def run(cfg: RunConfig) -> RunResult:
                 res_prev = S[0]
         if check_global:
             # global monotonicity assertions (remhos.cpp:1219-1260)
-            u_max_new, u_min_new = torch.stack([S[0].max(),
-                                                S[0].min()]).tolist()
+            u_max_new, u_min_new = red.max_min(S[0])
             if u_max_new > u_max_glob + 1e-10 or \
                     u_min_new < u_min_glob - 1e-10:
                 raise RuntimeError(
@@ -401,12 +557,14 @@ def run(cfg: RunConfig) -> RunResult:
             u_max_glob, u_min_glob = u_max_new, u_min_new
         if cfg.checkpoint_steps and cfg.checkpoint_path and \
                 ti % cfg.checkpoint_steps == 0:
-            # the compensation is folded in: it is below the state's ulp
-            ckpt.save_state(cfg.checkpoint_path,
-                            S + C if use_closure else S, t, dt, ti)
+            # the compensation is folded in: it is below the state's ulp;
+            # a sharded run saves in global element order, from rank 0
+            S_ck = red.gather(S + C if compensated else S)
+            if red.root:
+                ckpt.save_state(cfg.checkpoint_path, S_ck, t, dt, ti)
         if ti_total == cfg.max_tsteps:
             done = True
-        if cfg.verbose and (done or ti % cfg.vis_steps == 0):
+        if cfg.verbose and red.root and (done or ti % cfg.vis_steps == 0):
             print(f"time step: {ti}, time: {t:.6g}, dt: {dt:.6g}, "
                   f"residual: {residual:.6g}")
         if (cfg.visit or cfg.vis) and (done or ti % cfg.vis_steps == 0):
@@ -421,11 +579,11 @@ def run(cfg: RunConfig) -> RunResult:
 
     # --- final mass / max (remhos.cpp:1382-1436) ---
     ml_final = adv.lumped_mass(t) if exec_mode == 1 else masses
-    mass_u = _mass(ml_final, S[0], C[0] if use_closure else None)
-    max_u = float(S[0].max())
+    mass_u = _mass(ml_final, S[0], C[0] if compensated else None)
+    max_u, min_u = red.max_min(S[0])
     res = RunResult(final_mass_u=mass_u, max_u=max_u,
                     mass_loss_u=abs(mass0_u - mass_u),
-                    min_u=float(S[0].min()),
+                    min_u=min_u,
                     u0_min=u0_min, u0_max=u0_max,
                     steps=ti, steps_total=ti_total, t=t, dt=dt,
                     residual=residual,
@@ -435,28 +593,39 @@ def run(cfg: RunConfig) -> RunResult:
                     timers={"wall_s": wall}, trace_path=trace_path)
     res.cg_solves = adv.cg_stats["solves"]
     res.cg_iterations = adv.cg_stats["iterations"]
+    if grid is not None:
+        res.shards = red.comm.size
+        res.halo_staged_bytes = red.staged_bytes
     if adv.cfg.mono != 0:
         res.mono_stats = dict(adv.mono_stats)
     if cfg.product_sync:
-        mass_us = _mass(ml_final, S[1], C[1] if use_closure else None)
+        mass_us = _mass(ml_final, S[1], C[1] if compensated else None)
         s, _, _ = syncm.compute_ratio(S[1], S[0])
         res.final_mass_us = mass_us
         res.mass_loss_us = abs(mass0_us - mass_us)
-        res.max_s = float(s.max())
+        res.max_s = red.max(s)
 
     # --- errors of the convergence problems (remhos.cpp:1438-1470) ---
     if cfg.problem in (4, 7):
-        x = x0_nodes if exec_mode == 0 else x0_nodes + t * v_nodes
-        errs = l1_errors(adv, S[0], cfg.problem, x)
+        x = adv.x0_nodes if exec_mode == 0 else (adv.x0_nodes
+                                                 + t * adv.v_nodes)
+        parts = l1_error_parts(adv, red.live(S[0]), cfg.problem, red.live(x))
+        if grid is not None:
+            parts = torch.cat([red.comm.all_sum(parts[:2]),
+                               red.comm.all_max(parts[2:])])
+        p = parts.tolist()
+        errs = p[0], math.sqrt(p[1]), p[2]
         res.l1_error = errs[0]
-        if cfg.problem == 7 and cfg.verbose:
+        if cfg.problem == 7 and cfg.verbose and red.root:
             # the reference appends L1, L2 and Linf (remhos.cpp:1452-1469)
             with open("errors.txt", "a") as fh:
                 fh.write("%.12g %.12g %.12g\n" % errs)
 
-    if cfg.save:
+    Sg = red.gather(S) if cfg.save and grid is not None else S
+    if cfg.save and red.root:
         # the reference's artifacts (remhos.cpp:1365-1380): an MFEM mesh and
         # grid function, loadable by GLVis and by `umesh.load_general_mesh`
+        S = Sg
         x_final = x_at(t)
         np.savez("sltn_final.npz", u=S[0].cpu().numpy(),
                  x=x_final.cpu().numpy(), t=t,
@@ -468,7 +637,7 @@ def run(cfg: RunConfig) -> RunResult:
             print("Saved final solution to meshHO_final.mesh / "
                   "sltn_final.gf (+ sltn_final.npz)")
 
-    if cfg.verbose:
+    if cfg.verbose and red.root:
         if device.type == "cuda":
             # the reference's memory high-water report (remhos.cpp:1511-21)
             print(f"Device memory high water mark: "

@@ -20,7 +20,7 @@ import math
 import torch
 
 from .assembly import matvec
-from .pa import _count
+from .pa import _count, _dot
 
 
 def mass_cholesky(M):
@@ -41,24 +41,27 @@ def local_inverse(Ku, chol_L):
     return cho_solve(chol_L, Ku)
 
 
-def cg_mass_solve(M, rhs, rel_tol=1e-12, max_iter=500, stats=None):
+def cg_mass_solve(M, rhs, rel_tol=1e-12, max_iter=500, stats=None,
+                  all_sum=None):
     """Jacobi-preconditioned CG for M du = rhs over all elements at once,
-    stopping at (r, z) <= rel_tol^2 (r0, z0) as MFEM's CGSolver does."""
+    stopping at (r, z) <= rel_tol^2 (r0, z0) as MFEM's CGSolver does;
+    `all_sum` reduces the dots over the shards of a sharded run."""
+    dot = _dot(all_sum)
     inv_diag = 1.0 / torch.diagonal(M, dim1=1, dim2=2)
     x = torch.zeros_like(rhs)
     r = rhs
     z = inv_diag * r
     p = z
-    rz = (r * z).sum()
+    rz = dot(r, z)
     target = rel_tol * rel_tol * rz
     it = 0
     while it < max_iter and bool(rz > target):
         Ap = matvec(M, p)
-        alpha = rz / (p * Ap).sum()
+        alpha = rz / dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = inv_diag * r
-        rz_new = (r * z).sum()
+        rz_new = dot(r, z)
         p = z + (rz_new / rz) * p
         rz = rz_new
         it += 1
@@ -66,17 +69,19 @@ def cg_mass_solve(M, rhs, rel_tol=1e-12, max_iter=500, stats=None):
     return x
 
 
-def neumann(u, rhs, M, ml, abs_tol=1e-4, max_iter=20):
+def neumann(u, rhs, M, ml, abs_tol=1e-4, max_iter=20, all_sum=None):
     """The lumped-mass Neumann iteration du <- du - (M du - rhs) / ml until
     |M du - rhs| <= abs_tol (remhos_ho.cpp:136-187). rhs: the element K u
     plus the LinearFluxLumping(alpha = 1) face terms and the inflow,
-    assembled by the caller."""
+    assembled by the caller. `all_sum` reduces the residual norm over the
+    shards (the reference's MPI_Allreduce, remhos_ho.cpp:176)."""
+    dot = _dot(all_sum)
     du = torch.zeros_like(u)
     resid = math.inf
     it = 0
     while resid > abs_tol and it < max_iter:
         res = matvec(M, du) - rhs
-        resid = float(torch.sqrt((res * res).sum()))
+        resid = float(torch.sqrt(dot(res, res)))
         if resid > abs_tol:
             du = du - res / ml
         it += 1

@@ -140,9 +140,8 @@ class SolverConfig:
 
 def solver_unported(cfg: SolverConfig):
     """What of a solver configuration is not ported yet, naming its
-    ROADMAP.md item, or None when the port runs it."""
-    if cfg.poly_bf16:
-        return "the bf16 P16 stream (Queue 2, item 2)"
+    ROADMAP.md item, or None when the port runs it (every configuration
+    of the JAX package is ported)."""
     return None
 
 
@@ -175,7 +174,17 @@ def solver_rejected(cfg: SolverConfig):
 
 class Advection:
     """Static tables on one device, in one dtype, and the stage functions
-    `mult_unlimited`, `limit_mult` and `stage_function`."""
+    `mult_unlimited`, `limit_mult` and `stage_function`.
+
+    The operator of one shard of a sharded run (`parallel/sharded.py`,
+    `parallel/gsharded.py`) is a subclass: it overrides the neighbour
+    gather, the bounds and the global reductions `all_min` / `all_sum_fn`,
+    and pre-sets the GLOBAL bounding box `bb_min` / `bb_max` (and, for
+    `-lo 4`, the subcell boundary mask `_sub_bmask`) before this
+    constructor runs."""
+
+    sharded = False
+    _poly16 = None       # the fused stage's bf16 va/vn stream (poly_bf16)
 
     def __init__(self, disc: Discretization, cfg: SolverConfig, x0_nodes,
                  v_nodes=None, dtype=torch.float32, device=None, inflow=None):
@@ -193,6 +202,10 @@ class Advection:
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
+        if not hasattr(self, "bb_min"):
+            # the velocity fields scale with the box: a shard keeps the
+            # global one (pre-set by the sharded subclasses)
+            self.bb_min, self.bb_max = disc.mesh.bb_min, disc.mesh.bb_max
         if self.device.type == "cuda" and (
                 torch.backends.cuda.matmul.allow_tf32
                 or torch.get_float32_matmul_precision() != "highest"):
@@ -233,9 +246,7 @@ class Advection:
         # stage solves inside its kernels and leaves them 0)
         self.cg_stats = dict(solves=0, iterations=0)
         # the bounds stencils' mesh tables, where compute_bounds reads them
-        self._bounds_topo = (
-            None if cfg.bounds_type == 0 and self.structured else
-            dmm.bounds_topology(mesh, disc.p, self.device, disc.dofmaps))
+        self._bounds_topo = self._bounds_topology()
         # the smoothness indicator's tables and the monolithic solver's
         # velocity scale, made once from the initial mesh
         self.smth = (None if not cfg.smth_ind else SmoothnessIndicator(
@@ -265,11 +276,25 @@ class Advection:
             # remap moves the mesh linearly, so va/wdet/vn are polynomials
             # in t whose coefficients are computed once (the per-stage
             # geometry compute disappears into Horner evaluations inside
-            # the kernels)
-            self._poly = tbl.build_poly_tables(self.x0_nodes, self.v_nodes,
-                                               disc)
+            # the kernels). poly_bf16 (f32 only; ignored in f64, as
+            # remhos_tpu/operator.py:172 does): va and vn in a bf16 P16,
+            # w_q det J alone in P
+            if cfg.poly_bf16 and dtype == torch.float32:
+                self._poly, self._poly16 = tbl.build_poly_tables(
+                    self.x0_nodes, self.v_nodes, disc, va_vn_bf16=True)
+            else:
+                self._poly = tbl.build_poly_tables(self.x0_nodes,
+                                                   self.v_nodes, disc)
         else:
             self._init_nonfused(T, inflow)
+
+    def _bounds_topology(self):
+        """The bounds stencils' mesh tables (`dofmaps.bounds_topology`),
+        where `compute_bounds` reads them; None on a grid at -bt 0."""
+        if self.cfg.bounds_type == 0 and self.structured:
+            return None
+        return dmm.bounds_topology(self.disc.mesh, self.disc.p, self.device,
+                                   self.disc.dofmaps)
 
     def _init_nonfused(self, T, inflow):
         """Static tables of the non-fused and assembled stages; in transport
@@ -337,9 +362,8 @@ class Advection:
     def _velocity(self, pts):
         """A transport problem's velocity at points of the working dtype,
         evaluated in f64 and cast back, as the JAX package does."""
-        mesh = self.disc.mesh
         return prob.velocity_function(self.cfg.problem, pts.double(),
-                                      mesh.bb_min, mesh.bb_max).to(self.dtype)
+                                      self.bb_min, self.bb_max).to(self.dtype)
 
     def _init_assembled(self, T):
         """Static tables of the assembled stage: the volume and face bases
@@ -483,7 +507,8 @@ class Advection:
         with_lo = (bool(geom.get("fused_lo")) and n_cg != 0
                    and "du_LO_fused" not in geom)
         res = stage_ho(geom["t"], u, u_nbr, self._poly, self._stage_tables,
-                       n_cg=n_cg, dt=geom.get("dt"), with_lo=with_lo)
+                       n_cg=n_cg, dt=geom.get("dt"), with_lo=with_lo,
+                       P16=self._poly16)
         if with_lo:
             geom["du_LO_fused"] = res[2]
         if "wdet" not in geom:
@@ -534,9 +559,11 @@ class Advection:
                                   self.bdr_dofs)
         if self.cfg.ho == 3:
             return pam.mass_solve_gl(Ku, geom["wdet"], self.Bgl,
-                                     self.A_gl2b, stats=self.cg_stats)
+                                     self.A_gl2b, stats=self.cg_stats,
+                                     all_sum=self.all_sum_fn())
         return pam.mass_solve_bern(Ku, geom["wdet"], self.Bu,
-                                   stats=self.cg_stats)
+                                   stats=self.cg_stats,
+                                   all_sum=self.all_sum_fn())
 
     def _ho_solution_assembled(self, geom, u):
         """-ho 2|3: K_HO u with zero neighbour values on physical
@@ -548,12 +575,14 @@ class Advection:
             Ku = asm.apply_K_HO(u, K, bdrInt, self.gather_nbr(u), bdr)
             if self.cfg.ho == 3:
                 return hom.local_inverse(Ku, geom["chol_L"])
-            return hom.cg_mass_solve(geom["M"], Ku, stats=self.cg_stats)
+            return hom.cg_mass_solve(geom["M"], Ku, stats=self.cg_stats,
+                                     all_sum=self.all_sum_fn())
         contrib = asm.face_term_full(asm.gather_face(u, bdr),
                                      self.gather_nbr(u, self.inflow_face),
                                      bdrInt)
         rhs = asm.scatter_face_add(asm.matvec(K, u), contrib, bdr)
-        return hom.neumann(u, rhs, geom["M"], geom["ml"])
+        return hom.neumann(u, rhs, geom["M"], geom["ml"],
+                           all_sum=self.all_sum_fn())
 
     def lo_solution(self, geom, u, du_HO=None, dt=None):
         """The LO solution du_LO[E, nd] of one field at the stage geometry."""
@@ -608,6 +637,31 @@ class Advection:
         return bnd.compute_bounds(el_min, el_max, self._bounds_topo,
                                   self.cfg.bounds_type, active_el=active_el)
 
+    def compute_bounds_stencil(self, el_min, el_max):
+        """The element-class overlap stencil (min, max), each [E, 3^dim],
+        element-major, that kernel 1's "E" variant expands to dofs: the
+        separable pass of `compute_bounds` with 3 classes per axis (low
+        endpoint, interior, high endpoint) in place of p+1 dof positions
+        (remhos_tpu/operator.py:382-409). None where the bounds are not a
+        class stencil (-bt 1, a general mesh). The sharded operator
+        overrides it with its halo exchanges; unsharded, the mega stage
+        takes the class-major "T" layout, and this is what the tests hold
+        the "E" variant with."""
+        if not (self.cfg.bounds_type == 0 and self.structured):
+            return None
+        return strm.overlap_stencil_flat(el_min, el_max, self.shape,
+                                         self.periodic, None, self.masks)
+
+    def all_min(self, x):
+        """The global minimum of a scalar: itself on one device; over the
+        ranks in a sharded run (remhos_tpu/operator.py:461-468)."""
+        return x
+
+    def all_sum_fn(self):
+        """The reducer of the global CGs' dots and the Neumann residual:
+        None (local) on one device, a sum over the ranks when sharded."""
+        return None
+
     def _dt_ratio(self, u, du, x_min, x_max, dt):
         """LO-bounds dt estimate (remhos.cpp:1968-1998): largest dt keeping
         x_min <= u + dt*du <= x_max, as a ratio to the current dt."""
@@ -615,7 +669,7 @@ class Advection:
         pos, neg = du > eps, du < -eps
         up = torch.where(pos, (x_max - u) / torch.where(pos, du, 1.0), INF)
         dn = torch.where(neg, (x_min - u) / torch.where(neg, du, 1.0), INF)
-        return torch.minimum(up.min(), dn.min()) / dt
+        return self.all_min(torch.minimum(up.min(), dn.min())) / dt
 
     # ------------------------------------------------------------------
     # stage functions (over the block state S[nfields, E, nd])
@@ -776,25 +830,34 @@ class Advection:
     def _mega_stage(self, t, dt, S):
         """The limited stage of a single field: bounds and gather (functions
         of u alone) as torch glue, then HO + LO + lumped mass + ClipScale in
-        one kernel. At -bt 0 on a structured grid the bounds are the
-        class-major overlap stencil, otherwise (-bt 1, or a general mesh)
-        `compute_bounds`' per-dof bounds, made contiguous for the kernel's
-        per-dof variant (remhos_tpu/operator.py:713-737). aux is None: the
-        constant [inf, 0]."""
+        one kernel, routed as remhos_tpu/operator.py:706-737 routes it:
+
+        - "T": -bt 0 on an unsharded grid, the class-major overlap stencil;
+        - "E": a sharded grid (-bt 0), `compute_bounds_stencil`'s
+          element-major stencil with its halo exchanges;
+        - "dof": everything else (-bt 1, a general mesh, and the general
+          route of a sharded run, where the JAX package wrongly takes "T"
+          on the global grid shape: ROADMAP.md, known faults of the
+          reference), `compute_bounds`' per-dof bounds made contiguous.
+
+        aux is None: the constant [inf, 0]."""
         u = S[0]
         el_min, el_max = bnd.elements_min_max(u)
         u_nbr = self.gather_nbr(u).reshape(u.shape[0], -1)
-        if self.cfg.bounds_type == 0 and self.structured:
+        P, P16, tb = self._poly, self._poly16, self._stage_tables
+        if self.cfg.bounds_type == 0 and self.structured and not self.sharded:
             smin, smax = strm.overlap_stencil_T(el_min, el_max, self.shape,
                                                 self.periodic, self.masks)
-            du = mega_stage(t, dt, u, u_nbr, smin, smax, self._poly,
-                            self._stage_tables)
-        else:
-            x_min, x_max = self.compute_bounds(el_min, el_max)
-            du = mega_stage(t, dt, u, u_nbr, x_min.contiguous(),
-                            x_max.contiguous(), self._poly,
-                            self._stage_tables, bounds="dof")
-        return du[None], None
+            return mega_stage(t, dt, u, u_nbr, smin, smax, P, tb,
+                              P16=P16)[None], None
+        stencil = self.compute_bounds_stencil(el_min, el_max)
+        if stencil is not None:
+            return mega_stage(t, dt, u, u_nbr, stencil[0], stencil[1], P, tb,
+                              bounds="E", P16=P16)[None], None
+        x_min, x_max = self.compute_bounds(el_min, el_max)
+        return mega_stage(t, dt, u, u_nbr, x_min.contiguous(),
+                          x_max.contiguous(), P, tb, bounds="dof",
+                          P16=P16)[None], None
 
     def stage_function(self):
         """f(t, dt, S) -> (dS, aux) for the standard RK path

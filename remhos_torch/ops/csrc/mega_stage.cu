@@ -18,14 +18,24 @@
 //      the reference's sum_q wdet_q (Bu (u + dt du_HO))_q exactly in real
 //      arithmetic (ml = wdet Bu, and Bernstein is a partition of unity);
 //   6. the bounds, then ClipScale (eps 1e-15) over the element's nd dofs.
-//      Two layouts, one compile-time variant each, one C entry each:
+//      Three layouts (Layout below), one C entry each:
 //      - remhos_mega_stage: the class-major overlap stencil [3^dim, E] of
-//        `-bt 0` on a structured mesh, staged per tile in shared memory
-//        and expanded to dofs by an index lookup (cls);
-//      - remhos_mega_stage_dof: per-dof bounds [E, nd] (`-bt 1`, and the
-//        JAX kernel's bounds_stencil=False), read straight from global
-//        memory in the ClipScale step, coalesced along the dofs; no
-//        staging, no cls;
+//        `-bt 0` on an unsharded structured mesh (the JAX kernel's
+//        bounds_stencil="T"), staged per tile in shared memory and
+//        expanded to dofs by an index lookup (cls);
+//      - remhos_mega_stage_elem: the element-major stencil [E, 3^dim] of a
+//        sharded structured mesh (bounds_stencil=True): the tile's
+//        te x 3^dim values are one contiguous run, read coalesced into the
+//        same shared slots s_min/s_max[e * NCLS + c] that the class-major
+//        layout fills, so the ClipScale step is the same code and, on the
+//        same stencil values, the same bits;
+//      - remhos_mega_stage_dof: per-dof bounds [E, nd] (`-bt 1`, a general
+//        mesh; bounds_stencil=False), read straight from global memory in
+//        the ClipScale step, coalesced along the dofs; no staging, no cls.
+//      The two stencil layouts share one compiled instance (the staging
+//      loop is chosen per launch); the per-dof layout, which stages
+//      nothing, is an instance of its own; with P16 (f32) both are
+//      compiled once more on the bf16 geometry provider;
 //   7. writes only the limited du [E, nd].
 //
 // What bounds it on the H100: at N=24, p=3, f32, one launch reads about
@@ -35,7 +45,10 @@
 // is bound by bytes. In f64 (8 sweeps) the bytes double to ~413 MB (~123
 // us) and still bound. The per-dof variant reads 2 nd values per element
 // for the bounds instead of 2 * 3^dim: +4.1 MB in f32 (+8.2 MB in f64) at
-// N=24, p=3, ~2% more bytes.
+// N=24, p=3, ~2% more bytes. With P16 (f32 only) the VA | VN planes, 6 of
+// P's 16 coefficient planes per point in 3D (9 VA + 3 VN of 3456
+// coefficients: 2592), are read as bf16: P's stream drops from 191 MB to
+// ~119 MB at N=24, p=3.
 //
 // The first version contracted with the dense tables (~143k multiply-adds
 // per element, one shared-memory load each, ~0.5 MB of tables from L2 per
@@ -65,16 +78,20 @@ namespace {
 
 using namespace remhos;
 
-template <typename T, int DIM>
+// the bounds operand's layout
+enum Layout { CLASS_MAJOR = 0, ELEMENT_MAJOR = 1, PER_DOF = 2 };
+
+template <typename T, int DIM, bool BF16>
 struct Args {
   CoreArgs<T> c;
-  PolyGeom<T, DIM> g;
+  PolyGeom<T, DIM, BF16> g;
   CoreLayout L;
-  const T* smin;    // [ncls, E] class-major stencil, or [E, nd] per dof
-  const T* smax;
-  const int* cls;   // [nd] (the stencil layout only)
+  const T* smin;    // [ncls, E] class-major or [E, ncls] element-major
+  const T* smax;    // stencil, or [E, nd] per dof
+  const int* cls;   // [nd] (the stencil layouts only)
   T* du;            // [E, nd] out
   T dt;
+  int layout;       // Layout
 };
 
 // shared values per element beyond the core's: the staged stencil
@@ -83,9 +100,9 @@ __host__ __device__ constexpr int stencil_slots() {
   return DOF ? 0 : 2 * (DIM == 3 ? 27 : 9);
 }
 
-template <typename T, int DIM, int DT, int QT, bool DOF>
+template <typename T, int DIM, int DT, int QT, bool DOF, bool BF16>
 __global__ void __launch_bounds__(NT, min_blocks<T>())
-mega_stage_kernel(const __grid_constant__ Args<T, DIM> a) {
+mega_stage_kernel(const __grid_constant__ Args<T, DIM, BF16> a) {
   constexpr int NCLS = DIM == 3 ? 27 : 9;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
@@ -110,11 +127,21 @@ mega_stage_kernel(const __grid_constant__ Args<T, DIM> a) {
 
     // the tile's bounds stencil (the core's first barrier covers it)
     if constexpr (!DOF) {
-      for (int idx = tid; idx < NCLS * te; idx += NT) {
-        const int c = idx / te, e = idx - c * te;
-        const size_t g = (size_t)c * E + e_base + e;
-        s_min[e * NCLS + c] = e < ne ? a.smin[g] : T(0);
-        s_max[e * NCLS + c] = e < ne ? a.smax[g] : T(0);
+      if (a.layout == ELEMENT_MAJOR) {
+        // the tile's rows are one contiguous run of ne * NCLS values
+        const size_t g0 = (size_t)e_base * NCLS;
+        for (int idx = tid; idx < NCLS * te; idx += NT) {
+          const bool in = idx < ne * NCLS;
+          s_min[idx] = in ? a.smin[g0 + idx] : T(0);
+          s_max[idx] = in ? a.smax[g0 + idx] : T(0);
+        }
+      } else {
+        for (int idx = tid; idx < NCLS * te; idx += NT) {
+          const int c = idx / te, e = idx - c * te;
+          const size_t g = (size_t)c * E + e_base + e;
+          s_min[e * NCLS + c] = e < ne ? a.smin[g] : T(0);
+          s_max[e * NCLS + c] = e < ne ? a.smax[g] : T(0);
+        }
       }
     }
 
@@ -183,29 +210,32 @@ mega_stage_kernel(const __grid_constant__ Args<T, DIM> a) {
   }
 }
 
-template <typename T, int DIM, int DT, int QT, bool DOF>
-int launch_sized(const Args<T, DIM>& a, size_t smem, cudaStream_t stream) {
+template <typename T, int DIM, int DT, int QT, bool DOF, bool BF16>
+int launch_sized(const Args<T, DIM, BF16>& a, size_t smem,
+                 cudaStream_t stream) {
   const void* fn = reinterpret_cast<const void*>(
-      &mega_stage_kernel<T, DIM, DT, QT, DOF>);
+      &mega_stage_kernel<T, DIM, DT, QT, DOF, BF16>);
   int grid = 0;
   const int rc = persistent_grid(fn, smem, (a.c.E + a.c.te - 1) / a.c.te,
                                  &grid);
   if (rc != 0) return rc;
-  mega_stage_kernel<T, DIM, DT, QT, DOF><<<grid, NT, smem, stream>>>(a);
+  mega_stage_kernel<T, DIM, DT, QT, DOF, BF16><<<grid, NT, smem, stream>>>(
+      a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DIM, bool DOF>
-int launch(const void* const* p, double t, double dt, const int* sz,
-           cudaStream_t stream) {
-  Args<T, DIM> a;
+template <typename T, int DIM, bool DOF, bool BF16>
+int launch_geom(const void* const* p, double t, double dt, const int* sz,
+                int layout, cudaStream_t stream) {
+  Args<T, DIM, BF16> a;
   fill_core_args(a.c, p, sz);
-  a.g = poly_geom<T, DIM>(p, t, sz);
+  a.g = poly_geom<T, DIM, BF16>(p, p[N_CORE_PTRS + 4], t, sz);
   a.smin = static_cast<const T*>(p[N_CORE_PTRS]);
   a.smax = static_cast<const T*>(p[N_CORE_PTRS + 1]);
   a.cls = static_cast<const int*>(p[N_CORE_PTRS + 2]);
   a.du = static_cast<T*>(const_cast<void*>(p[N_CORE_PTRS + 3]));
   a.dt = static_cast<T>(dt);
+  a.layout = layout;
   if (a.c.E <= 0) return 0;
   if (a.c.n_cg < 1) return -4;   // the limited stage needs the mass inverse
   int rc = check_core_sizes(DIM, sz);
@@ -225,15 +255,27 @@ int launch(const void* const* p, double t, double dt, const int* sz,
   }
 }
 
-template <bool DOF>
+// P16 (non-null) picks the bf16 instances, which exist for float only
+template <typename T, int DIM, bool DOF>
+int launch(const void* const* p, double t, double dt, const int* sz,
+           int layout, cudaStream_t stream) {
+  if (p[N_CORE_PTRS + 4] == nullptr)
+    return launch_geom<T, DIM, DOF, false>(p, t, dt, sz, layout, stream);
+  if constexpr (sizeof(T) == 4)
+    return launch_geom<T, DIM, DOF, true>(p, t, dt, sz, layout, stream);
+  return -6;                                      // P16 is f32 only
+}
+
+template <int LAYOUT>
 int entry(int dtype_bytes, int dim, const void* const* ptrs, int nptrs,
           double t, double dt, const int* sizes, int nsizes, void* stream) {
-  if (nptrs != N_CORE_PTRS + 4 || nsizes != N_CORE_SIZES) return -1;
+  constexpr bool DOF = LAYOUT == PER_DOF;
+  if (nptrs != N_CORE_PTRS + 5 || nsizes != N_CORE_SIZES) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype_bytes == 4 && dim == 3) return launch<float, 3, DOF>(ptrs, t, dt, sizes, s);
-  if (dtype_bytes == 8 && dim == 3) return launch<double, 3, DOF>(ptrs, t, dt, sizes, s);
-  if (dtype_bytes == 4 && dim == 2) return launch<float, 2, DOF>(ptrs, t, dt, sizes, s);
-  if (dtype_bytes == 8 && dim == 2) return launch<double, 2, DOF>(ptrs, t, dt, sizes, s);
+  if (dtype_bytes == 4 && dim == 3) return launch<float, 3, DOF>(ptrs, t, dt, sizes, LAYOUT, s);
+  if (dtype_bytes == 8 && dim == 3) return launch<double, 3, DOF>(ptrs, t, dt, sizes, LAYOUT, s);
+  if (dtype_bytes == 4 && dim == 2) return launch<float, 2, DOF>(ptrs, t, dt, sizes, LAYOUT, s);
+  if (dtype_bytes == 8 && dim == 2) return launch<double, 2, DOF>(ptrs, t, dt, sizes, LAYOUT, s);
   return -2;
 }
 
@@ -242,22 +284,31 @@ int entry(int dtype_bytes, int dim, const void* const* ptrs, int nptrs,
 extern "C" {
 
 // ptrs: the core's 6 device pointers (u, u_nbr, P, sf, bdr, dof_faces), then
-// smin, smax, cls, du; sizes: E, nd, Q, Qf, nf, fd, n_cg, D, Q1. Returns 0,
-// a CUDA error code (> 0), or < 0 for a bad argument.
+// smin, smax, cls, du, P16 (null, or the bf16 VA | VN planes: then P holds
+// WDET alone; f32 only); sizes: E, nd, Q, Qf, nf, fd, n_cg, D, Q1. Returns
+// 0, a CUDA error code (> 0), or < 0 for a bad argument.
 // smin/smax: the class-major stencil [3^dim, E], cls its dof classes [nd].
 int remhos_mega_stage(int dtype_bytes, int dim, const void* const* ptrs,
                       int nptrs, double t, double dt, const int* sizes,
                       int nsizes, void* stream) {
-  return entry<false>(dtype_bytes, dim, ptrs, nptrs, t, dt, sizes, nsizes,
-                      stream);
+  return entry<CLASS_MAJOR>(dtype_bytes, dim, ptrs, nptrs, t, dt, sizes,
+                            nsizes, stream);
+}
+
+// The same with the element-major stencil smin/smax [E, 3^dim].
+int remhos_mega_stage_elem(int dtype_bytes, int dim, const void* const* ptrs,
+                           int nptrs, double t, double dt, const int* sizes,
+                           int nsizes, void* stream) {
+  return entry<ELEMENT_MAJOR>(dtype_bytes, dim, ptrs, nptrs, t, dt, sizes,
+                              nsizes, stream);
 }
 
 // The same with per-dof bounds smin/smax [E, nd], contiguous; cls unread.
 int remhos_mega_stage_dof(int dtype_bytes, int dim, const void* const* ptrs,
                           int nptrs, double t, double dt, const int* sizes,
                           int nsizes, void* stream) {
-  return entry<true>(dtype_bytes, dim, ptrs, nptrs, t, dt, sizes, nsizes,
-                     stream);
+  return entry<PER_DOF>(dtype_bytes, dim, ptrs, nptrs, t, dt, sizes, nsizes,
+                        stream);
 }
 
 const char* remhos_cuda_error_string(int code) {

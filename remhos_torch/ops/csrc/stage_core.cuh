@@ -30,6 +30,12 @@
 //   PolyGeom  (kernels 1 and 2): va_b, w_q det J and vn by Horner's rule
 //             from the t-polynomial coefficients P = [VA | WDET | VN]
 //             (ops/tables.py); remap sign and mode +1. Bound by P's bytes.
+//             PolyGeom<float, DIM, true> (the JAX package's poly_bf16):
+//             VA | VN come from a bf16 array P16 and P holds WDET alone;
+//             each bf16 value is converted to f32 before any arithmetic (no
+//             bf16 FMA, no tensor core), and w_q det J, so the lumped mass
+//             and the LO average, stays true f32. Kernels 1 and 2 compile
+//             it as instances of their own (f32 only).
 //   MeshGeom  (kernels 4 and 5; its load() alone is kernel 3;
 //             mesh_geom.cuh): from the nodes xs and the nodal velocity v of
 //             the tile, sum-factorized on the 1D mesh tables: load()
@@ -93,6 +99,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <mutex>
@@ -496,10 +503,15 @@ __device__ __forceinline__ void gl_mass_action(int te, int D, int Q1,
 
 // Step 2's geometry from the t-polynomial coefficients P[E, width] (layout
 // ops/tables.poly_layout): va_b, w_q det J and vn by Horner's rule at t.
-template <typename T, int DIM>
+// BF16 (float only): P is [E, NKD Q] (WDET) and P16 the bf16
+// [E, NKV DIM Q + NKN FQ] = [VA | VN] (ops/tables.poly16_layout). A
+// compile-time choice: a branch per point on a runtime pointer cost kernels
+// 1 and 2 ~7% on an H100 (PERF.md, PR 13).
+template <typename T, int DIM, bool BF16 = false>
 struct PolyGeom {
   static constexpr int NKV = DIM, NKD = DIM + 1, NKN = DIM;
   const T* P;
+  const __nv_bfloat16* P16;
   T t;
   int Q, FQ;
 
@@ -509,31 +521,47 @@ struct PolyGeom {
     return P + (size_t)eg * ((NKV * DIM + NKD) * Q + NKN * FQ);
   }
 
+  __device__ __forceinline__ const __nv_bfloat16* row16(int eg) const {
+    return P16 + (size_t)eg * (NKV * DIM * Q + NKN * FQ);
+  }
+
+  // Horner's rule over n coefficients at stride s from c (the highest
+  // degree last), in T
+  template <int N, typename S>
+  __device__ __forceinline__ T horner(const S* c, int s) const {
+    T acc = ld(c + (N - 1) * s);
+#pragma unroll
+    for (int k = N - 2; k >= 0; --k) acc = ld(c + k * s) + t * acc;
+    return acc;
+  }
+  __device__ __forceinline__ static T ld(const T* p) { return __ldg(p); }
+  __device__ __forceinline__ static T ld(const __nv_bfloat16* p) {
+    return T(__bfloat162float(__ldg(p)));
+  }
+
   // va[b] and w_q det J at volume point q of element eg
   __device__ __forceinline__ void volume(int, int eg, int q, T* va,
                                          T& wd) const {
-    const T* Pe = row(eg);
+    if constexpr (BF16) {
+      const __nv_bfloat16* Pe = row16(eg);
 #pragma unroll
-    for (int b = 0; b < DIM; ++b) {
-      T acc = __ldg(Pe + ((NKV - 1) * DIM + b) * Q + q);
+      for (int b = 0; b < DIM; ++b) va[b] = horner<NKV>(Pe + b * Q + q, DIM * Q);
+      wd = horner<NKD>(P + (size_t)eg * NKD * Q + q, Q);
+    } else {
+      const T* Pe = row(eg);
 #pragma unroll
-      for (int k = NKV - 2; k >= 0; --k)
-        acc = __ldg(Pe + (k * DIM + b) * Q + q) + t * acc;
-      va[b] = acc;
+      for (int b = 0; b < DIM; ++b)
+        va[b] = horner<NKV>(Pe + b * Q + q, DIM * Q);
+      wd = horner<NKD>(Pe + NKV * DIM * Q + q, Q);
     }
-    const int off = NKV * DIM * Q;
-    wd = __ldg(Pe + off + (NKD - 1) * Q + q);
-#pragma unroll
-    for (int k = NKD - 2; k >= 0; --k) wd = __ldg(Pe + off + k * Q + q) + t * wd;
   }
 
   // the upwind normal velocity at face point fq of element eg
   __device__ __forceinline__ T face(int, int eg, int fq) const {
-    const T* Pe = row(eg) + (NKV * DIM + NKD) * Q;
-    T vn = __ldg(Pe + (NKN - 1) * FQ + fq);
-#pragma unroll
-    for (int k = NKN - 2; k >= 0; --k) vn = __ldg(Pe + k * FQ + fq) + t * vn;
-    return vn;
+    if constexpr (BF16)
+      return horner<NKN>(row16(eg) + NKV * DIM * Q + fq, FQ);
+    else
+      return horner<NKN>(row(eg) + (NKV * DIM + NKD) * Q + fq, FQ);
   }
 };
 
@@ -913,12 +941,15 @@ inline int check_core_sizes(int dim, const int* sz) {
   return 0;
 }
 
-// PolyGeom from the same arrays (P in slot 2) and the stage time t.
-template <typename T, int DIM>
-inline PolyGeom<T, DIM> poly_geom(const void* const* p, double t,
-                                  const int* sz) {
-  PolyGeom<T, DIM> g;
+// PolyGeom from the same arrays (P in slot 2), the bf16 P16 (null without)
+// and the stage time t.
+template <typename T, int DIM, bool BF16>
+inline PolyGeom<T, DIM, BF16> poly_geom(const void* const* p,
+                                        const void* p16, double t,
+                                        const int* sz) {
+  PolyGeom<T, DIM, BF16> g;
   g.P = static_cast<const T*>(p[2]);
+  g.P16 = static_cast<const __nv_bfloat16*>(p16);
   g.t = static_cast<T>(t);
   g.Q = sz[2];
   g.FQ = sz[4] * sz[3];

@@ -20,6 +20,9 @@
 //                  element average taken in the lumped-mass metric
 //                  (lo_element_sums); with n_cg == 0 a copy of Ku.
 //
+// With P16 (f32 only) the VA | VN planes come from a bf16 array and P holds
+// WDET alone (stage_core.cuh's PolyGeom).
+//
 // What bounds it on the H100: bytes. At N=24, p=3, f32 with LO it reads P
 // (191 MB), u and u_nbr (9 MB) and writes du_HO, wdet and du_LO (19 MB),
 // about 219 MB, ~65 us at 3.35 TB/s, against ~10 us of sum-factorized
@@ -37,10 +40,10 @@ namespace {
 
 using namespace remhos;
 
-template <typename T, int DIM>
+template <typename T, int DIM, bool BF16>
 struct Args {
   CoreArgs<T> c;
-  PolyGeom<T, DIM> g;
+  PolyGeom<T, DIM, BF16> g;
   CoreLayout L;
   T* du_ho;    // [E, nd] out
   T* wdet;     // [E, Q] out
@@ -48,9 +51,9 @@ struct Args {
   T dt;
 };
 
-template <typename T, int DIM, int DT, int QT>
+template <typename T, int DIM, int DT, int QT, bool BF16>
 __global__ void __launch_bounds__(NT, min_blocks<T>())
-stage_ho_kernel(const __grid_constant__ Args<T, DIM> a) {
+stage_ho_kernel(const __grid_constant__ Args<T, DIM, BF16> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const CoreLayout& L = a.L;
@@ -95,24 +98,25 @@ stage_ho_kernel(const __grid_constant__ Args<T, DIM> a) {
   }
 }
 
-template <typename T, int DIM, int DT, int QT>
-int launch_sized(const Args<T, DIM>& a, size_t smem, cudaStream_t stream) {
+template <typename T, int DIM, int DT, int QT, bool BF16>
+int launch_sized(const Args<T, DIM, BF16>& a, size_t smem,
+                 cudaStream_t stream) {
   const void* fn = reinterpret_cast<const void*>(
-      &stage_ho_kernel<T, DIM, DT, QT>);
+      &stage_ho_kernel<T, DIM, DT, QT, BF16>);
   int grid = 0;
   const int rc = persistent_grid(fn, smem, (a.c.E + a.c.te - 1) / a.c.te,
                                  &grid);
   if (rc != 0) return rc;
-  stage_ho_kernel<T, DIM, DT, QT><<<grid, NT, smem, stream>>>(a);
+  stage_ho_kernel<T, DIM, DT, QT, BF16><<<grid, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DIM>
-int launch(const void* const* p, double t, double dt, const int* sz,
-           cudaStream_t stream) {
-  Args<T, DIM> a;
+template <typename T, int DIM, bool BF16>
+int launch_geom(const void* const* p, double t, double dt, const int* sz,
+                cudaStream_t stream) {
+  Args<T, DIM, BF16> a;
   fill_core_args(a.c, p, sz);
-  a.g = poly_geom<T, DIM>(p, t, sz);
+  a.g = poly_geom<T, DIM, BF16>(p, p[N_CORE_PTRS + 3], t, sz);
   a.du_ho = static_cast<T*>(const_cast<void*>(p[N_CORE_PTRS]));
   a.wdet = static_cast<T*>(const_cast<void*>(p[N_CORE_PTRS + 1]));
   a.du_lo = static_cast<T*>(const_cast<void*>(p[N_CORE_PTRS + 2]));
@@ -135,18 +139,30 @@ int launch(const void* const* p, double t, double dt, const int* sz,
   }
 }
 
+// P16 (non-null) picks the bf16 instances, which exist for float only
+template <typename T, int DIM>
+int launch(const void* const* p, double t, double dt, const int* sz,
+           cudaStream_t stream) {
+  if (p[N_CORE_PTRS + 3] == nullptr)
+    return launch_geom<T, DIM, false>(p, t, dt, sz, stream);
+  if constexpr (sizeof(T) == 4)
+    return launch_geom<T, DIM, true>(p, t, dt, sz, stream);
+  return -6;                                      // P16 is f32 only
+}
+
 }  // namespace
 
 extern "C" {
 
 // ptrs: the core's 6 device pointers (u, u_nbr, P, sf, bdr, dof_faces), then
-// du_ho, wdet and du_lo (null for no LO output); sizes: E, nd, Q, Qf, nf,
-// fd, n_cg, D, Q1. dt is read only with an LO output. Returns 0, a CUDA
+// du_ho, wdet and du_lo (null for no LO output), and P16 (null, or the bf16
+// VA | VN planes: then P holds WDET alone; f32 only); sizes: E, nd, Q, Qf,
+// nf, fd, n_cg, D, Q1. dt is read only with an LO output. Returns 0, a CUDA
 // error code (> 0), or < 0 for a bad argument.
 int remhos_stage_ho(int dtype_bytes, int dim, const void* const* ptrs,
                     int nptrs, double t, double dt, const int* sizes,
                     int nsizes, void* stream) {
-  if (nptrs != N_CORE_PTRS + 3 || nsizes != N_CORE_SIZES) return -1;
+  if (nptrs != N_CORE_PTRS + 4 || nsizes != N_CORE_SIZES) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype_bytes == 4 && dim == 3) return launch<float, 3>(ptrs, t, dt, sizes, s);
   if (dtype_bytes == 8 && dim == 3) return launch<double, 3>(ptrs, t, dt, sizes, s);

@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from . import build
-from .tables import check_tables, poly_layout
+from .tables import check_tables, poly16_layout, poly_layout
 
 # pointer order of CoreArgs in csrc/stage_core.cuh: the per-call operands,
 # then the static tables the kernels read (the packed 1D factors and the
@@ -48,32 +48,37 @@ def as_dtype(x, dtype) -> float:
     return float(torch.tensor(x, dtype=dtype))
 
 
-def poly_stage_core_reference(t, u, u_nbr, P, tables, n_cg):
+def poly_stage_core_reference(t, u, u_nbr, P, tables, n_cg, P16=None):
     """(du_HO[E, nd], wdet[E, Q]) in plain PyTorch, on any device; with
     n_cg == 0, (Ku, wdet).
 
     t: stage time, already rounded to u's dtype; u[E, nd]; u_nbr[E, nf*fd];
-    P[E, width] (tables.poly_layout); tables from tables.stage_ho_tables."""
+    P[E, width] (tables.poly_layout); tables from tables.stage_ho_tables.
+    With P16 (bf16 [E, width16], tables.poly16_layout): P is WDET alone and
+    va, vn come from P16, each coefficient converted to u's dtype first."""
     tb = tables
     dim, Q, Qf, nf, fd = (tb[k] for k in ("dim", "Q", "Qf", "nf", "fd"))
     E, FQ = u.shape[0], nf * Qf
-    lay = poly_layout(dim, Q, FQ)
+    if P16 is None:
+        lay, Pva = poly_layout(dim, Q, FQ), P
+    else:
+        lay, Pva = poly16_layout(dim, Q, FQ), P16.to(u.dtype)
 
-    def horner(offs, n):
-        acc = P[:, offs[-1]:offs[-1] + n]
+    def horner(M, offs, n):
+        acc = M[:, offs[-1]:offs[-1] + n]
         for o in reversed(offs[:-1]):
-            acc = P[:, o:o + n] + t * acc
+            acc = M[:, o:o + n] + t * acc
         return acc
 
     grad = u @ tb["GuT"]                                   # [E, dim*Q]
     du_q = None
     for b in range(dim):
-        va_b = horner([lay["va"] + (k * dim + b) * Q
-                       for k in range(lay["nkv"])], Q)
+        va_b = horner(Pva, [lay["va"] + (k * dim + b) * Q
+                            for k in range(lay["nkv"])], Q)
         term = va_b * grad[:, b * Q:(b + 1) * Q]
         du_q = term if du_q is None else du_q + term
-    wdet = horner([lay["wdet"] + k * Q for k in range(lay["nkd"])], Q)
-    vn = horner([lay["vn"] + k * FQ for k in range(lay["nkn"])], FQ)
+    wdet = horner(P, [lay["wdet"] + k * Q for k in range(lay["nkd"])], Q)
+    vn = horner(Pva, [lay["vn"] + k * FQ for k in range(lay["nkn"])], FQ)
 
     bdr = tb["bdr"].long()
     Bface = tb["Bface"]
@@ -100,17 +105,38 @@ def jacobi_gl_inverse(Ku, wdet, tables, n_cg):
     return x @ tb["AT"]
 
 
-def operand_shapes(tb, E):
+def operand_shapes(tb, E, p16=False):
     """The shapes the kernels index the per-call core operands u, u_nbr and
-    P with, made once per (table dict, E)."""
-    key = ("operand_shapes", E)
+    P with (with `p16`, P's WDET-only shape), made once per (table dict, E,
+    p16)."""
+    key = ("operand_shapes", E, p16)
     shapes = tb.get(key)
     if shapes is None:
         dim, nd, Q, Qf, nf, fd = (tb[k] for k in ("dim", "nd", "Q", "Qf",
                                                    "nf", "fd"))
-        shapes = tb[key] = ((E, nd), (E, nf * fd),
-                            (E, poly_layout(dim, Q, nf * Qf)["width"]))
+        lay = (poly16_layout if p16 else poly_layout)(dim, Q, nf * Qf)
+        shapes = tb[key] = ((E, nd), (E, nf * fd), (E, lay["width"]))
     return shapes
+
+
+def check_p16(what, P16, u, tables):
+    """Raise unless P16 is the bf16 [E, width16] stream of an f32 stage on
+    the tables' device, contiguous: the kernels take P16 in f32 only (the
+    JAX package ignores poly_bf16 in f64)."""
+    if u.dtype != torch.float32:
+        raise TypeError(f"{what}: the bf16 P16 stream is float32 only, u is "
+                        f"{u.dtype}")
+    tb = tables
+    shape = (u.shape[0], poly16_layout(tb["dim"], tb["Q"],
+                                       tb["nf"] * tb["Qf"])["width16"])
+    if tuple(P16.shape) != shape:
+        raise ValueError(f"P16 must be {shape}, got {tuple(P16.shape)}")
+    if P16.dtype != torch.bfloat16:
+        raise TypeError(f"P16 is {P16.dtype}, must be torch.bfloat16")
+    if P16.device != u.device:
+        raise ValueError(f"P16 is on {P16.device}, u on {u.device}")
+    if not P16.is_contiguous():
+        raise ValueError("P16 must be contiguous")
 
 
 def check_operands(what, names, tensors, shapes, tables, key="checked"):

@@ -51,6 +51,16 @@ def poly_layout(dim, Q, FQ):
                 width=vn + nkn * FQ)
 
 
+def poly16_layout(dim, Q, FQ):
+    """Segment offsets of the bf16 stream (the JAX package's va_vn_bf16):
+    P = [WDET] alone (`wdet` 0, `width`) and P16 = [VA | VN] (`va` 0, `vn`,
+    `width16`), each segment as in `poly_layout`."""
+    lay = poly_layout(dim, Q, FQ)
+    nva = lay["nkv"] * dim * Q
+    return dict(lay, va=0, wdet=0, vn=nva, width=lay["nkd"] * Q,
+                width16=nva + lay["nkn"] * FQ)
+
+
 def class_of_dofs(nd, dim):
     """cls[nd]: bounds class of each dof, cz*9 + cy*3 + cx, where per axis
     a dof is class 0 (low GLL endpoint), 1 (interior) or 2 (high end)."""
@@ -261,14 +271,22 @@ def stage_ho_tables(disc, dtype, device):
     return tb
 
 
-def build_poly_tables(x0, v, disc):
+def build_poly_tables(x0, v, disc, va_vn_bf16=False):
     """P[E, width]: the t-polynomial coefficients of the stage geometry.
 
     In remap the mesh moves linearly, J(t) = J0 + t Jv, so the convective
     velocity va_b = v . cof(J)[:, b], w_q det J and the face normal velocity
     vn = v . n are polynomials in t whose coefficients are computed once
     here; the stage kernel evaluates them by Horner's rule. Computed in the
-    dtype of x0 (layout: `poly_layout`)."""
+    dtype of x0 (layout: `poly_layout`).
+
+    va_vn_bf16 (remhos_tpu/ops/pallas_kernels.py:975, f32 only): returns
+    (P, P16), P = [WDET] in the dtype of x0 and P16 = [VA | VN] rounded to
+    bf16 (`poly16_layout`). w_q det J stays in the working type: it makes
+    the lumped mass and the LO average, which decide conservation. va and
+    vn round independently, so the discrete volume/face telescoping that
+    makes du_HO conservative holds only to bf16's ~4e-3, and the f32 mass
+    closure's injection budget is the gate."""
     dtype, device = x0.dtype, x0.device
     dim = disc.dim
     E = x0.shape[0]
@@ -356,9 +374,13 @@ def build_poly_tables(x0, v, disc):
         vn = [vfq[0] * T1[1][k] - vfq[1] * T1[0][k] for k in range(2)]
 
     w_q = T(disc.w_q)
-    segs = ([va[k][b] for k in range(nkv) for b in range(dim)]
-            + [w_q[None, :] * c for c in det_c] + list(vn))
-    P = torch.cat(segs, dim=1)
+    va_segs = [va[k][b] for k in range(nkv) for b in range(dim)]
+    wd_segs = [w_q[None, :] * c for c in det_c]
+    if va_vn_bf16:
+        return (torch.cat(wd_segs, dim=1).contiguous(),
+                torch.cat(va_segs + list(vn), dim=1).to(
+                    torch.bfloat16).contiguous())
+    P = torch.cat(va_segs + wd_segs + list(vn), dim=1)
     assert P.shape == (E, lay["width"])
     return P.contiguous()
 

@@ -76,11 +76,14 @@ def subcell_node_setup(adv):
     x0_sub = torch.einsum("end,mn->emd", adv.x0_nodes, Bm_at_u)
     if adv.cfg.exec_mode != 1:
         return x0_sub, None
-    mesh = disc.mesh
-    v = prob.velocity_function(adv.cfg.problem, x0_sub, mesh.bb_min,
-                               mesh.bb_max)
-    mask = torch.as_tensor(boundary_node_mask(mesh, disc.ref_nodes_u),
-                           device=device)
+    v = prob.velocity_function(adv.cfg.problem, x0_sub, adv.bb_min,
+                               adv.bb_max)
+    # a shard's operator pre-sets the mask made in GLOBAL context: its
+    # interface to the next shard is not a physical boundary
+    mask = getattr(adv, "_sub_bmask", None)
+    if mask is None:
+        mask = boundary_node_mask(disc.mesh, disc.ref_nodes_u)
+    mask = torch.as_tensor(mask, device=device)
     return x0_sub, torch.where(mask[:, :, None], 0.0, v)
 
 
@@ -99,10 +102,9 @@ def subcell_weights(adv, t):
         corners.shape[:2] + (dim, dim))             # one GEMM, not a bmm
     _, adj = det_adj(J_c)
     if v_sub is None:
-        mesh = adv.disc.mesh
         v_c = prob.velocity_function(
-            adv.cfg.problem, corners.mean(dim=2).double(), mesh.bb_min,
-            mesh.bb_max).to(xs.dtype)
+            adv.cfg.problem, corners.mean(dim=2).double(), adv.bb_min,
+            adv.bb_max).to(xs.dtype)
     else:
         v_c = v_sub[:, sub2ind].mean(dim=2)         # [E, ns, dim]
     av = (v_c[:, :, None, :] * adj).sum(-1)        # adj J v (row form)

@@ -76,31 +76,35 @@ def _core_work(tb, n_cg, with_face=True):
     return mac, pointwise
 
 
-def stage_cost(tb, P, n_cg, kind="mega", with_lo=False):
+def stage_cost(tb, P, n_cg, kind="mega", with_lo=False, P16=None):
     """(bytes, flops) of kernels 1 and 2, the stages with t-polynomial
     geometry. kind "mega": the limited stage with the class-major bounds
     stencil (reads its two [3^dim, E] arrays and the class table too,
-    writes du); kind "mega_dof": the same with per-dof bounds (reads two
-    [E, nd] arrays, no class table). kind "ho": the HO stage (writes du_HO
-    and wdet, and du_LO with `with_lo`). Reads u, u_nbr, P and the tables in
-    their least form: the 1D factors `sf` and the index tables (the dense
-    tables are the plain versions')."""
+    writes du); kind "mega_elem": the same with the element-major stencil
+    [E, 3^dim] (the same bytes); kind "mega_dof": the same with per-dof
+    bounds (reads two [E, nd] arrays, no class table). kind "ho": the HO
+    stage (writes du_HO and wdet, and du_LO with `with_lo`). Reads u,
+    u_nbr, P (and P16, the bf16 va/vn stream, where given: P then holds
+    w_q det J alone, so the stream is the smaller byte count) and the
+    tables in their least form: the 1D factors `sf` and the index tables
+    (the dense tables are the plain versions')."""
     dim, nd, Q, Qf, nf, fd = (tb[k] for k in ("dim", "nd", "Q", "Qf", "nf",
                                                "fd"))
     FQ, NFD, ncls = nf * Qf, nf * fd, 3 ** dim
     E, itemsize = P.shape[0], P.element_size()
+    stencil = kind in ("mega", "mega_elem")
     tables = _nbytes(tb[k] for k in ("sf", "bdr", "dof_faces", "cls")
-                     if tb.get(k) is not None and (k != "cls" or
-                                                   kind == "mega"))
-    mega = kind in ("mega", "mega_dof")
+                     if tb.get(k) is not None and (k != "cls" or stencil))
+    mega = kind in ("mega", "mega_elem", "mega_dof")
     lo_work = mega or (with_lo and n_cg > 0)
-    if kind == "mega":
+    if stencil:
         per_el = 2 * nd + NFD + 2 * ncls
     elif kind == "mega_dof":
         per_el = 4 * nd + NFD
     else:
         per_el = 2 * nd + NFD + Q + (nd if with_lo else 0)
-    nbytes = E * per_el * itemsize + P.numel() * itemsize + tables
+    nbytes = (E * per_el * itemsize + P.numel() * itemsize + tables
+              + _nbytes([P16]))
     mac, pointwise = _core_work(tb, n_cg)
     mac += Q * dim * (dim - 1) + Q * dim + FQ * (dim - 1)   # Horner
     if lo_work:

@@ -8,7 +8,8 @@ check after 4 steps and a sweep of (4|5) x (2|4) at 40 steps. Checked:
 
 - `main` and `main_dual` records carry bench.py's keys and the port's
   `kernels` and `device`, with `verified` true; the dual record's sweep has
-  four points, every leg ran and `legs_skipped` is ["shardmap:unported"];
+  four points, every leg ran, the one-shard `shardmap` leg among them
+  (bench.py:775-790), and `legs_skipped` is empty;
 - the three BENCH_CLOSURE modes verify, and the final state the record
   was taken on is that of bench.py's loop in the same mode on the JAX side
   (tests/torch_jax_bench.py): 2e-3 of max|u| (f32; bf16x3 products on the
@@ -18,11 +19,19 @@ check after 4 steps and a sweep of (4|5) x (2|4) at 40 steps. Checked:
 - a leg the budget skips lands in `legs_skipped`;
 - a skipped cross check leaves `verified` not true, in `main` and in
   `main_dual`;
-- the TPU-only knobs raise ValueError;
+- BENCH_PALLAS=0 (the plain version on the device) raises ValueError;
+  BENCH_POLY_BF16=1 (the bf16 va/vn stream; at dt = 1e-4 here) and
+  BENCH_SHARDED=1|2 (the sharded loop in this process, in 2 spawned ranks)
+  run and verify;
+- BENCH_POLY_BF16=1 at the default dt = 1e-3 is NOT verified: the bf16
+  volume/face mismatch injects 1.04e-6 of the mass over 6 steps on this
+  4^3 mesh, above the closure's 3.2e-7 budget; the JAX package's loop with
+  poly_bf16 on the same inputs injects 8.9e-7 and fails the same budget;
 - `tools/sweep.py` runs `python -m remhos_torch.bench` per point with
   bench.py's knobs and writes the sweep record.
 """
 
+import contextlib
 import json
 import subprocess
 
@@ -32,7 +41,7 @@ import pytest
 
 from remhos_torch import bench
 from remhos_torch.tools import sweep
-from torch_jax_bench import jax_loop
+from torch_jax_bench import jax_loop, jax_run
 from torch_threads import one_torch_thread  # noqa: F401
 
 ENV = dict(BENCH_N="4", BENCH_P="2", BENCH_STEPS="6", BENCH_REPS="2",
@@ -99,12 +108,17 @@ def test_main_dual_record(capsys, small_sweep):
     for key in MAIN_KEYS + DUAL_KEYS:
         assert key in rec, key
     assert rec["verified"] is True
-    assert rec["legs_skipped"] == ["shardmap:unported"]
+    assert rec["legs_skipped"] == []
     # the peak gets a leg of its own unless the headline or p4 leg ran it
     peak = (rec["sweep_peak"]["N"], rec["sweep_peak"]["p"])
     assert set(rec["leg_wall_s"]) == {
-        "float32", "p4", "float64", "sweep N=5 p=2", "sweep N=5 p=4",
-        "phases"} | ({"sweep_peak_6"} if peak[0] == 5 else set())
+        "float32", "p4", "float64", "shardmap", "sweep N=5 p=2",
+        "sweep N=5 p=4", "phases"} | (
+            {"sweep_peak_6"} if peak[0] == 5 else set())
+    assert rec["shardmap_verified"] is True
+    assert rec["shardmap_value"] > 0 and rec["shardmap_mass_rel_loss"] < 1e-6
+    assert rec["shardmap_overhead_vs_unsharded"] == pytest.approx(
+        1.0 - rec["shardmap_value"] / rec["value"])
     assert 0 < rec["f32_vs_f64_40step_rel"] < 1e-2
     assert rec["crosscheck_40step"] == "passed"
     assert [(p["N"], p["p"]) for p in rec["sweep"]] == list(SWEEP)
@@ -138,7 +152,7 @@ def test_budget_skips_are_recorded(small_sweep):
     rec = bench.main_dual(device="cpu", env=_env(
         BENCH_BUDGET_S="0", BENCH_TRACE="0"))
     assert set(rec["legs_skipped"]) == {
-        "shardmap:unported", "p4", "float64", "sweep N=5 p=2",
+        "shardmap", "p4", "float64", "sweep N=5 p=2",
         "sweep N=4 p=4", "sweep N=5 p=4", "phases"}
     assert rec["verified"] is False and rec["crosscheck_40step"] == "skipped"
     assert [(p["N"], p["p"]) for p in rec["sweep"]] == [(4, 2)]
@@ -159,12 +173,58 @@ def test_skipped_cross_check_is_not_verified():
 
 @pytest.mark.parametrize("knob", [dict(BENCH_PALLAS="0"),
                                   dict(BENCH_POLY_BF16="1"),
-                                  dict(BENCH_SHARDED="1")])
+                                  dict(BENCH_SHARDED="1"),
+                                  dict(BENCH_SHARDED="2")])
 def test_tpu_only_knobs_raise(knob):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        bench.knobs(_env(**knob))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        bench.main_dual(device="cpu", env=_env(**knob))
+    """BENCH_PALLAS=0 is the TPU's alone; the bf16 stream and the sharded
+    loop are ported and run (the module docstring)."""
+    if "BENCH_PALLAS" in knob:
+        with pytest.raises(ValueError, match="ROADMAP"):
+            bench.knobs(_env(**knob))
+        with pytest.raises(ValueError, match="ROADMAP"):
+            bench.main_dual(device="cpu", env=_env(**knob))
+        return
+    env = _env(BENCH_TRACE="0", BENCH_PHASES="0", **knob)
+    if "BENCH_POLY_BF16" in knob:
+        env["BENCH_DT"] = "0.0001"
+    k = bench.knobs(env)
+    assert (k["poly_bf16"], k["sharded"]) == (
+        "BENCH_POLY_BF16" in knob, int(knob.get("BENCH_SHARDED", 0)))
+    rec = bench.main(device="cpu", env=env)
+    assert rec["verified"] is True and rec["mass_rel_loss"] is not None
+    if k["sharded"]:
+        assert rec["shards"] == k["sharded"]
+        assert rec["metric"].endswith(f"_sharded{k['sharded']}")
+    else:
+        assert rec["poly_bf16"] is True
+        assert rec["cross_check"]["status"] == "ran"
+
+
+def test_poly_bf16_at_the_default_dt_is_not_verified():
+    """At this file's default dt (1e-3) the bf16 va/vn stream's
+    volume/face mismatch injects ~1e-6 of the mass over 6 steps on the 4^3
+    mesh, above the closure's budget (3.2e-7): the record raises instead of
+    verifying. The JAX package's bench loop with poly_bf16 on the same
+    inputs injects as much and fails the same budget (its witness), while
+    both pass it without bf16. `-s` prints the injections."""
+    env = _env(BENCH_TRACE="0", BENCH_PHASES="0", BENCH_POLY_BF16="1")
+    with pytest.raises(AssertionError, match="absorbed too much") as port:
+        bench.main(device="cpu", env=env)
+    print(f"port record: {port.value}")
+    for bf16 in (True, False):
+        case = bench.build_case(4, 2, device="cpu", n_steps=6, dt=0.001,
+                                poly_bf16=bf16)
+        uT, cT, _, _ = bench.run_steps(case)
+        _, _, inj_j = jax_run(case, 4, 2, jnp.float32, 6, 0.001, "1",
+                              poly_bf16=bf16)
+        check = (pytest.raises(AssertionError, match="absorbed too much")
+                 if bf16 else contextlib.nullcontext())
+        with check:
+            bench.verify(case.adv64, case.u0, uT, 0.001, 6, cT=cT,
+                         injected=inj_j, metric32=case.mlk32)
+        m0 = float((case.adv64.lumped_mass(0.0) * case.u0_64).sum())
+        print(f"JAX loop, poly_bf16={bf16}: injected {inj_j / m0:.3e} "
+              "of the mass")
 
 
 def test_sweep_tool(monkeypatch, tmp_path):

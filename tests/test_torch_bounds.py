@@ -186,7 +186,11 @@ def test_per_dof_wrapper_rejects_bad_bounds():
     _, td, x0, v, u, _, ti = _stage_inputs((4, 3, 2), 81, jnp.float64,
                                            torch.float64)
     ut, unt, xmt, xxt, smt, sxt, Pt, ttb = ti
+    # "E" names the element-major stencil since PR 13: an unknown layout
+    # raises, and "E" with per-dof bounds is refused by their shape
     with pytest.raises(ValueError, match="bounds"):
+        ms.mega_stage(0.0, DT, ut, unt, xmt, xxt, Pt, ttb, bounds="X")
+    with pytest.raises(ValueError, match="smin"):
         ms.mega_stage(0.0, DT, ut, unt, xmt, xxt, Pt, ttb, bounds="E")
     with pytest.raises(ValueError, match="smin"):
         ms.mega_stage(0.0, DT, ut, unt, smt, sxt, Pt, ttb, bounds="dof")

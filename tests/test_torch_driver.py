@@ -158,7 +158,8 @@ def test_default_mesh_3d_rk6():
     (dict(mesh="periodic-segment", problem=0, visit=True), "Queue 1, item 9"),
     (dict(lo=1, pa=False, mesh="periodic-hexagon"), "Queue 1, item 8"),
     (dict(fct=4, mono=2, profile_dir="prof"), "Queue 1, item 9"),
-    (dict(pa=False, mesh="periodic-segment", dcn=True), "Queue 1, item 10"),
+    (dict(pa=False, mesh="periodic-segment", problem=0, dcn=True),
+     "Queue 1, item 10"),
     (dict(bounds_type=1, mono=1, mesh="ball-nurbs"), "Queue 1, item 8"),
     (dict(ho=1, pa=False, mesh="disc-nurbs"), "Queue 1, item 8")])
 def test_unported_options_raise(kw, item, tmp_path, monkeypatch):

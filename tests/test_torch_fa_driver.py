@@ -133,7 +133,8 @@ def test_f32_fa_tracks_f64(kw):
 @pytest.mark.parametrize("kw,item", [
     (dict(mono=1, save=True), "Queue 1, item 9"),
     (dict(smth_ind=1, fct=3, mesh="disc-nurbs"), "Queue 1, item 8"),
-    (dict(mesh="periodic-segment", n_shards=2), "Queue 1, item 10"),
+    (dict(mesh="periodic-segment", problem=0, n_shards=2),
+     "Queue 1, item 10"),
     (dict(mesh="star.mesh"), "Queue 1, item 8"),
     (dict(n_shards=2), "Queue 1, item 10")])
 def test_unported_fa_options_raise(kw, item, tmp_path, monkeypatch):

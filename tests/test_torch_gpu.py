@@ -722,7 +722,8 @@ def test_short_path_f_runs_the_per_dof_variant():
         lo=5, fct=2, pa=True, bounds_type=1, dtype="float32", t_final=0.7,
         dt=DT, max_tsteps=4, device="cuda", verbose=False))
     assert res.steps == 4
-    assert ops.variant_counts()["mega_stage"] == dict(T=0, dof=12)
+    assert ops.variant_counts()["mega_stage"] == dict(T=0, E=0, dof=12,
+                                                      P16=0)
     assert ops.launch_counts()["mega_stage"] == 12
     assert res.min_u >= res.u0_min - 1e-5 and res.max_u <= res.u0_max + 1e-5
 
@@ -875,7 +876,8 @@ def test_general_mesh_run_matches_the_cpu(lo, ho, tmp_path):
     n = ops.launch_counts()
     if lo == 5:
         assert n["mega_stage"] == 18
-        assert ops.variant_counts()["mega_stage"] == dict(T=0, dof=18)
+        assert ops.variant_counts()["mega_stage"] == dict(
+            T=0, E=0, dof=18, P16=0)
     else:
         assert n["geom_conv"] == 36 and n["wdet"] == 20
     rh = driver.run(RunConfig(mesh=str(path), rs_levels=0, device="cpu",
@@ -885,3 +887,147 @@ def test_general_mesh_run_matches_the_cpu(lo, ho, tmp_path):
     for r in (rh, rs):
         assert abs(rc.final_mass_u - r.final_mass_u) <= 1e-12 * r.final_mass_u
         assert abs(rc.max_u - r.max_u) <= 1e-11
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [2, 3, 4])
+@pytest.mark.parametrize("dim,n", [(3, 5), (2, 9)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 2e-4)])
+def test_element_major_variant(p, dim, n, dtype, tol):
+    """Kernel 1's "E" variant (the element-major [E, 3^dim] stencil of a
+    sharded grid) equals the "T" variant bit for bit on the same stencil
+    values, and its plain version within the "T" limits: in f32 the plain
+    version evaluated in f64 on the same inputs, at 2e-4, and in 3D at p=4
+    at 1e-3 (test_stage_kernels_at_other_orders' limits)."""
+    _cuda()
+    case = bench.build_case(n=n, order=p, dtype=torch.float32, device="cuda",
+                            n_steps=4, dt=DT, dim=dim)
+    adv = case.adv if dtype == torch.float32 else case.adv64
+    rng = np.random.default_rng(23)
+    u = torch.as_tensor(rng.random(tuple(case.u0.shape)), dtype=dtype,
+                        device="cuda")
+    unbr = adv.gather_nbr(u).reshape(u.shape[0], -1)
+    el = bounds.elements_min_max(u)
+    smin, smax = structured.overlap_stencil_T(*el, adv.shape, adv.periodic,
+                                              adv.masks)
+    emin, emax = adv.compute_bounds_stencil(*el)
+    assert torch.equal(emin, smin.T) and torch.equal(emax, smax.T)
+    tail = (adv._poly, adv._stage_tables)
+    before = dict(ms.mega_stage.variant_launches)
+    du_E = ms.mega_stage(0.1, DT, u, unbr, emin, emax, *tail, bounds="E")
+    du_T = ms.mega_stage(0.1, DT, u, unbr, smin, smax, *tail)
+    torch.cuda.synchronize()
+    assert ms.mega_stage.variant_launches == dict(
+        before, E=before["E"] + 1, T=before["T"] + 1)
+    assert torch.equal(du_E, du_T)
+    t = float(torch.tensor(0.1, dtype=dtype))
+    dt = float(torch.tensor(DT, dtype=dtype))
+    ref = ms.mega_stage_reference(t, dt, *_f64(u, unbr, emin, emax, adv._poly),
+                                  case.adv64._stage_tables,
+                                  ms.default_sweeps(dtype), "E")
+    if dtype == torch.float32 and dim == 3 and p == 4:
+        tol = 1e-3
+    err = (du_E.double() - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,n", [(3, 5), (2, 9)])
+def test_p16_kernels_match_their_plain_versions(dim, n):
+    """Kernels 1 and 2 reading the bf16 va/vn stream (f32) against their
+    P16 plain versions evaluated in f64 on the same bf16 values; an f64
+    launch with P16 raises."""
+    _cuda()
+    case = bench.build_case(n=n, order=3, dtype=torch.float32,
+                            device="cuda", n_steps=4, dt=DT, dim=dim)
+    adv, tb = case.adv, case.adv._stage_tables
+    P, P16 = tables_p16(adv)
+    rng = np.random.default_rng(29)
+    u = torch.as_tensor(rng.random(tuple(case.u0.shape)),
+                        dtype=torch.float32, device="cuda")
+    unbr = adv.gather_nbr(u).reshape(u.shape[0], -1)
+    smin, smax = structured.overlap_stencil_T(
+        *bounds.elements_min_max(u), adv.shape, adv.periodic, adv.masks)
+    before = dict(ms.mega_stage.variant_launches)
+    got = ms.mega_stage(0.1, DT, u, unbr, smin, smax, P, tb, P16=P16)
+    assert ms.mega_stage.variant_launches == dict(
+        before, T=before["T"] + 1, P16=before["P16"] + 1)
+    tb64 = case.adv64._stage_tables
+    f = [x.double() for x in (u, unbr, smin, smax, P)]
+    ref = ms.mega_stage_reference(as_f32(0.1), as_f32(DT), f[0], f[1], f[2],
+                                  f[3], f[4], tb64, 1, "T", P16)
+    err = (got.double() - ref).abs().max().item()
+    assert err <= 2e-4 * ref.abs().max().item()
+    n16 = sh.stage_ho.variant_launches["P16"]
+    du, wdet, lo = sh.stage_ho(0.1, u, unbr, P, tb, dt=DT, with_lo=True,
+                               P16=P16)
+    assert sh.stage_ho.variant_launches["P16"] == n16 + 1
+    rdu, rw, rlo = sh.stage_ho_poly_reference(as_f32(0.1), f[0], f[1], f[4],
+                                              tb64, 1, dt=as_f32(DT),
+                                              with_lo=True, P16=P16)
+    for a, b in ((du, rdu), (lo, rlo)):
+        err = (a.double() - b).abs().max().item()
+        assert err <= 2e-4 * b.abs().max().item()
+    err = (wdet.double() - rw).abs().max().item()
+    assert err <= 1e-5 * rw.abs().max().item()
+    with pytest.raises(TypeError, match="float32 only"):
+        ms.mega_stage(0.1, DT, u.double(), unbr.double(), smin.double(),
+                      smax.double(), P.double(), tb64, P16=P16)
+
+
+def as_f32(x):
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def tables_p16(adv):
+    """(P, P16) of an f32 operator's nodes and velocity (the bf16 stream)."""
+    from remhos_torch.ops import tables as tbl
+    return tbl.build_poly_tables(adv.x0_nodes, adv.v_nodes, adv.disc,
+                                 va_vn_bf16=True)
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_sharded_run():
+    """A sharded run of one rank (NCCL, in this process) equals the
+    unsharded run, through kernel 1's "E" variant only."""
+    _cuda()
+    kw = dict(mesh="default", dim=3, elem_per_shard=64, order=3, problem=10,
+              ho=3, lo=5, fct=2, pa=True, t_final=0.7, dt=DT, max_tsteps=4,
+              device="cuda", verbose=False)
+    r1 = driver.run(RunConfig(**kw))
+    ops.reset_launch_counts()
+    rs = driver.run(RunConfig(shard_grid=(1,), **kw))
+    assert ops.variant_counts()["mega_stage"] == dict(T=0, E=12, dof=0,
+                                                      P16=0)
+    assert abs(rs.final_mass_u - r1.final_mass_u) <= 1e-13
+    assert abs(rs.max_u - r1.max_u) <= 1e-13
+
+
+@pytest.mark.gpu
+def test_graft_entry_runs_on_the_card():
+    """`graft_entry.entry()` with no device builds its state and operator
+    on the card; its step equals the CPU step of the same state (1e-12 of
+    max|S|: the assembled path's Cholesky solves round differently)."""
+    _cuda()
+    from remhos_torch import graft_entry
+    fn, args = graft_entry.entry()
+    assert args[0].device.type == "cuda"
+    out = fn(*args)
+    assert out.device.type == "cuda" and torch.isfinite(out).all()
+    fn_c, args_c = graft_entry.entry("cpu")
+    ref = fn_c(*args_c)
+    assert (out.cpu() - ref).abs().max() <= 1e-12 * ref.abs().max()
+
+
+@pytest.mark.gpu
+def test_graft_dryrun_multichip_on_the_card():
+    """`graft_entry.dryrun_multichip(4)` with no device: four gloo ranks
+    sharing the card (a 2 x 2 shard grid), each leg < 1e-13 of the
+    unsharded step on the card."""
+    _cuda()
+    from remhos_torch import graft_entry
+    out = graft_entry.dryrun_multichip(4)
+    assert out["grid"] == (2, 2)
+    for k in ("plain", "production", "weak_scaling", "general_mesh"):
+        assert out[k] < 1e-13

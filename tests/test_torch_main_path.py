@@ -149,7 +149,12 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_configurations_raise():
-    from remhos_torch.operator import Advection, SolverConfig
+    """Nothing of the solvers is left unported: the configurations that
+    raised NotImplementedError for the bf16 P16 stream (poly_bf16) until
+    PR 13 now build (with P16 where the f32 fused stage streams it) or
+    raise ValueError where the JAX package rejects the solvers."""
+    from remhos_torch.operator import (Advection, SolverConfig,
+                                       solver_rejected)
     case = bench.build_case(n=2, order=3, device="cpu", n_steps=2)
     for cfg in (SolverConfig(problem=4, fct=3, smth_ind=1, poly_bf16=True),
                 SolverConfig(lo=1, mono=1, poly_bf16=True),
@@ -160,9 +165,14 @@ def test_unported_configurations_raise():
                 SolverConfig(poly_bf16=True),
                 SolverConfig(bounds_type=1, poly_bf16=True),
                 SolverConfig(pa=False, mono=1, poly_bf16=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Advection(case.disc, cfg, case.adv.x0_nodes, case.adv.v_nodes,
-                      device="cpu")
+        if solver_rejected(cfg) is not None:
+            with pytest.raises(ValueError):
+                Advection(case.disc, cfg, case.adv.x0_nodes,
+                          case.adv.v_nodes, device="cpu")
+            continue
+        adv = Advection(case.disc, cfg, case.adv.x0_nodes, case.adv.v_nodes,
+                        device="cpu")
+        assert adv._fused_stage == (adv._poly16 is not None)
     # what the JAX package rejects raises ValueError
     for cfg in (SolverConfig(lo=1), SolverConfig(fct=1),
                 SolverConfig(ho=1), SolverConfig(ho=0),

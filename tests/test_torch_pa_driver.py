@@ -110,7 +110,7 @@ def test_dt_control_lo3():
     (dict(lo=3, pa=False, save=True), "Queue 1, item 9"),
     (dict(lo=3, vis=True), "Queue 1, item 9"),
     (dict(lo=3, n_shards=2), "Queue 1, item 10"),
-    (dict(lo=3, mesh="periodic-segment", shard_grid=(2,)),
+    (dict(lo=3, mesh="periodic-segment", problem=0, shard_grid=(2,)),
      "Queue 1, item 10"),
     (dict(lo=4, mesh="star.mesh"), "Queue 1, item 8"),
     (dict(lo=3, bounds_type=1, mesh="ball-nurbs"), "Queue 1, item 8")])

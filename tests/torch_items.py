@@ -1,14 +1,18 @@
 """The cases of the port's `unported` tests, by the ROADMAP.md item each
 was written for.
 
-Queue 1 item 10 (sharding) is open: the run raises NotImplementedError
-naming it. Items 8 (general mesh files) and 9 (output and the profiler) are
-closed: a mesh name that is neither a registry mesh nor a file raises
-FileNotFoundError, and an output option runs and writes its files, unless
-the case combines it with a solver the JAX package rejects too, which
-raises ValueError. Call it with the working directory set to a temporary
-one: the output lands there.
+Items 8 (general mesh files), 9 (output and the profiler) and 10
+(sharding) are closed: a mesh name that is neither a registry mesh nor a
+file raises FileNotFoundError; an output option runs and writes its files;
+a sharded configuration runs over its ranks (spawned gloo processes here)
+and equals the unsharded run to 1e-12 (`-dcn` without shards is an
+unsharded run), except that `-mono` and `-si` with shards raise
+NotImplementedError, as the JAX package does. A case that combines any of
+these with a solver the JAX package rejects raises ValueError. Call it with
+the working directory set to a temporary one: the output lands there.
 """
+
+import dataclasses
 
 import os
 
@@ -21,9 +25,23 @@ from remhos_torch.operator import solver_rejected
 
 def check_item_case(cfg, item):
     if item == "Queue 1, item 10":
-        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-            driver.run(cfg)
-        assert item in str(e.value)
+        sharded = cfg.n_shards > 1 or cfg.shard_grid is not None
+        dim = cfg.dim if cfg.mesh == "default" else registry_dim(cfg.mesh)
+        why = solver_rejected(driver._solver_config(cfg, dim))
+        if why is not None:
+            with pytest.raises(ValueError, match=why[:20]):
+                driver.run(cfg)
+        elif sharded and (cfg.mono or cfg.smth_ind):
+            with pytest.raises(NotImplementedError, match="single-shard"):
+                driver.run(cfg)
+        else:
+            r = driver.run(cfg)
+            r1 = driver.run(dataclasses.replace(cfg, n_shards=1,
+                                                shard_grid=None, dcn=False))
+            assert r.shards == (2 if sharded else 1)
+            assert r.steps_total == r1.steps_total >= 1
+            assert abs(r.final_mass_u - r1.final_mass_u) <= 1e-12
+            assert abs(r.max_u - r1.max_u) <= 1e-12
         return
     if item == "Queue 1, item 8":
         with pytest.raises(FileNotFoundError, match="no such file"):

@@ -25,6 +25,15 @@ from remhos_tpu.operator import SolverConfig as JConfig
 def jax_loop(case, n, order, jdt, n_steps, dt, closure="1"):
     """(u, c) in f64 after n_steps steps of bench.make_loop's body for the
     port `case` (an N=n, p=order bench case) in JAX dtype jdt."""
+    u, c, _ = jax_run(case, n, order, jdt, n_steps, dt, closure)
+    return u, c
+
+
+def jax_run(case, n, order, jdt, n_steps, dt, closure="1",
+            poly_bf16=False):
+    """`jax_loop`'s (u, c) and the f64 sum of |mass| the closures absorbed
+    (bench.py's `injected`), with `poly_bf16` as bench.py's
+    BENCH_POLY_BF16."""
     mesh = make_cartesian_mesh(3, (n,) * 3, (0, 0, 0), (1, 1, 1),
                                (False,) * 3)
     disc = build_discretization(mesh, order)
@@ -32,7 +41,7 @@ def jax_loop(case, n, order, jdt, n_steps, dt, closure="1"):
     v = jnp.asarray(case.adv64.v_nodes.numpy())
     u0 = jnp.asarray(case.u0_64.numpy())
     cfg = JConfig(problem=10, ho=3, lo=5, fct=2, ode_solver=3, pa=True,
-                  use_pallas=True)
+                  use_pallas=True, poly_bf16=poly_bf16)
     full = inc = None
     if jdt == jnp.float32:
         if closure != "0":
@@ -54,21 +63,27 @@ def jax_loop(case, n, order, jdt, n_steps, dt, closure="1"):
     S, C = jnp.stack([u0]), jnp.zeros((1,) + u0.shape, jdt)
     t = jnp.asarray(0.0, jnp.float64)
     coefs = inc.coefs(dt, n_steps) if inc is not None else None
+    injected = 0.0
     for i in range(n_steps):
         t_new = t + dt
         if inc is not None:
             S, C, _, delta = step(S, C, t.astype(jdt), dt)
-            c_u, _ = inc(S[0], C[0], delta[0], t, t_new,
-                         coefs=tuple(jnp.asarray(a[i]) for a in coefs))
+            c_u, deficit = inc(S[0], C[0], delta[0], t, t_new,
+                               coefs=tuple(jnp.asarray(a[i])
+                                           for a in coefs))
             C = C.at[0].set(c_u)
+            injected += abs(float(deficit))
         else:
             S, C, _ = step(S, C, t.astype(jdt), dt)
             if full is not None:
-                c_u, _ = full(S[0], C[0], t_new)
+                c_u, deficit = full(S[0], C[0], t_new)
                 C = C.at[0].set(c_u)
+                injected += abs(float(deficit))
         t = t_new
     if inc is not None:
         # the exact f64 re-anchor, once a run
-        c_u, _ = full(S[0], C[0], t)
+        c_u, deficit = full(S[0], C[0], t)
         C = C.at[0].set(c_u)
-    return np.asarray(S[0], np.float64), np.asarray(C[0], np.float64)
+        injected += abs(float(deficit))
+    return (np.asarray(S[0], np.float64), np.asarray(C[0], np.float64),
+            injected)
