@@ -75,6 +75,7 @@ from .geometry import lumped_mass_poly
 from .mesh import make_cartesian_mesh
 from .operator import Advection, SolverConfig
 from .utils import cost
+from .utils.trace import host_wait
 
 STAGES = 3          # RK3: the FOM counts stages (remhos.cpp:1340-1347)
 PROBLEM = 10
@@ -243,7 +244,9 @@ def run_steps(case: Case, n_steps=None):
     acc = torch.zeros((), dtype=torch.float64, device=u.device)
     t = 0.0
     if case.closure_inc is not None:
-        coefs = [torch.as_tensor(a, dtype=torch.float64, device=u.device)
+        # blocking host-to-device copies: each waits for the stream
+        coefs = [host_wait(torch.as_tensor, a, dtype=torch.float64,
+                           device=u.device)
                  for a in st.closure_coefs(case.sig, dt, n_steps)]
     for i in range(n_steps):
         t_new = t + dt
@@ -265,7 +268,7 @@ def run_steps(case: Case, n_steps=None):
         # the exact f64 re-anchor, once a run
         c, deficit = case.closure(u, c, t)
         acc = acc + deficit.abs()
-    return u, c, float(acc), t
+    return u, c, host_wait(float, acc), t
 
 
 def verify(adv64, u0, uT, dt, n_steps, cT=None, injected=None,
@@ -375,10 +378,12 @@ def run(case: Case, reps=1, warmup=False, verify_state=True,
     microseconds per stage, the top five glue ops, the device's idle share
     over the traced window and against the wall of an untraced pass of the
     same steps, and the trace's kernel events and the launch counters over
-    it. phases=True (bench.py's BENCH_PHASES) adds the phase ablation's
-    FOMs (utils/fom.py) over min(n_steps, measure_steps) steps and prints
-    the reference's report. The state after the last window is left in
-    `case.u_final`."""
+    it, and from the program's spans the device and idle microseconds a
+    stage by the innermost span, the host's own microseconds a stage and
+    the host waits a step. phases=True (bench.py's BENCH_PHASES) adds the
+    phase ablation's FOMs (utils/fom.py) over min(n_steps, measure_steps)
+    steps and prints the reference's report. The state after the last
+    window is left in `case.u_final`."""
     dev = case.u0.device
     if warmup:
         run_steps(case)
@@ -759,12 +764,21 @@ def _trace_record(case, tr_steps) -> dict:
     wall = time.perf_counter() - t0
     tr, launches = trc.capture_counted(lambda: run_steps(case, tr_steps))
     rep = trc.loop_report(tr, tr_steps, STAGES)
+    host = rep["host_s_per_stage"]
     return {
         "kernel_us_per_stage": rep["kernel_s_per_stage"] * 1e6,
         "glue_us_per_stage": rep["glue_s_per_stage"] * 1e6,
         "glue_breakdown_us": {
             k: v * 1e6
             for k, v in list(rep["buckets_s_per_stage"].items())[:5]},
+        # the program's spans: device and idle us a stage by the innermost
+        # span, the host's own us a stage, the host waits a step
+        "device_us_per_stage_by_span": {
+            k: v * 1e6 for k, v in rep["device_s_per_stage_by_span"].items()},
+        "idle_us_per_stage_by_span": {
+            k: v * 1e6 for k, v in rep["idle_s_per_stage_by_span"].items()},
+        "host_us_per_stage": host * 1e6 if host is not None else None,
+        "host_syncs_per_step": rep["host_syncs_per_call"],
         "idle_share": rep["idle_share"],
         # the profiler slows the host: the same device work against the
         # wall of the untraced pass

@@ -10,7 +10,12 @@ file (quads, hexes, curved H1 and NURBS). The output lines are the
 driver's (Final mass u / Max value u / Mass loss u, remhos.cpp:1423-1436),
 so grep-based golden flows (autotest/test.sh) work unchanged. `-save`,
 `-visit`, `-vis` and `-prof DIR` write the reference's output files, stream
-to GLVis and record a profiler trace. `-shards n` runs the run sharded over
+to GLVis and record a profiler trace of the time loop. That Chrome trace
+carries the program's `remhos.*` spans (step, stage, closure, geometry,
+gather, bounds, ho > cg, lo, fct, product, and `remhos.sync` at each wait
+for the device) on the clock of the device events; a layer's self time is
+its span less its child spans (`utils.trace.device_by_span`,
+`idle_by_span`, `loop_report`). `-shards n` runs the run sharded over
 n ranks: under `torchrun` (or any initialized process group) it joins that
 group; otherwise it starts the ranks itself (`parallel.launch.spawn_run`:
 gloo processes on the CPU, NCCL with one rank per card, gloo with the ranks

@@ -29,7 +29,12 @@ Output (`vis.py`): `-visit` writes a VisIt collection at step 0 and every
 meshHO_final.mesh, sltn_final.gf and sltn_final.npz at the end
 (remhos_tpu/driver.py:304-318, 407-426, 485-500). `-prof` records the time
 loop with torch.profiler into a Chrome trace under `profile_dir`
-(`utils.trace.loop_profiler`).
+(`utils.trace.loop_profiler`). The trace carries the program's `remhos.*`
+spans, each around one layer of a step (listed in `utils/trace.py`), and a
+`remhos.sync` span at each wait for the device (the loop's aux fetch,
+steady-state residual and monotonicity check among them); a layer's self
+time is its span less its child spans (`utils.trace.loop_report` reads
+device and idle time by the innermost span).
 
 Sharded runs (remhos_tpu/driver.py:202-226): with `n_shards` > 1 or a
 `shard_grid`, `run` runs in a process group of prod(shard_grid) ranks, one
@@ -498,8 +503,8 @@ def run(cfg: RunConfig) -> RunResult:
         ti_total += 1
         if fetch_aux:
             # the step's one fetch from the device
-            ratio, neg_viol = (aux.tolist() if aux is not None
-                               else (math.inf, 0.0))
+            ratio, neg_viol = (trc.host_wait(aux.tolist)
+                               if aux is not None else (math.inf, 0.0))
         if cfg.verify_bounds and -neg_viol > 0:
             # dof-level stage checks accumulated inside the step
             # (check_violation remhos.cpp:1824-1837 + the product
@@ -538,7 +543,8 @@ def run(cfg: RunConfig) -> RunResult:
             # the reference divides by the current (post-dt-control) dt,
             # remhos.cpp:1287, not by the t_final-clamped dt_real
             diff = (masses * S[0] - masses * res_prev) / dt
-            residual = math.sqrt(red.sum((diff * diff).sum()))
+            residual = math.sqrt(trc.host_wait(red.sum,
+                                               (diff * diff).sum()))
             if residual < 1e-12 and t >= 1.0:
                 done = True
                 S = S.clone()
@@ -547,7 +553,7 @@ def run(cfg: RunConfig) -> RunResult:
                 res_prev = S[0]
         if check_global:
             # global monotonicity assertions (remhos.cpp:1219-1260)
-            u_max_new, u_min_new = red.max_min(S[0])
+            u_max_new, u_min_new = trc.host_wait(red.max_min, S[0])
             if u_max_new > u_max_glob + 1e-10 or \
                     u_min_new < u_min_glob - 1e-10:
                 raise RuntimeError(

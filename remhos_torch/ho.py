@@ -21,6 +21,7 @@ import torch
 
 from .assembly import matvec
 from .pa import _count, _dot
+from .utils.trace import host_wait, spanned
 
 
 def mass_cholesky(M):
@@ -41,6 +42,7 @@ def local_inverse(Ku, chol_L):
     return cho_solve(chol_L, Ku)
 
 
+@spanned("remhos.cg")
 def cg_mass_solve(M, rhs, rel_tol=1e-12, max_iter=500, stats=None,
                   all_sum=None):
     """Jacobi-preconditioned CG for M du = rhs over all elements at once,
@@ -55,7 +57,7 @@ def cg_mass_solve(M, rhs, rel_tol=1e-12, max_iter=500, stats=None,
     rz = dot(r, z)
     target = rel_tol * rel_tol * rz
     it = 0
-    while it < max_iter and bool(rz > target):
+    while it < max_iter and host_wait(bool, rz > target):
         Ap = matvec(M, p)
         alpha = rz / dot(p, Ap)
         x = x + alpha * p
@@ -81,7 +83,7 @@ def neumann(u, rhs, M, ml, abs_tol=1e-4, max_iter=20, all_sum=None):
     it = 0
     while resid > abs_tol and it < max_iter:
         res = matvec(M, du) - rhs
-        resid = float(torch.sqrt(dot(res, res)))
+        resid = host_wait(float, torch.sqrt(dot(res, res)))
         if resid > abs_tol:
             du = du - res / ml
         it += 1

@@ -29,6 +29,7 @@ from . import basis as B
 from . import bounds as bnd
 from . import lo as lom
 from . import problems as prob
+from .utils.trace import host_wait
 
 EPS = 1.0e-15
 GAMMA = 10.0
@@ -192,7 +193,7 @@ def consistent_mass_loop(adv, geom, u, du, d_full, xi_min, xi_max, si_dof):
             m_it, done = body(m_it, done)
             it += 1
         reads += 1
-        if not bool((~done).any()):
+        if not host_wait(bool, (~done).any()):
             break
     st = adv.mono_stats
     st["solves"] += 1

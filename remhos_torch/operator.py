@@ -108,6 +108,7 @@ from .ops.mega_stage import mega_stage
 from .ops.stage_ho import stage_ho
 from .ops.wdet import wdet as wdet_kernel
 from .ops.wdet import wdet_tables
+from .utils.trace import span, spanned
 
 INF = float("inf")
 
@@ -399,6 +400,7 @@ class Advection:
             geom["sub_w"] = subm.subcell_weights(self, 0.0)
         return geom
 
+    @spanned("remhos.gather")
     def gather_nbr(self, u, bdr_value=None):
         """u_nbr[E, nf, fd]; bdr_value[E, nf, fd] or 0 on physical
         boundaries."""
@@ -435,6 +437,11 @@ class Advection:
         Assembled stage: `_assemble(t)` (in transport made once)."""
         if self._fused_stage:
             return dict(t=t)
+        with span("remhos.geometry"):
+            return self._stage_geometry(t)
+
+    def _stage_geometry(self, t):
+        """`geometry` where it is not the fused stage's."""
         if not self.cfg.pa:
             if self.cfg.exec_mode == 0:
                 return self._assembled_geom
@@ -525,8 +532,9 @@ class Advection:
         kernel; if `limit_mult` or `lumped_mass` runs before any has
         (stand-alone), the wdet kernel derives them from the nodes."""
         if self._fused_stage and "wdet" not in geom:
-            xs = self.x0_nodes + geom["t"] * self.v_nodes
-            self._set_wdet(geom, wdet_kernel(xs, self._wdet_tables))
+            with span("remhos.geometry"):
+                xs = self.x0_nodes + geom["t"] * self.v_nodes
+                self._set_wdet(geom, wdet_kernel(xs, self._wdet_tables))
         return geom
 
     def lumped_mass(self, t):
@@ -546,6 +554,7 @@ class Advection:
         return geom_conv(geom["xs"], self.v_nodes, u, self._gc_tables,
                          1.0, with_wdet=False)[0]
 
+    @spanned("remhos.ho")
     def ho_solution(self, geom, u):
         """The HO solution du_HO[E, nd] of one field at the stage geometry."""
         if self._fused_stage:
@@ -584,6 +593,7 @@ class Advection:
         return hom.neumann(u, rhs, geom["M"], geom["ml"],
                            all_sum=self.all_sum_fn())
 
+    @spanned("remhos.lo")
     def lo_solution(self, geom, u, du_HO=None, dt=None):
         """The LO solution du_LO[E, nd] of one field at the stage geometry."""
         cfg = self.cfg
@@ -706,8 +716,9 @@ class Advection:
         if cfg.fct == 0:
             if cfg.dt_control != 0 and cfg.lo != 0:
                 u = S[0]
-                el_min, el_max = bnd.elements_min_max(u)
-                x_min, x_max = self.compute_bounds(el_min, el_max)
+                with span("remhos.bounds"):
+                    el_min, el_max = bnd.elements_min_max(u)
+                    x_min, x_max = self.compute_bounds(el_min, el_max)
                 ratio = self._dt_ratio(u, dS[0], x_min, x_max, dt)
             return dS, self._aux(ratio, viol)
 
@@ -716,8 +727,9 @@ class Advection:
         self._ensure_stage_geom(geom)
         u, du_HO = S[0], dS[0]
         du_LO = self.lo_solution(geom, u, du_HO=du_HO, dt=dt)
-        el_min, el_max = bnd.elements_min_max(u)
-        x_min, x_max = self.compute_bounds(el_min, el_max)
+        with span("remhos.bounds"):
+            el_min, el_max = bnd.elements_min_max(u)
+            x_min, x_max = self.compute_bounds(el_min, el_max)
         if cfg.verify_bounds:
             # "LimitMult LO u" (remhos.cpp:1824-1828)
             viol = viol + vfy.check_violation(u, dt, du_LO, x_min, x_max)
@@ -735,6 +747,7 @@ class Advection:
             viol = viol + viol_p
         return torch.stack(outs), self._aux(ratio, viol)
 
+    @spanned("remhos.fct")
     def _fct_solution(self, geom, u, du_HO, du_LO, x_min, x_max, dt):
         fct = self.cfg.fct
         if fct == 2:
@@ -751,6 +764,7 @@ class Advection:
                                                  x_min, x_max, dt)
         raise ValueError(f"unsupported fct type {fct}")
 
+    @spanned("remhos.product")
     def _limit_product(self, geom, t, dt, S, dS, d_u_limited):
         """Product-field block of LimitMult (remhos.cpp:1848-1915).
         Returns (d_us, violation_count). Only FluxBasedFCT takes the LO
@@ -762,9 +776,11 @@ class Advection:
 
         # s = us/u on old active dofs; bounds for s on the active stencil
         s, s_el, s_dofs = syncm.compute_ratio(us, u)
-        el_min, el_max = bnd.elements_min_max(s, active_el=s_el,
-                                              active_dof=s_dofs)
-        s_min, s_max = self.compute_bounds(el_min, el_max, active_el=s_el)
+        with span("remhos.bounds"):
+            el_min, el_max = bnd.elements_min_max(s, active_el=s_el,
+                                                  active_dof=s_dofs)
+            s_min, s_max = self.compute_bounds(el_min, el_max,
+                                               active_el=s_el)
 
         # evolve u, new activity
         u_new = u + dt * d_u_limited
@@ -842,19 +858,23 @@ class Advection:
 
         aux is None: the constant [inf, 0]."""
         u = S[0]
-        el_min, el_max = bnd.elements_min_max(u)
+        with span("remhos.bounds"):
+            el_min, el_max = bnd.elements_min_max(u)
         u_nbr = self.gather_nbr(u).reshape(u.shape[0], -1)
         P, P16, tb = self._poly, self._poly16, self._stage_tables
         if self.cfg.bounds_type == 0 and self.structured and not self.sharded:
-            smin, smax = strm.overlap_stencil_T(el_min, el_max, self.shape,
-                                                self.periodic, self.masks)
+            with span("remhos.bounds"):
+                smin, smax = strm.overlap_stencil_T(
+                    el_min, el_max, self.shape, self.periodic, self.masks)
             return mega_stage(t, dt, u, u_nbr, smin, smax, P, tb,
                               P16=P16)[None], None
-        stencil = self.compute_bounds_stencil(el_min, el_max)
+        with span("remhos.bounds"):
+            stencil = self.compute_bounds_stencil(el_min, el_max)
         if stencil is not None:
             return mega_stage(t, dt, u, u_nbr, stencil[0], stencil[1], P, tb,
                               bounds="E", P16=P16)[None], None
-        x_min, x_max = self.compute_bounds(el_min, el_max)
+        with span("remhos.bounds"):
+            x_min, x_max = self.compute_bounds(el_min, el_max)
         return mega_stage(t, dt, u, u_nbr, x_min.contiguous(),
                           x_max.contiguous(), P, tb, bounds="dof",
                           P16=P16)[None], None
@@ -863,6 +883,7 @@ class Advection:
         """f(t, dt, S) -> (dS, aux) for the standard RK path
         (LimitedTimeDependentOperator::Mult). The stage cache is made once
         and shared by both halves."""
+        @spanned("remhos.stage")
         def f(t, dt, S):
             if S.shape[0] == 1 and self._mega_stage_eligible():
                 return self._mega_stage(t, dt, S)

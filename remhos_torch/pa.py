@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from .utils.trace import host_wait, spanned
+
 
 def conv_action(u, va, Gu, Bu_w):
     """(K u)[E, nd] = sign * int (v.grad u) phi_i, matrix-free.
@@ -80,6 +82,7 @@ def _count(stats, it):
         stats["iterations"] = stats.get("iterations", 0) + it
 
 
+@spanned("remhos.cg")
 def mass_solve_gl(rhs, wdet, Bgl, A_gl2b, rel_tol=None, max_iter=60,
                   stats=None, all_sum=None):
     """Solve M_bern du = rhs by CG in the Gauss-Legendre nodal basis.
@@ -105,7 +108,7 @@ def mass_solve_gl(rhs, wdet, Bgl, A_gl2b, rel_tol=None, max_iter=60,
     tol2 = rel_tol * rel_tol * dot(b, b)
     rr = dot(r, r)
     it = 0
-    while it < max_iter and bool(rr > tol2):
+    while it < max_iter and host_wait(bool, rr > tol2):
         Ap = ((p @ Bgl.T) * wdet) @ Bgl
         alpha = rz / dot(p, Ap)
         x = x + alpha * p
@@ -119,6 +122,7 @@ def mass_solve_gl(rhs, wdet, Bgl, A_gl2b, rel_tol=None, max_iter=60,
     return x @ A_gl2b.T                     # du = A g
 
 
+@spanned("remhos.cg")
 def mass_solve_bern(rhs, wdet, Bu, rel_tol=1e-12, max_iter=500, stats=None,
                     all_sum=None):
     """Jacobi-CG on the Bernstein mass action (CGHOSolver's PA path:
@@ -137,7 +141,7 @@ def mass_solve_bern(rhs, wdet, Bu, rel_tol=1e-12, max_iter=500, stats=None,
     rz = dot(r, z)
     target = rel_tol * rel_tol * rz
     it = 0
-    while it < max_iter and bool(rz > target):
+    while it < max_iter and host_wait(bool, rz > target):
         Ap = mass_action(p, wdet, Bu)
         alpha = rz / dot(p, Ap)
         x = x + alpha * p

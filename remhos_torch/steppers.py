@@ -30,6 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils.trace import host_wait, span, spanned
+
 
 def construct_d(a, b, c, s):
     """Convert a Butcher tableau into forward-Euler recombination factors
@@ -126,11 +128,13 @@ def make_mass_closure(mlk, sig, m_target):
     mlk2 = mlk.reshape(K, -1)
     sig64 = torch.as_tensor(np.asarray(sig, np.float64), device=mlk.device)
 
+    @spanned("remhos.closure")
     def close(u, c, t):
         s = (u.double() + c.double()).reshape(-1)
         dots = mlk2.double() @ s                                 # [K]
-        tk = torch.tensor([float(t) ** k for k in range(K)],
-                          dtype=torch.float64, device=mlk.device)
+        # a blocking host-to-device copy: it waits for the stream
+        tk = host_wait(torch.tensor, [float(t) ** k for k in range(K)],
+                       dtype=torch.float64, device=mlk.device)
         deficit = m_target - dots @ tk
         S = sig64 @ tk
         return c + (deficit / S).to(c.dtype), deficit
@@ -183,6 +187,7 @@ def make_mass_closure_inc(mlk):
         parts = (mlkb[:, None] * X[None]).sum(-1)                # [K, 2, nb]
         return parts.double().sum(-1)                            # [K, 2]
 
+    @spanned("remhos.closure")
     def close(u, c, delta, coefs):
         dots = _dots(u, c, delta)
         tk0, dtk, S = coefs
@@ -225,6 +230,7 @@ def make_rk_step(f, kind: int, compensated: bool = False,
             return (dt / 6.0) * (k1 + k2 + 4.0 * k3), min_aux(a1, a2, a3)
 
         if not compensated:
+            @spanned("remhos.step")
             def step(u, t, dt):
                 k, a1 = f(t, dt, u)
                 y = u + dt * k
@@ -246,11 +252,13 @@ def make_rk_step(f, kind: int, compensated: bool = False,
         raise ValueError(f"unsupported RK type {kind}")
 
     if not compensated:
+        @spanned("remhos.step")
         def step(u, t, dt):
             delta, aux = increment(u, t, dt)
             return u + delta, aux
         return step
 
+    @spanned("remhos.step")
     def cstep(u, c, t, dt):
         delta, aux = increment(u, t, dt)
         u2, c2 = kahan_add(u, c, delta)
@@ -301,10 +309,12 @@ def make_idp_step(mult_unlimited, limit_mult, kind: int, compute_mask=None,
             return limit_mult(t, dt, u, du, geom=_geom(cache, key, t))
 
     if kind == 11:
+        @spanned("remhos.step")
         def step(u, t, dt):
             cache = {}
-            du = mu(t, dt, u, cache, 0.0)
-            du, aux = lm(t, dt, u, du, cache, 0.0)
+            with span("remhos.stage"):
+                du = mu(t, dt, u, cache, 0.0)
+                du, aux = lm(t, dt, u, du, cache, 0.0)
             return u + dt * du, aux
         return step
 
@@ -316,14 +326,16 @@ def make_idp_step(mult_unlimited, limit_mult, kind: int, compute_mask=None,
     # Python floats: numpy float64 scalars would promote an f32 state
     d = [float(v) for v in construct_d(tab["a"], tab["b"], tab["c"], s)]
 
+    @spanned("remhos.step")
     def step(u, t, dt):
         cache = {}
         dxs = []
         mask = None
         # stage 0
         dt0 = c[0] * dt
-        dx = mu(t, dt0, u, cache, 0.0)
-        dx, aux = lm(t, dt0, u, dx, cache, 0.0)
+        with span("remhos.stage"):
+            dx = mu(t, dt0, u, cache, 0.0)
+            dx, aux = lm(t, dt0, u, dx, cache, 0.0)
         dxs.append(dx)
         c_o = 0.0
         x = u
@@ -341,21 +353,22 @@ def make_idp_step(mult_unlimited, limit_mult, kind: int, compute_mask=None,
             c_n = c[i] if i < s - 1 else 1.0
             dc = c_n - c_o
             dct = dc * dt
-            dx = mu(t_stage, dct, x, cache, c_o)
-            if use_masks:
-                # UpdateMask: AND with activity of the unlimited HO update
-                # (remhos_solvers.cpp:127-147, 213)
-                mask = mask & compute_mask(x + dct * dx)
-            di = i * (i + 1) // 2
-            rec = dx * d[di + i]
-            for j in range(i):
-                if d[di + j] != 0.0:
-                    rec = rec + d[di + j] * dxs[j]
-            # AddMasked: unmasked dofs keep dx (forward Euler); masked
-            # dofs get the full d-recombination
-            # (remhos_solvers.cpp:218-232)
-            dx = torch.where(mask, rec, dx) if use_masks else rec
-            dx, a = lm(t_stage, dct, x, dx, cache, c_o)
+            with span("remhos.stage"):
+                dx = mu(t_stage, dct, x, cache, c_o)
+                if use_masks:
+                    # UpdateMask: AND with activity of the unlimited HO
+                    # update (remhos_solvers.cpp:127-147, 213)
+                    mask = mask & compute_mask(x + dct * dx)
+                di = i * (i + 1) // 2
+                rec = dx * d[di + i]
+                for j in range(i):
+                    if d[di + j] != 0.0:
+                        rec = rec + d[di + j] * dxs[j]
+                # AddMasked: unmasked dofs keep dx (forward Euler); masked
+                # dofs get the full d-recombination
+                # (remhos_solvers.cpp:218-232)
+                dx = torch.where(mask, rec, dx) if use_masks else rec
+                dx, a = lm(t_stage, dct, x, dx, cache, c_o)
             aux = min_aux(aux, a)
             dxs.append(dx)
             c_next = c[i + 1] if i < s - 2 else 1.0
@@ -425,6 +438,7 @@ def make_tableau_rk_step(f, tab, compensated: bool = False,
             ks.append(k)
         return ks, aux
 
+    @spanned("remhos.step")
     def step(u, t, dt):
         ks, aux = stages(u, t, dt)
         out = u
@@ -433,6 +447,7 @@ def make_tableau_rk_step(f, tab, compensated: bool = False,
                 out = out + dt * b[i] * ks[i]
         return out, aux
 
+    @spanned("remhos.step")
     def cstep(u, comp, t, dt):
         ks, aux = stages(u, t, dt)
         delta = None

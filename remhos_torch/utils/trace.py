@@ -20,10 +20,32 @@ Used by `bench.run(..., trace=True)` (kernel and glue time per stage, the
 glue's top ops, idle share) and `utils/fom.py` (the phase ablation timed by
 device time). The driver's `-prof` records its time loop with
 `loop_profiler` and writes it with `write_loop_trace`.
+
+The program's own spans live here too:
+
+- `span(name)` marks a layer of the stepping path in the same Chrome trace,
+  on the clock of the device events: `torch.profiler.record_function` while
+  a profiler records (the `-prof` loop, `capture_trace`, a benchmark's
+  traced phases), else one shared no-op object. There is no setting: spans
+  record when a profiler does. The names: `remhos.step` (its self time the
+  RK and Kahan combine), `remhos.stage` (on the fused path its self time
+  is kernel 1's launch), `remhos.closure`, `remhos.geometry`,
+  `remhos.gather`, `remhos.bounds`, `remhos.ho` > `remhos.cg`, `remhos.lo`,
+  `remhos.fct`, `remhos.product` and `remhos.sync`. A span's parent is the
+  span around it on the same thread; a layer's self time is its span less
+  its child spans (`device_by_span` and `idle_by_span` charge each instant
+  to the innermost span);
+- `host_wait(read, ...)` runs one read the host waits on the device for (a
+  CG's stopping test, a closure's host-to-device copy, a read-back) inside
+  a `remhos.sync` span; `loop_report` counts these spans.
+
+Spans allocate nothing on the device and change no value.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import re
@@ -43,6 +65,39 @@ CAPTURE_ATTEMPTS = 3
 # seconds of host quiet that open the recorded cycle of `capture_trace`
 CAPTURE_QUIET_S = 0.010
 _KERNEL_RE = re.compile(r"([A-Za-z0-9_]+)_kernel(?![A-Za-z0-9_])")
+SPAN_PREFIX = "remhos."
+# where a device event or an idle instant falls outside every program span
+OUTSIDE = "(outside)"
+_recording = torch._C._autograd._profiler_enabled
+_no_span = contextlib.nullcontext()
+
+
+def span(name):
+    """The context manager that marks `name` (a `remhos.*` span) in the
+    trace: `torch.profiler.record_function(name)` while a profiler records,
+    else the shared no-op object (0.6 us an enter and exit on an H100
+    machine's host; a `spanned` call 0.25 us more than a plain one)."""
+    return torch.profiler.record_function(name) if _recording() else _no_span
+
+
+def spanned(name):
+    """Decorator: every call of the function runs inside span(name)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _recording():
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def host_wait(read, *args, **kwargs):
+    """read(*args, **kwargs), a call that waits for the device, marked by a
+    `remhos.sync` span."""
+    with span("remhos.sync"):
+        return read(*args, **kwargs)
 
 
 def capture_trace(fn, quiet_s=CAPTURE_QUIET_S):
@@ -110,22 +165,27 @@ def port_kernel_of(name):
     return None
 
 
-def _launching_ops(events):
-    """{correlation id: innermost `aten::` op around its runtime call}."""
-    spans, calls = {}, {}
+def _thread(e):
+    return (e.get("pid"), e.get("tid"))
+
+
+def _runtime_calls(events):
+    """{thread: [(ts, correlation id)]} of the CUDA runtime and driver
+    calls."""
+    calls = {}
     for e in events:
-        if e.get("ph") != "X":
-            continue
-        key = (e.get("pid"), e.get("tid"))
-        ts = float(e.get("ts", 0.0))
-        if (e.get("cat") == "cpu_op"
-                and str(e.get("name")).startswith("aten::")):
-            spans.setdefault(key, []).append(
-                (ts, -(ts + float(e.get("dur", 0.0))), e["name"]))
-        elif e.get("cat") in ("cuda_runtime", "cuda_driver"):
+        if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime",
+                                                   "cuda_driver"):
             corr = e.get("args", {}).get("correlation")
             if corr is not None:
-                calls.setdefault(key, []).append((ts, corr))
+                calls.setdefault(_thread(e), []).append(
+                    (float(e.get("ts", 0.0)), corr))
+    return calls
+
+
+def _enclosing(spans, calls):
+    """{correlation id: the name of the innermost span around its call, or
+    None}; spans {thread: [(ts, -end, name)]}, calls as `_runtime_calls`."""
     out = {}
     for key, cl in calls.items():
         sp = sorted(spans.get(key, []))      # parents before their children
@@ -142,10 +202,23 @@ def _launching_ops(events):
     return out
 
 
+def _launching_ops(events):
+    """{correlation id: innermost `aten::` op around its runtime call}."""
+    spans = {}
+    for e in events:
+        if (e.get("ph") == "X" and e.get("cat") == "cpu_op"
+                and str(e.get("name")).startswith("aten::")):
+            ts = float(e.get("ts", 0.0))
+            spans.setdefault(_thread(e), []).append(
+                (ts, -(ts + float(e.get("dur", 0.0))), e["name"]))
+    return _enclosing(spans, _runtime_calls(events))
+
+
 def device_ops(trace):
-    """[{name, cat, ts, dur, op, kernel}] of the device events: ts and dur
-    in microseconds, op the launching `aten::` op (or None), kernel the
-    port kernel (or None)."""
+    """[{name, cat, ts, dur, corr, op, kernel}] of the device events: ts and
+    dur in microseconds, corr the correlation id of the runtime call that
+    launched it, op the launching `aten::` op (or None), kernel the port
+    kernel (or None)."""
     ev = trace.get("traceEvents", [])
     launcher = _launching_ops(ev)
     out = []
@@ -154,7 +227,7 @@ def device_ops(trace):
             corr = e.get("args", {}).get("correlation")
             out.append(dict(name=e["name"], cat=e["cat"],
                             ts=float(e["ts"]), dur=float(e.get("dur", 0.0)),
-                            op=launcher.get(corr),
+                            corr=corr, op=launcher.get(corr),
                             kernel=port_kernel_of(e["name"])))
     return out
 
@@ -168,16 +241,144 @@ def kernel_events(trace):
     return out
 
 
-def _union_us(intervals):
-    total, end = 0.0, None
+def _union(intervals):
+    """The merged, sorted intervals."""
+    out = []
     for a, b in sorted(intervals):
-        if end is None or a > end:
-            total += b - a
-            end = b
-        elif b > end:
-            total += b - end
-            end = b
-    return total
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def program_spans(trace, name=None):
+    """[(ts, end, name, thread)] of the program's spans (the `remhos.*`
+    user annotations; only those called `name` if given), by start, in the
+    trace's microseconds."""
+    out = []
+    for e in trace.get("traceEvents", []):
+        n = str(e.get("name"))
+        if (e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                and n.startswith(SPAN_PREFIX) and name in (None, n)):
+            ts = float(e["ts"])
+            out.append((ts, ts + float(e.get("dur", 0.0)), n, _thread(e)))
+    return sorted(out)
+
+
+def _main_thread(spans):
+    """The thread that holds the most of `program_spans`' spans."""
+    n = {}
+    for *_, key in spans:
+        n[key] = n.get(key, 0) + 1
+    return max(n, key=n.get) if n else None
+
+
+def _innermost_segments(spans):
+    """[(a, b, name)]: the stretches of time in which `name` is the
+    innermost of the nested spans [(a, b, name)] of one thread."""
+    out, stack, t = [], [], None
+    for a, b, name in sorted(spans, key=lambda x: (x[0], -x[1])):
+        while stack and stack[-1][0] <= a:
+            end, n = stack.pop()
+            if end > t:
+                out.append((t, end, n))
+                t = end
+        if stack:
+            if a > t:
+                out.append((t, a, stack[-1][1]))
+            b = min(b, stack[-1][0])
+        stack.append((b, name))
+        t = a
+    while stack:
+        end, n = stack.pop()
+        if end > t:
+            out.append((t, end, n))
+            t = end
+    return out
+
+
+def loop_window(trace):
+    """(start, end) of a traced loop in the trace's microseconds: from the
+    first start to the last end of any event but the profiler's own."""
+    ev = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+          for e in trace.get("traceEvents", [])
+          if e.get("ph") == "X" and "ts" in e
+          and not e.get("name", "").startswith(_PROFILER_SPANS)]
+    if not ev:
+        return None
+    return min(a for a, _ in ev), max(b for _, b in ev)
+
+
+def _idle_us(trace, window):
+    """The device's idle intervals in `window`."""
+    busy = _union((max(o["ts"], window[0]), min(o["ts"] + o["dur"],
+                                                window[1]))
+                  for o in device_ops(trace)
+                  if o["ts"] < window[1] and o["ts"] + o["dur"] > window[0])
+    idle, t = [], window[0]
+    for a, b in busy + [[window[1], window[1]]]:
+        if a > t:
+            idle.append((t, a))
+        t = max(t, b)
+    return idle
+
+
+def device_by_span(trace):
+    """{span: device seconds}: every device event charged to the innermost
+    program span around the runtime call that launched it, else to
+    OUTSIDE."""
+    ev = trace.get("traceEvents", [])
+    spans = {}
+    for a, b, n, key in program_spans(trace):
+        spans.setdefault(key, []).append((a, -b, n))
+    launcher = _enclosing(spans, _runtime_calls(ev))
+    acc = {}
+    for o in device_ops(trace):
+        n = launcher.get(o["corr"]) or OUTSIDE
+        acc[n] = acc.get(n, 0.0) + 1e-6 * o["dur"]
+    return acc
+
+
+def idle_by_span(trace, window=None):
+    """{span: idle seconds}: every instant of `window` ((start, end) in the
+    trace's microseconds; `loop_window` by default) in which the device
+    runs nothing, charged to the innermost program span open then on the
+    thread that holds the most of them, else to OUTSIDE."""
+    window = window or loop_window(trace)
+    if window is None:
+        return {}
+    sp = program_spans(trace)
+    main = _main_thread(sp)
+    segs = _innermost_segments([(a, b, n) for a, b, n, k in sp if k == main])
+    acc, j = {}, 0
+    for x, y in _idle_us(trace, window):
+        left = y - x
+        while j < len(segs) and segs[j][1] <= x:
+            j += 1
+        k = j
+        while k < len(segs) and segs[k][0] < y:
+            a, b, n = segs[k]
+            d = min(y, b) - max(x, a)
+            acc[n] = acc.get(n, 0.0) + 1e-6 * d
+            left -= d
+            k += 1
+        if left > 0:
+            acc[OUTSIDE] = acc.get(OUTSIDE, 0.0) + 1e-6 * left
+    return acc
+
+
+def host_s_of_spans(trace, name="remhos.stage", less="remhos.sync"):
+    """[seconds] of each span called `name`: its duration less the spans
+    called `less` inside it on its thread (the host's own time in it, the
+    waits for the device left out)."""
+    waits = program_spans(trace, less)
+    out = []
+    for a, b, _, key in program_spans(trace, name):
+        w = sum(min(d, b) - max(c, a) for c, d, _, k in waits
+                if k == key and c < b and d > a)
+        out.append(1e-6 * (b - a - w))
+    return out
 
 
 def loop_report(trace, n_calls, stages_per_call):
@@ -188,10 +389,15 @@ def loop_report(trace, n_calls, stages_per_call):
                   that launched it ("(memcpy)"-style names where none did),
                   buckets sorted by time
       total       the sum of all device events
+      by span     device time (`device_by_span`) and idle time
+                  (`idle_by_span`) by the innermost program span, sorted
+      host        the host's own time in a `remhos.stage` span (its
+                  `remhos.sync` waits left out), over the stage spans
     and kernel_calls (events of the port's kernels, also by kernel), busy_s
     (the union of the device events' intervals), wall_s (the traced window,
-    from the first to the last end of any event) and idle_share =
-    1 - busy_s / wall_s."""
+    from the first start to the last end of any event), idle_share =
+    1 - busy_s / wall_s, and host_syncs_per_call (the `remhos.sync` spans
+    over n_calls)."""
     n_stages = max(n_calls * stages_per_call, 1)
     dev = device_ops(trace)
     kernel_us, total_us = 0.0, 0.0
@@ -207,14 +413,17 @@ def loop_report(trace, n_calls, stages_per_call):
             continue
         b = o["op"] or f"({o['cat']})"
         buckets[b] = buckets.get(b, 0.0) + o["dur"]
-    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
-             for e in trace.get("traceEvents", [])
-             if e.get("ph") == "X" and "ts" in e
-             and not e.get("name", "").startswith(_PROFILER_SPANS)]
-    wall_us = max(b for _, b in spans) - min(a for a, _ in spans) \
-        if spans else 0.0
-    busy_us = _union_us((o["ts"], o["ts"] + o["dur"]) for o in dev)
+    window = loop_window(trace)
+    wall_us = window[1] - window[0] if window else 0.0
+    busy_us = sum(b - a for a, b in _union((o["ts"], o["ts"] + o["dur"])
+                                           for o in dev))
     s = 1e-6 / n_stages
+    host = host_s_of_spans(trace)
+
+    def per_stage(acc):
+        return {k: v / n_stages for k, v in sorted(acc.items(),
+                                                   key=lambda kv: -kv[1])}
+
     return {
         "kernel_s_per_stage": kernel_us * s,
         "kernel_calls": sum(by_kernel_n.values()),
@@ -226,6 +435,11 @@ def loop_report(trace, n_calls, stages_per_call):
         "buckets_s_per_stage": {
             k: v * s for k, v in sorted(buckets.items(),
                                         key=lambda kv: -kv[1])},
+        "device_s_per_stage_by_span": per_stage(device_by_span(trace)),
+        "idle_s_per_stage_by_span": per_stage(idle_by_span(trace, window)),
+        "host_s_per_stage": sum(host) / len(host) if host else None,
+        "host_syncs_per_call": len(program_spans(trace, "remhos.sync"))
+        / max(n_calls, 1),
         "busy_s": busy_us * 1e-6,
         "wall_s": wall_us * 1e-6,
         "idle_share": 1.0 - busy_us / wall_us if wall_us > 0 else None,

@@ -165,9 +165,14 @@ def test_bench_run_options_on_the_cpu():
     for k in ("kernel_us_per_stage", "glue_us_per_stage",
               "glue_breakdown_us", "idle_share", "idle_share_untraced",
               "fom", "fom_rhs", "dispatch_ms_per_call",
-              "hbm_bytes_per_stage_model"):
+              "hbm_bytes_per_stage_model", "device_us_per_stage_by_span",
+              "idle_us_per_stage_by_span", "host_us_per_stage",
+              "host_syncs_per_step"):
         assert k in rec, k
     assert len(rec["glue_breakdown_us"]) <= 5
+    # three closure coefficient copies, the full closure, the read-back
+    assert rec["host_syncs_per_step"] == pytest.approx(5 / 3)
+    assert rec["host_us_per_stage"] > 0
     assert rec["trace_kernel_events"] == rec["trace_launches"]
     assert rec["hbm_bytes_per_stage_model"] > 0
 
