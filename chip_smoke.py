@@ -788,6 +788,43 @@ def check_wdet(label, adv, traced=False):
     return res
 
 
+def check_wdet_face(label, adv, traced=False):
+    """wdet's face variant vs its plain version (`hold`: in f32 the plain
+    version evaluated in f64) at the nodes x0 + 0.3 v with the mesh velocity
+    of the non-fused operator `adv`: wdet and wvn at the wdet limits, and
+    wdet bit for bit the wdet-only variant's; `traced`: also its device time
+    from a trace."""
+    dtype = adv.dtype
+    xs = (adv.x0_nodes + 0.3 * adv.v_nodes).contiguous()
+    v, tb = adv.v_nodes, adv._wdet_tables
+    got = wd.wdet(xs, tb, v)
+    torch.cuda.synchronize()
+    ref = wd.wdet_reference(xs, tb, v)
+    ref64 = (None, None)
+    if dtype == torch.float32:
+        tb64 = wd.wdet_tables(adv.disc, torch.float64, adv.device, face=True)
+        ref64 = wd.wdet_reference(*f64_inputs(xs), tb64, *f64_inputs(v))
+    torch.cuda.synchronize()
+    label = f"{label} face"
+    errs = {k: hold(label, k, g, r, r64, WDET_LIMITS[dtype])
+            for k, g, r, r64 in zip(("wdet", "wvn"), got, ref, ref64)}
+    if not torch.equal(got[0], wd.wdet(xs, tb)):
+        raise RuntimeError(f"{label}: wdet differs from the wdet-only "
+                           "variant's")
+    res = dict(check=label, kernel="wdet", variant="face", E=xs.shape[0],
+               m1=tb["m1"], Q1=tb["Q1"], max_abs_err=errs["wvn"][0],
+               rel_err={k: e[1] for k, e in errs.items()},
+               plain_f32_rel_err={k: e[2] for k, e in errs.items()},
+               limit=WDET_LIMITS[dtype], wdet_vs_wdet_only="bit for bit",
+               ms=time_ms(lambda: wd.wdet(xs, tb, v), 20),
+               plain_ms=time_ms(lambda: wd.wdet_reference(xs, tb, v), 5))
+    if traced:
+        res["trace_ms"] = traced_ms(lambda: wd.wdet(xs, tb, v), "wdet")
+    res.update(bound(*wdet_cost(xs, tb, with_face=True), dtype))
+    print(json.dumps(res), flush=True)
+    return res
+
+
 def nonfused_operator(base):
     """A non-fused operator (-lo 3) on the mesh, nodes and velocity of the
     fused operator `base`: it makes geom_conv's tables."""
@@ -1232,7 +1269,7 @@ def run_driver_path(path, cfg_kw, limits, device, launches=fused_launches):
                closure_injected_rel=res.mass_closure_injected_rel,
                max_u=res.max_u, min_u=res.min_u, u0_min=res.u0_min,
                u0_max=res.u0_max, max_s=res.max_s, launches=n,
-               limits=limits)
+               variant_launches=ops.variant_counts(), limits=limits)
     if res.cg_solves:
         # every iteration reads one comparison back from the device
         rec.update(cg_solves=res.cg_solves, cg_iterations=res.cg_iterations,
@@ -2252,6 +2289,7 @@ def main():
     # they saw before those checks existed
     rng_new = np.random.default_rng(SEED + 1)
     checks, ho_checks, wdet_checks, gc_checks = {}, {}, {}, {}
+    face_checks = {}
     new_checks, dof_checks = {}, {}
     # kernel 1's per-dof variant draws from a stream of its own too, and so
     # do its element-major variant and the P16 checks
@@ -2284,9 +2322,13 @@ def main():
                     case.dt, rng, with_lo)
             main = key == "3d_f32"
             wdet_checks[key] = check_wdet(f"{size} {prec}", adv, main)
-            gc_checks[key] = check_geom_conv(f"{size} {prec}",
-                                             nonfused_operator(adv), rng,
+            nonfused = nonfused_operator(adv)
+            gc_checks[key] = check_geom_conv(f"{size} {prec}", nonfused, rng,
                                              main)
+            if dim == 3:
+                face_checks[prec] = check_wdet_face(f"{size} {prec}",
+                                                    nonfused, main)
+            del nonfused
             new_kernel_checks(tag, size, prec, adv, rng_new, new_checks)
         if dim == 3:
             ho_checks["3d_f32_ku"] = check_stage_ho(
@@ -2554,6 +2596,21 @@ def main():
         checks=[{k: c["stage_ho"][k] for k in ("check", "max_abs_err",
                                                "rel_err", "limit")}
                 for c in p16_checks.values()]))
+    f32, f64 = face_checks["f32"], face_checks["f64"]
+    kernels.insert(1 + [k["name"] for k in kernels].index("wdet"), dict(
+        name="wdet_face", variant_of="wdet",
+        outputs="wdet and the non-fused stage's upwind face weights wvn",
+        route="cuda", source="remhos_torch/ops/csrc/wdet.cu + mesh_geom.cuh",
+        replaces="the face chain of remhos_tpu/operator.py:246-253",
+        launches=rec_c["variant_launches"]["wdet"]["face"],
+        max_abs_err=f32["max_abs_err"], ms=f32["ms"],
+        plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+        bound_by=f32["bound_by"], library_ms=None,
+        trace_ms=f32["trace_ms"],
+        f64={k: f64[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by")},
+        checks=[{k: c[k] for k in ("check", "max_abs_err", "rel_err",
+                                   "limit")} for c in face_checks.values()]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

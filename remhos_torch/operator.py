@@ -28,18 +28,18 @@ before any HO stage kernel has (the driver's mass reports, a stand-alone
 `limit_mult`).
 
 Every other `-pa` configuration is the non-fused stage, which re-derives
-its geometry from the nodes x0 + t v at every stage: `geometry(t)` makes
-the face normals and upwind weights in plain PyTorch and launches the wdet
-kernel once; per field, `ops/geom_conv.py` fuses the volume geometry with
-the convection action (once for the HO solution, once more for a
-residual-distribution LO solution), the face terms are plain PyTorch
-(`pa.py`), and the mass inverse is a global CG (`pa.mass_solve_gl` for
-`-ho 3`, `pa.mass_solve_bern` for `-ho 2`) that reads one comparison back
-from the device per iteration; `cg_stats` counts its solves and
-iterations. Transport runs the non-fused stage on a geometry made once, at
-construction (the mesh stands still), with `pa.conv_action` on
-va = -(adj J v) and no kernel, as the JAX package routes it
-(operator.py:291-293, 331-336).
+its geometry from the nodes x0 + t v at every stage: `geometry(t)`
+launches the wdet kernel's face variant once, for w_q det J and the upwind
+face weights (in 1D both are plain PyTorch); per field, `ops/geom_conv.py`
+fuses the volume geometry with the convection action (once for the HO
+solution, once more for a residual-distribution LO solution), the face
+terms are plain PyTorch (`pa.py`), and the mass inverse is a global CG
+(`pa.mass_solve_gl` for `-ho 3`, `pa.mass_solve_bern` for `-ho 2`) that
+reads one comparison back from the device per iteration; `cg_stats` counts
+its solves and iterations. Transport runs the non-fused stage on a
+geometry made once, at construction (the mesh stands still), with
+`pa.conv_action` on va = -(adj J v) and no kernel, as the JAX package
+routes it (operator.py:291-293, 331-336).
 
 Full assembly (no `-pa`, remhos_tpu/operator.py:270-319). Per stage the
 element matrices are assembled as dense batches (`assembly.py`): the
@@ -234,9 +234,6 @@ class Advection:
         self.v_nodes = None if v_nodes is None else T(v_nodes)
         self.w_q, self.Bu = T(disc.w_q), T(disc.Bu)
         self.nbr_dof_local = L(disc.dofmaps.nbr_dof_local)
-        # the wdet kernel is compiled for 2D and 3D; 1D takes the plain route
-        self._wdet_tables = (wdet_tables(disc, dtype, self.device)
-                             if disc.dim > 1 else None)
         self._cls = torch.as_tensor(tbl.class_of_dofs(disc.nd, disc.dim),
                                     dtype=torch.long, device=self.device)
         # the constant halves of aux, made once: no fill launch per stage
@@ -271,6 +268,13 @@ class Advection:
                              and cfg.mono == 0 and cfg.smth_ind == 0
                              and self._face_tan is not None
                              and disc.dim in (2, 3))
+        # the wdet kernel is compiled for 2D and 3D; 1D takes the plain
+        # route. The non-fused remap stage with -pa runs its face variant,
+        # which also forms the upwind face weights wvn from the nodes
+        face = (not self._fused_stage and cfg.pa and cfg.exec_mode == 1
+                and self._face_tan is not None)
+        self._wdet_tables = (wdet_tables(disc, dtype, self.device, face)
+                             if disc.dim > 1 else None)
         if self._fused_stage:
             self._stage_tables = tbl.stage_ho_tables(disc, dtype,
                                                      self.device)
@@ -326,7 +330,8 @@ class Advection:
             self.Bu_w = self.Bu * self.w_q[:, None]
             self._transport_geom = self._transport_geometry(T)
             return
-        self._v_fq_static = self._face_velocity(T)
+        if not self._face_wvn:
+            self._v_fq_static = self._face_velocity(T)
         if disc.dim == 1:
             # kernels 3 and 4 are compiled for 2D and 3D: in 1D the stage
             # geometry is volume_detj_va's and the convection action
@@ -424,10 +429,12 @@ class Advection:
         `_ensure_stage_geom`). The nodes xs = x0 + t v, which the reference
         puts here, are formed only where the wdet kernel reads them.
 
-        Non-fused stage (remhos.cpp:1598-1676): the moved nodes, the face
-        normals from their tangents, the upwind face weights wvn >= 0, one
-        wdet kernel launch with ml and detJ, and for `-lo 4` the subcell
-        weights. J, adj J and va stay inside `geom_conv`, per field.
+        Non-fused stage (remhos.cpp:1598-1676): the moved nodes, one launch
+        of the wdet kernel's face variant for wdet and the upwind face
+        weights wvn >= 0 (formed from the nodes and the nodal mesh velocity:
+        no tangents, normals or face velocities reach memory), ml and detJ,
+        and for `-lo 4` the subcell weights. J, adj J and va stay inside
+        `geom_conv`, per field.
 
         Transport: the one static geometry made at construction.
 
@@ -449,16 +456,22 @@ class Advection:
         if self.cfg.exec_mode == 0:
             return self._transport_geom
         xs = self.x0_nodes + t * self.v_nodes
-        nor = self._face_normals(xs)
-        vn = (self._v_fq_static * nor).sum(-1)
-        wvn = -(self.w_fq[None, None, :] * (-vn.clamp(min=0.0)))
-        geom = dict(t=t, xs=xs, wvn=wvn)
-        if self._wdet_tables is None:
-            detJ, geom["va"] = geo.volume_detj_va(xs, self.Gm,
-                                                  self._v_q_static, 1.0)
-            self._set_wdet(geom, self.w_q[None, :] * detJ)
+        geom = dict(t=t, xs=xs)
+        if self._face_wvn:
+            wdet, geom["wvn"] = wdet_kernel(xs, self._wdet_tables,
+                                            self.v_nodes)
         else:
-            self._set_wdet(geom, wdet_kernel(xs, self._wdet_tables))
+            # 1D, or reference normals that are not axis-aligned: the
+            # normals from the face Jacobians, v at the face points made once
+            vn = (self._v_fq_static * self._face_normals(xs)).sum(-1)
+            geom["wvn"] = self.w_fq * vn.clamp(min=0.0)
+            if self._wdet_tables is None:
+                detJ, geom["va"] = geo.volume_detj_va(xs, self.Gm,
+                                                      self._v_q_static, 1.0)
+                wdet = self.w_q[None, :] * detJ
+            else:
+                wdet = wdet_kernel(xs, self._wdet_tables)
+        self._set_wdet(geom, wdet)
         if self.cfg.lo == 4:
             geom["sub_w"] = subm.subcell_weights(self, t)
         return geom
@@ -521,6 +534,12 @@ class Advection:
         if "wdet" not in geom:
             self._set_wdet(geom, res[1])
         return res[0]
+
+    @property
+    def _face_wvn(self):
+        """Whether the non-fused stage takes wvn from the wdet kernel's face
+        variant (its tables were made for it)."""
+        return self._wdet_tables is not None and "fdesc" in self._wdet_tables
 
     def _set_wdet(self, geom, wdet):
         geom["wdet"] = wdet

@@ -1,7 +1,7 @@
 // The sum-factorized mesh geometry from the nodes: a geometry provider of
 // stage_core.cuh (kernel 4, geom_conv.cu, the volume part; kernel 5,
 // stage_ho_nodes.cu, the volume and the face part) whose load stage alone
-// is kernel 3 (wdet.cu).
+// is kernel 3 (wdet.cu; its face variant with the face part).
 //
 // Counterpart of the geometry inside _geom_conv_kernel (:55),
 // _stage_ho_kernel (:265) and _wdet_kernel (:1110) of
@@ -70,13 +70,14 @@
 namespace remhos {
 
 // Entries of T per element of the provider's scratch (the staged nodes and
-// velocity and pass 0's results), dead once load() returns.
+// velocity and pass 0's results), dead once load() returns. The velocity
+// is staged with `vel` or `face`; pass 0 contracts it only with `vel`.
 __host__ __device__ inline int mesh_scratch(int dim, int m1, int Q1,
-                                            bool vel) {
+                                            bool vel, bool face = false) {
   const int nm = dim == 3 ? m1 * m1 * m1 : m1 * m1;
   const int nlm = dim == 3 ? m1 * m1 : m1;
   const int na = vel ? 3 : 2;
-  return (vel ? 2 : 1) * nm * dim + na * dim * nlm * Q1;
+  return (vel || face ? 2 : 1) * nm * dim + na * dim * nlm * Q1;
 }
 
 // The entries of a face descriptor (ops/tables.face_descriptors): the
@@ -86,13 +87,14 @@ __host__ __device__ inline int mesh_scratch(int dim, int m1, int Q1,
 constexpr int FACE_DESC = 5;
 
 // VEL: with the velocity and va (kernels 4 and 5); without, J and w_q det J
-// alone (kernel 3). FACE (kernel 5, with VEL): also vn at the face points.
+// alone (kernel 3). FACE: also vn at the face points, from the staged nodes
+// and velocity (kernel 5, with VEL; kernel 3's face variant, without).
 template <typename T, int DIM, int MT, int QT, bool VEL, bool FACE = false>
 struct MeshGeom {
   static constexpr int MM = MT ? MT : DMAX;    // register extents
   static constexpr int QM = QT ? QT : QMAX;
   const T* xs;     // [E, nm, DIM]
-  const T* v;      // [E, nm, DIM] (VEL)
+  const T* v;      // [E, nm, DIM] (VEL or FACE)
   const T* msf;    // [Bm1 | Gm1], [Q1, m1] each (ops/tables.MESH_TABLES)
   const T* w_q;    // [Q]
   const int* fdesc;  // [nf][FACE_DESC] the face descriptors (FACE; null:
@@ -129,10 +131,11 @@ struct MeshGeom {
     const int Qv = NL * Q1;
     const int row = nm * DIM;
     constexpr bool vel = VEL;
+    constexpr bool staged_v = VEL || FACE;     // v in the scratch
     const int tid = threadIdx.x;
     T* s_x = s_scr;                            // [nm][DIM] an element
     T* s_v = s_scr + row;
-    T* s_p0 = s_scr + (vel ? 2 : 1) * row;     // [na][DIM][nlm][Q1]
+    T* s_p0 = s_scr + (staged_v ? 2 : 1) * row;  // [na][DIM][nlm][Q1]
     const T* Bt = s_tab;
     const T* Gt = s_tab + Q1 * m1;
 
@@ -142,7 +145,7 @@ struct MeshGeom {
       for (int i = tid; i < ne * row; i += NT) {
         const int e = i / row, j = i - e * row;
         s_x[e * sx + j] = xs[g0 + i];
-        if constexpr (vel) s_v[e * sx + j] = v[g0 + i];
+        if constexpr (staged_v) s_v[e * sx + j] = v[g0 + i];
       }
     }
     __syncthreads();

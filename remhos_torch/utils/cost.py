@@ -126,11 +126,14 @@ def gradient_macs(n, q, dim):
     return mac + dim * q ** dim * n
 
 
-def wdet_cost(xs, tables):
+def wdet_cost(xs, tables, with_face=False):
     """(bytes, flops) of kernel 3: xs and the kernel's tables (the packed 1D
     mesh tables and w_q) read once, wdet written once; the dim*dim Jacobian
     entries as `gradient_macs` of each coordinate from m1^dim nodes to Q
-    points, then the closed-form determinant times w_q."""
+    points, then the closed-form determinant times w_q. `with_face`, the
+    face variant: also v, the face descriptors and w_fq read once and wvn
+    written once; per face, kernel 5's face geometry (`stage_ho_nodes_cost`)
+    and the upwind clamp times w_fq at each point."""
     E, nm, dim = xs.shape
     m1, q1 = tables["m1"], tables["Q1"]
     Q = q1 ** dim
@@ -138,7 +141,15 @@ def wdet_cost(xs, tables):
     itemsize = xs.element_size()
     nbytes = (xs.numel() + tables["msf"].numel() + Q + E * Q) * itemsize
     det = 14 if dim == 3 else 3
-    return nbytes, E * (2 * dim * gradient_macs(m1, q1, dim) + (det + 1) * Q)
+    flops = E * (2 * dim * gradient_macs(m1, q1, dim) + (det + 1) * Q)
+    if with_face:
+        nf, Qf = tables["fdesc"].shape[0], tables["w_fq"].shape[0]
+        nbytes += ((xs.numel() + Qf + E * nf * Qf) * itemsize
+                   + _nbytes((tables["fdesc"],)))
+        per_point = dim * (dim - 1) + dim
+        flops += E * nf * (2 * per_point * tensor_macs(m1, q1, dim - 1)
+                           + (17 if dim == 3 else 7) * Qf)
+    return nbytes, flops
 
 
 def geom_conv_cost(xs, u, tables, with_wdet=True):

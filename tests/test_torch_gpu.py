@@ -204,6 +204,31 @@ def test_wdet_matches_reference(shape, dtype, tol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_wdet_face_matches_reference(shape, dtype, tol):
+    """The wdet kernel's face variant on the shapes of
+    test_wdet_matches_reference: wvn against its plain version on moved
+    nodes with the mesh velocity, wdet bit for bit the wdet-only variant's,
+    one launch counted under "face"."""
+    _cuda()
+    adv = _nonfused_operator(shape, dtype)
+    xs = (adv.x0_nodes + 0.3 * adv.v_nodes).contiguous()
+    tb = adv._wdet_tables
+    before = (wd.wdet.launches, dict(wd.wdet.variant_launches))
+    wdet, wvn = wd.wdet(xs, tb, adv.v_nodes)
+    torch.cuda.synchronize()
+    assert wd.wdet.launches == before[0] + 1
+    assert wd.wdet.variant_launches == dict(before[1],
+                                            face=before[1]["face"] + 1)
+    _, ref = wd.wdet_reference(xs, tb, adv.v_nodes)
+    assert wvn.shape == ref.shape and ref.max().item() > 0
+    assert (wvn - ref).abs().max().item() <= tol * ref.abs().max().item()
+    assert torch.equal(wdet, wd.wdet(xs, tb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
 @pytest.mark.parametrize("dtype,tol,wtol", [(torch.float64, 1e-12, 1e-12),
                                             (torch.float32, 1e-5, 1e-5)])
 @pytest.mark.parametrize("sign", [1.0, -1.0])
@@ -248,10 +273,12 @@ def test_short_path_a():
     stage launches per stage, two wdet launches per run, no mega stage."""
     _cuda()
     m0, h0, w0 = _counts()
+    f0 = wd.wdet.variant_launches["face"]
     r = driver.run(RunConfig(ode_solver=3, dtype="float32", max_tsteps=8,
                              **PATH))
     m1, h1, w1 = _counts()
     assert (m1 - m0, h1 - h0, w1 - w0) == (0, 2 * 3 * r.steps_total, 2)
+    assert wd.wdet.variant_launches["face"] == f0   # the fused stage
     assert r.steps == 8 and r.mass_closure_injected_rel < 1e-5
     assert r.mass_loss_u < 1e-6 * r.final_mass_u
     assert r.mass_loss_us < 1e-5 * r.final_mass_us
@@ -296,14 +323,17 @@ def test_short_path_b():
 def test_short_path_c():
     """Product remap with the residual-distribution LO solution (-lo 3)
     through driver.run in f32 with the closure: the non-fused stage, per
-    stage one wdet and three geom_conv launches and two CG solves."""
+    stage one wdet launch (its face variant, as for the two mass reports)
+    and three geom_conv launches and two CG solves."""
     _cuda()
     m0, h0, w0 = _counts()
     g0 = gc.geom_conv.launches
+    f0 = wd.wdet.variant_launches["face"]
     r = driver.run(RunConfig(ode_solver=3, dtype="float32", max_tsteps=8,
                              **dict(PATH, lo=3)))
     m1, h1, w1 = _counts()
     assert (m1 - m0, h1 - h0, w1 - w0) == (0, 0, 3 * 8 + 2)
+    assert wd.wdet.variant_launches["face"] - f0 == 3 * 8 + 2
     assert gc.geom_conv.launches - g0 == 9 * 8
     assert r.steps == 8 and r.cg_solves == 6 * 8
     assert r.mass_closure_injected_rel < 1e-5

@@ -27,6 +27,8 @@ from remhos_tpu.operator import Advection as JAdvection
 from remhos_tpu.operator import SolverConfig as JConfig
 
 from remhos_torch import convert, steppers
+from remhos_torch import geometry as geo
+from remhos_torch import pa as pam
 from remhos_torch.discretization import build_discretization
 from remhos_torch.mesh import make_cartesian_mesh
 from remhos_torch.operator import Advection, SolverConfig
@@ -118,6 +120,49 @@ def test_geometry_matches_jax(shape, periodic, p, lo):
         assert ("sub_w" in gt) == (lo == 4) and "va" not in gj
         mlj = jadv.lumped_mass(jnp.asarray(t))
         assert _rel(adv.lumped_mass(t), mlj) <= 1e-13
+
+
+def _geometry_from_face_chain(adv, t):
+    """The non-fused stage geometry as the plain face chain makes it: the
+    face velocity made once at the dense face points, the normals from the
+    tangents, wvn = -(w_fq (-max(0, v . n))) and the plain wdet."""
+    disc, dtype = adv.disc, adv.dtype
+
+    def T(a):
+        return torch.as_tensor(a).to(dtype=dtype)
+
+    nf, Qf, nm = disc.Bmf.shape
+    xs = adv.x0_nodes + t * adv.v_nodes
+    v_fq = geo.interp_nodes(adv.v_nodes, T(disc.Bmf.reshape(nf * Qf, nm)))
+    v_fq = v_fq.reshape(xs.shape[0], nf, Qf, -1)
+    Gt, sgn = geo.face_tangent_tables(disc.Gmf, disc.n_ref)
+    vn = (v_fq * geo.face_normals_tangent(xs, T(Gt), T(sgn))).sum(-1)
+    w_q = T(disc.w_q)[None, :]
+    wdet = w_q * geo.volume_detj(xs, T(disc.Gm))
+    return dict(xs=xs, wvn=-(T(disc.w_fq)[None, None, :]
+                             * (-vn.clamp(min=0.0))),
+                wdet=wdet, detJ=wdet / w_q,
+                ml=pam.lumped_mass_pa(wdet, T(disc.Bu)))
+
+
+@pytest.mark.parametrize("shape,periodic,p", MESHES[:2])
+def test_geometry_face_variant_bit_for_bit(shape, periodic, p):
+    """`geometry(t)` of the non-fused stage, whose wvn and wdet come from
+    the wdet kernel's face variant (its plain version on the CPU), equals
+    the plain face chain bit for bit at one 3D and one 2D shape; no face
+    velocity is kept, and the CPU launches no kernel."""
+    _, adv, _ = _operators(shape, periodic, p, 1, 1, ho=3, lo=3)
+    assert "fdesc" in adv._wdet_tables
+    assert not hasattr(adv, "_v_fq_static")
+    before = (wd.wdet.launches, dict(wd.wdet.variant_launches))
+    for t in (0.0, T_STAGE):
+        got, want = adv.geometry(t), _geometry_from_face_chain(adv, t)
+        for k in ("xs", "wvn", "wdet", "detJ", "ml"):
+            assert torch.equal(got[k], want[k]), k
+        wdet, wvn = wd.wdet(got["xs"], adv._wdet_tables, adv.v_nodes)
+        assert torch.equal(wdet, want["wdet"])
+        assert torch.equal(wvn, want["wvn"])
+    assert (wd.wdet.launches, wd.wdet.variant_launches) == before
 
 
 @pytest.mark.parametrize("ho,lo", PAIRS[:4])
