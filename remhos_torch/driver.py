@@ -11,11 +11,14 @@ assembled stage):
 `run(cfg) -> RunResult`, whose `final_mass_u` plays the role of the C
 entry's out-parameter (remhos.cpp:210).
 
-The Python loop handles the adaptive-dt rollback (remhos.cpp:1178-1197), the
--vb raise, the steady-state stop of problems 6-8 (remhos.cpp:1276-1294),
-checkpoints and logging. With -vb or -dtc 1 it fetches the step's aux
-channel once per step, and the steady-state test fetches its residual; other
-runs fetch nothing, and the device runs ahead of the host.
+Each step of the loop is `advance(step, S, t, dt)`: the step and the mass
+closure, on the device; `advance(..., n_steps)` runs K steps of a built
+operator, as the benchmark's phases do. Around it the Python loop handles
+the adaptive-dt rollback (remhos.cpp:1178-1197), the -vb raise, the
+steady-state stop of problems 6-8 (remhos.cpp:1276-1294), checkpoints and
+logging. With -vb or -dtc 1 it fetches the step's aux channel once per
+step, and the steady-state test fetches its residual; other runs fetch
+nothing, and the device runs ahead of the host.
 
 Standard RK in float32 runs the production numerics where the scheme
 conserves mass (remap with RK3/4/6, transport on an all-periodic mesh): the
@@ -122,6 +125,30 @@ def inflow_projection(problem, x0_nodes, disc):
                             prob.inflow_function(problem, x_gl))
     x_un = torch.einsum("end,mn->emd", x0_nodes, T(disc.Bm_at_unodes))
     return prob.inflow_function(problem, x_un)
+
+
+def advance(step, S, t, dt, n_steps=1, C=None, closure=None, inj=None):
+    """`n_steps` steps of dt from the state S at (pseudo-)time t on a built
+    operator, each as `run`'s time loop takes it: `step` is
+    `steppers.make_rk_step`'s (or the IDP or sharded step), compensated
+    where the Kahan compensation C is given; with `closure`
+    (`steppers.make_mass_closure`) each step ends by pinning <ml(t), u + c>
+    to the t = 0 invariant, and the mass it injects is added to `inj` on
+    the device (no read-back, so the closure cannot silently absorb a
+    conservation bug: `run` reports the sum at exit). Returns (S, C, t, inj,
+    aux), aux the last step's side channel."""
+    aux = None
+    for _ in range(n_steps):
+        if C is None:
+            S, aux = step(S, t, dt)
+        else:
+            S, C, aux = step(S, C, t, dt)
+        t += dt
+        if closure is not None:
+            c_u, deficit = closure(S[0], C[0], t)
+            inj = inj + deficit.abs()
+            C[0] = c_u
+    return S, C, t, inj, aux
 
 
 def _cfl_dt(mesh, problem, order):
@@ -397,6 +424,7 @@ def run(cfg: RunConfig) -> RunResult:
     # `compensated`: the Kahan combine carries C; `use_closure`: the mass
     # closure also pins <ml(t), u + c> every step
     use_closure = compensated = False
+    closure = None
     if grid is not None:
         # the sharded step: its aux reduced over the ranks; no closure (as
         # the JAX package runs it, remhos_tpu/driver.py:226); in f32 with
@@ -495,10 +523,10 @@ def run(cfg: RunConfig) -> RunResult:
     wall0 = time.perf_counter()
     while not done:
         dt_real = min(dt, t_final - t)
-        if compensated:
-            S_new, C_new, aux = step(S, C, t, dt_real)
-        else:
-            S_new, aux = step(S, t, dt_real)   # aux = [dt_ratio, -violations]
+        # aux = [dt_ratio, -violations]; a step that dt control rejects is
+        # dropped, closure and injected mass with it
+        S_new, C_new, t_new, inj_new, aux = advance(
+            step, S, t, dt_real, C=C, closure=closure, inj=inj_acc)
         ti += 1
         ti_total += 1
         if fetch_aux:
@@ -524,18 +552,7 @@ def run(cfg: RunConfig) -> RunResult:
                 continue
             elif ratio > 1.25:
                 dt *= 1.02
-        S = S_new
-        t += dt_real
-        if compensated:
-            C = C_new
-        if use_closure:
-            # pin <ml(t), u + c> to the t=0 invariant; the injected-mass
-            # accumulator stays on the device (no per-step fetch) and is
-            # reported at exit, so the closure can never silently absorb
-            # a conservation bug
-            c_u, deficit = closure(S[0], C[0], t)
-            inj_acc = inj_acc + deficit.abs()
-            C[0] = c_u
+        S, C, t, inj_acc = S_new, C_new, t_new, inj_new
 
         if not steady:
             done = t >= t_final - 1e-8 * dt

@@ -8,7 +8,8 @@ of K_HO are >= 0 (phi >= 0 pointwise), so the cross-element d_ij vanish and
 M is block-diagonal: every surviving flux is intra-element and lives in a
 dense [E, nd, nd] block. The intra-element d_ij do include the own-own
 terms of the DG trace, which `k_ho_diag_blocks` adds to the convection
-blocks.
+blocks. The flux blocks are formed in a `remhos.flux` span; the Zalesak
+sweeps are their caller's (`remhos.fct`) own time.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import sync as syncm
+from .utils.trace import spanned
 
 
 def k_ho_diag_blocks(K_elem, bdrInt, bdr_dofs):
@@ -62,6 +64,7 @@ def _fct_iterations(F, u, du_lo, m, u_min, u_max, dt, iter_cnt,
     return du
 
 
+@spanned("remhos.flux")
 def _flux_blocks(geom, bdr_dofs, u, du_ho, dt):
     """F[E, nd, nd] = dt d_ij (u_i - u_j) + dt M_ij (duHO_i - duHO_j), zero
     on the diagonal."""

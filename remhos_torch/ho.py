@@ -26,8 +26,15 @@ from .utils.trace import host_wait, spanned
 
 def mass_cholesky(M):
     """Batched Cholesky factors L[E, nd, nd] of the SPD element mass
-    matrices."""
-    return torch.linalg.cholesky(M)
+    matrices. The factorization's info is read back, a wait for the device
+    (`host_wait`), and a matrix that is not positive definite raises, as
+    `torch.linalg.cholesky` does with the same factors."""
+    L, info = torch.linalg.cholesky_ex(M)
+    if host_wait(bool, info.any()):
+        raise torch.linalg.LinAlgError(
+            f"mass_cholesky: {int((info > 0).sum())} of {M.shape[0]} "
+            "element mass matrices are not positive definite")
+    return L
 
 
 def cho_solve(L, rhs):

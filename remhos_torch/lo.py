@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import assembly as asm
+from .ho import mass_cholesky
 
 # guards the weight denominators of an element whose dofs are all equal
 EPS = 1.0e-15
@@ -108,7 +109,7 @@ def residual_distribution(u, u_nbr, K_elem, bdrInt, ml, bdr_dofs,
 def precond_convection_matrix(K_elem, M_elem):
     """PrecondConvectionIntegrator's element matrix ML M^-1 K
     (remhos_tools.cpp:975-1031; ML the lumped element mass), for `-lo 2`."""
-    L = torch.linalg.cholesky(M_elem)
+    L = mass_cholesky(M_elem)
     Y = torch.linalg.solve_triangular(L, K_elem, upper=False)
     MinvK = torch.linalg.solve_triangular(L.transpose(1, 2), Y, upper=True)
     return M_elem.sum(dim=2)[:, :, None] * MinvK

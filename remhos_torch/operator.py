@@ -478,8 +478,9 @@ class Advection:
 
     def _assemble(self, t):
         """The assembled stage geometry at time t (remhos.cpp:1598-1676;
-        remhos_tpu/operator.py:270-319): detJ, K_elem, bdrInt, M, ml; chol_L
-        for -ho 3; D for -lo 1|2; sub_w for -lo 4 and -mono 2. M is made for
+        remhos_tpu/operator.py:270-319): detJ, K_elem, bdrInt, M, ml (span
+        `remhos.assemble`); chol_L for -ho 3 (`remhos.factor`); D for -lo
+        1|2 (`remhos.upwind`); sub_w for -lo 4 and -mono 2. M is made for
         every configuration (the monolithic solver reads it). The JAX
         package also factors M for every FCT and -mono, where nothing reads
         the factors: the port does not, and so runs the rows whose mesh
@@ -487,32 +488,34 @@ class Advection:
         indefinite there, which `torch.linalg.cholesky` refuses and XLA's
         Cholesky turns into NaN factors that nothing reads)."""
         cfg = self.cfg
-        if cfg.exec_mode == 1:
-            x = self.x0_nodes + t * self.v_nodes
-        else:
-            x = self.x0_nodes
-        vol = geo.volume_geometry(x, self.Bm, self.Gm)
-        x_fq, nor = self._face_points_normals(x, self.Bmf)
-        if cfg.exec_mode == 0:
-            v_q, v_fq = self._velocity(vol["x_q"]), self._velocity(x_fq)
-            sign = -1.0
-        else:
-            v_q, v_fq = self._v_q_static, self._v_fq_static
-            sign = 1.0
-        K_elem = asm.element_convection(v_q, vol["adjJ"], self.Bu, self.Gu,
-                                        self.w_q, sign)
-        bdrInt = asm.face_upwind_matrices(v_fq, nor, self.w_fq, self.Bface,
-                                          cfg.exec_mode)
-        M = asm.element_mass(vol["detJ"], self.Bu, self.w_q)
-        geom = dict(detJ=vol["detJ"], K_elem=K_elem, bdrInt=bdrInt, M=M,
-                    ml=asm.lumped_mass(M))
+        with span("remhos.assemble"):
+            if cfg.exec_mode == 1:
+                x = self.x0_nodes + t * self.v_nodes
+            else:
+                x = self.x0_nodes
+            vol = geo.volume_geometry(x, self.Bm, self.Gm)
+            x_fq, nor = self._face_points_normals(x, self.Bmf)
+            if cfg.exec_mode == 0:
+                v_q, v_fq = self._velocity(vol["x_q"]), self._velocity(x_fq)
+                sign = -1.0
+            else:
+                v_q, v_fq = self._v_q_static, self._v_fq_static
+                sign = 1.0
+            K_elem = asm.element_convection(v_q, vol["adjJ"], self.Bu,
+                                            self.Gu, self.w_q, sign)
+            bdrInt = asm.face_upwind_matrices(v_fq, nor, self.w_fq,
+                                              self.Bface, cfg.exec_mode)
+            M = asm.element_mass(vol["detJ"], self.Bu, self.w_q)
+            geom = dict(detJ=vol["detJ"], K_elem=K_elem, bdrInt=bdrInt, M=M,
+                        ml=asm.lumped_mass(M))
         if cfg.ho == 3:
-            geom["chol_L"] = hom.mass_cholesky(M)
-        if cfg.lo == 1:
-            geom["D"] = lom.discrete_upwind_matrix(K_elem)
-        elif cfg.lo == 2:
-            geom["D"] = lom.discrete_upwind_matrix(
-                lom.precond_convection_matrix(K_elem, M))
+            with span("remhos.factor"):
+                geom["chol_L"] = hom.mass_cholesky(M)
+        if cfg.lo in (1, 2):
+            with span("remhos.upwind"):
+                K = (K_elem if cfg.lo == 1
+                     else lom.precond_convection_matrix(K_elem, M))
+                geom["D"] = lom.discrete_upwind_matrix(K)
         if cfg.lo == 4 or cfg.mono == 2:
             geom["sub_w"] = subm.subcell_weights(self, t)
         return geom

@@ -29,12 +29,14 @@ The program's own spans live here too:
   traced phases), else one shared no-op object. There is no setting: spans
   record when a profiler does. The names: `remhos.step` (its self time the
   RK and Kahan combine), `remhos.stage` (on the fused path its self time
-  is kernel 1's launch), `remhos.closure`, `remhos.geometry`,
+  is kernel 1's launch), `remhos.closure`, `remhos.geometry` (on the
+  assembled stage > `remhos.assemble`, `remhos.factor`, `remhos.upwind`),
   `remhos.gather`, `remhos.bounds`, `remhos.ho` > `remhos.cg`, `remhos.lo`,
-  `remhos.fct`, `remhos.product` and `remhos.sync`. A span's parent is the
-  span around it on the same thread; a layer's self time is its span less
-  its child spans (`device_by_span` and `idle_by_span` charge each instant
-  to the innermost span);
+  `remhos.fct` (> `remhos.flux` with `-fct 1`), `remhos.product` and
+  `remhos.sync`. A span's parent is the span around it on the same
+  thread; a layer's self time is its span less its child spans
+  (`device_by_span` and `idle_by_span` charge each instant to the
+  innermost span);
 - `host_wait(read, ...)` runs one read the host waits on the device for (a
   CG's stopping test, a closure's host-to-device copy, a read-back) inside
   a `remhos.sync` span; `loop_report` counts these spans.

@@ -776,6 +776,32 @@ def test_fa_path_runs_on_the_card_without_kernels():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t", [0.0, 0.3])
+def test_fa_stage_matches_the_cpu(t):
+    """One limited stage of the benchmark's assembled configuration (`-ho 3
+    -lo 1 -fct 1`, float64, p=2) at 8^3 on the card against the CPU, from a
+    seeded u, to 1e-12 of max|du| (round-off: the card's batched Cholesky
+    and index_add sum in another order)."""
+    _cuda()
+    mesh = make_cartesian_mesh(3, (8,) * 3, (0.0,) * 3, (1.0,) * 3,
+                               (False,) * 3)
+    disc = build_discretization(mesh, 2)
+    cfg = SolverConfig(problem=10, ho=3, lo=1, fct=1, pa=False)
+    x0 = torch.as_tensor(mesh.x, dtype=torch.float64)
+    v = driver.integrate_mesh_velocity(x0, 10, mesh.bb_min, mesh.bb_max,
+                                       0.7, 0.01)
+    g = torch.Generator().manual_seed(3)
+    u = torch.rand((1, 512, disc.nd), generator=g, dtype=torch.float64)
+    du = {}
+    for dev in ("cpu", "cuda"):
+        adv = Advection(disc, cfg, x0.to(dev), v.to(dev),
+                        dtype=torch.float64, device=dev)
+        du[dev] = adv.stage_function()(t, 0.01, u.to(dev))[0].cpu()
+    ref = du["cpu"]
+    assert (du["cuda"] - ref).abs().max() <= 1e-12 * ref.abs().max()
+
+
+@pytest.mark.gpu
 def test_failed_build_raises(tmp_path, monkeypatch):
     """A kernel source that does not compile makes the wrapper raise: no
     fallback to the plain version."""

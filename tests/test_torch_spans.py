@@ -7,11 +7,12 @@
 - One RK3 step of the main path's solver set (`-ho 3 -lo 5 -fct 2 -pa`,
   the fused stage, `bench.run_steps` with its closures) and of the
   non-fused product remap's (`-ho 3 -lo 3 -fct 2 -pa -ps`, the full closure
-  after the step, as `driver.run` steps it) at 4^3, p=3, on the CPU, under
-  `capture_trace`: how the spans nest, that the `remhos.sync` spans are
-  the host waits the solvers and closures make, that nothing records
-  without a profiler, and that the state is bit for bit the same with and
-  without one.
+  after the step, as `driver.run` steps it) at 4^3, p=3, and of the
+  assembled remap's (`-ho 3 -lo 1|2 -fct 1`, float64) at 4^3, p=2, on the
+  CPU, under `capture_trace`: how the spans nest, that the `remhos.sync`
+  spans are the host waits the solvers and closures make, that nothing
+  records without a profiler, and that the state is bit for bit the same
+  with and without one.
 - `gpu` tests (they skip without a card): the same steps at 8^3 on the
   card, where each `remhos.sync` span must end after the device work it
   waited for (the spans and the device events share one clock) and the
@@ -41,8 +42,10 @@ F32, F64 = torch.float32, torch.float64
 # the program's spans, from the launch path down to the solver, and the span
 # of every host wait
 SPANS = ("remhos.step", "remhos.stage", "remhos.closure", "remhos.geometry",
+         "remhos.assemble", "remhos.factor", "remhos.upwind",
          "remhos.gather", "remhos.bounds", "remhos.ho", "remhos.cg",
-         "remhos.lo", "remhos.fct", "remhos.product", "remhos.sync")
+         "remhos.lo", "remhos.fct", "remhos.flux", "remhos.product",
+         "remhos.sync")
 # the runtime calls with which the host waits for the device
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
 
@@ -173,6 +176,25 @@ def _product_remap(n, device, dt=0.005):
     return adv, phase
 
 
+def _assembled(n, device, lo=1, dt=0.02):
+    """The phase of one RK3 step of the assembled remap (`-ho 3 -lo 1|2
+    -fct 1`, float64: the plain combine, no closure, as `driver.run` steps
+    it) from a seeded u."""
+    mesh = make_cartesian_mesh(3, (n,) * 3, (0.0,) * 3, (1.0,) * 3,
+                               (False,) * 3)
+    disc = build_discretization(mesh, 2)
+    cfg = SolverConfig(problem=10, ho=3, lo=lo, fct=1, ode_solver=3,
+                       pa=False)
+    x0 = torch.as_tensor(mesh.x, dtype=F64, device=device)
+    v = integrate_mesh_velocity(x0, cfg.problem, mesh.bb_min, mesh.bb_max,
+                                0.7, dt)
+    adv = Advection(disc, cfg, x0, v, dtype=F64, device=device)
+    step = st.make_rk_step(adv.stage_function(), 3)
+    g = torch.Generator().manual_seed(13)
+    u = torch.rand((n ** 3, disc.nd), generator=g, dtype=F64).to(device)
+    return lambda: step(u[None], 0.0, dt)[0]
+
+
 def _traced(phase, stats=None):
     """(trace, state, CG solves and iterations) of the recorded run of
     phase() under `capture_trace`, its body in a `test.phase` span."""
@@ -254,6 +276,34 @@ def test_product_remap_spans_on_the_cpu():
     assert all(torch.equal(a, b) for a, b in zip(state, ref))
 
 
+@pytest.mark.parametrize("lo", [1, 2])
+def test_assembled_spans_on_the_cpu(lo):
+    """The assembled stage: the element assembly, the mass factorization
+    and the discrete upwinding inside the stage's geometry, the flux blocks
+    inside FCT, a stage each; the factorization's info read is a stage's
+    one host wait (with `-lo 2` the preconditioned convection matrix's
+    factorization is one more, inside the upwinding)."""
+    phase = _assembled(4, "cpu", lo)
+    ref = phase()
+    tr, state, _ = _traced(phase)
+    spans = trc.program_spans(tr)
+    names = _check_nesting(spans)
+    for s in spans:
+        parent = _parent(spans, s)
+        if s[2] in ("remhos.assemble", "remhos.factor", "remhos.upwind"):
+            assert parent == "remhos.geometry", s
+        if s[2] == "remhos.flux":
+            assert parent == "remhos.fct"
+        if s[2] == "remhos.sync":
+            assert parent in ("remhos.factor", "remhos.upwind")
+    for n in ("remhos.geometry", "remhos.assemble", "remhos.factor",
+              "remhos.upwind", "remhos.ho", "remhos.lo", "remhos.fct",
+              "remhos.flux"):
+        assert names[n] == 3, n
+    assert names["remhos.sync"] == 3 * lo
+    assert torch.equal(state, ref)
+
+
 def _on_card(tr):
     """(worst lead, sync calls in the phase, waits as spans): how far
     before the end of the device work it waited for each `remhos.sync`
@@ -281,10 +331,11 @@ def _on_card(tr):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("path", ["main", "product"])
+@pytest.mark.parametrize("path", ["main", "product", "assembled"])
 def test_waits_on_the_card(path):
     """Every `remhos.sync` span is one synchronizing runtime call (in the
-    product remap one for each CG test and one for the closure), and ends
+    product remap one for each CG test and one for the closure, in the
+    assembled remap the mass factorization's info read), and ends
     no earlier than 10 us before the device work it waited for; the state
     is bit for bit the one of an untraced run. The product remap's
     `index_add` sums in no fixed order on the card, so the states are
@@ -293,6 +344,8 @@ def test_waits_on_the_card(path):
         pytest.skip("needs a CUDA device")
     if path == "main":
         stats, phase = {}, _main_path(8, "cuda")[1]
+    elif path == "assembled":
+        stats, phase = {}, _assembled(8, "cuda")
     else:
         adv, phase = _product_remap(8, "cuda")
         stats = adv.cg_stats
