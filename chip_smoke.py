@@ -42,7 +42,13 @@ It builds the CUDA kernels from the sources on first use, then:
    run the core's runtime-size instantiation), and wdet and geom_conv at
    p = 2 and 4 (mesh order 2) and at mesh orders 1 and 3 (p = 3; runtime
    sizes) on the same meshes, kernel 5 with its four options at mesh
-   orders 1 and 3.
+   orders 1 and 3. The assembled stage's kernel (fa_assemble) on a curved
+   3D mesh of mesh order 2 moved to t = 0.3, p=2, at N=24 and at the
+   benchmark cell's N=64, in f64 and f32: det J, M, ml, K and the face
+   blocks against the plain chain on nodes relative to each element's
+   first node (in f32 evaluated in f64 on the same inputs) to 1e-13 (f64)
+   and 1e-5 (f32) of each tensor's largest entry, its ms by CUDA events
+   and from a trace, the plain chain's ms and the bound.
    The f32 stage kernels (1, 2, 5) are held to the plain version evaluated
    in f64 on the same inputs with the kernel's one Jacobi sweep (the plain
    version's own f32 result carries its own rounding, amplified by the
@@ -80,7 +86,9 @@ It builds the CUDA kernels from the sources on first use, then:
    of path C split into its parts by CUDA events. Then path G, the
    assembled (FA) path at full width in f64: -ho 3 -lo 1 -fct 1 for 20
    steps and -ho 3 -lo 5 -fct 4 -bt 1 -dtc 1 for 20 attempts, no kernel
-   launched, gates as path D's; its peak device memory, and one stage split
+   launched but fa_assemble, once an assembly (three a step attempt and
+   the two mass reports), gates as path D's; its peak device memory, and
+   one stage split
    by CUDA events into the geometry and assembly, the HO solve, the LO
    solution, the bounds and the FCT;
 8. drives the measurement entry points: bench.run(phases=True, trace=True)
@@ -96,7 +104,8 @@ It builds the CUDA kernels from the sources on first use, then:
    goldens/reference_goldens.json (5e-10 relative on mass and max u);
    then the assembled path's golden rows in f64 through the golden runner
    (one or more of each family: `-ho 1|3`, `-lo 1|2|4|5`, `-fct 1|2|4`,
-   product remap, IDP, dt control; FA_GOLDEN_ROWS; 5e-10, no kernel);
+   product remap, IDP, dt control; FA_GOLDEN_ROWS; 5e-10, no kernel but
+   fa_assemble on the remap rows);
    then the entry points of the port:
    a. the benchmark record, `bench.main_dual` in this process at full width
       (N=24, p=3, 320 steps, best of 4 windows, with the p=4 leg, the f64
@@ -204,6 +213,7 @@ import torch
 
 from remhos_torch import (bench, bounds, dofmaps, driver, mono, ops, pa,
                           umesh, umesh3d, vis)
+from remhos_torch import geometry as geo
 from remhos_torch import problems as prob
 from remhos_torch import structured
 from remhos_torch.config import RunConfig
@@ -211,6 +221,7 @@ from remhos_torch.discretization import build_discretization
 from remhos_torch.mesh import load_mesh, make_cartesian_mesh
 from remhos_torch.operator import Advection, SolverConfig
 from remhos_torch.ops import build
+from remhos_torch.ops import fa_assemble as fa
 from remhos_torch.ops import gather_nbr as gn
 from remhos_torch.ops import geom_conv as gc
 from remhos_torch.ops import gl_cg as cg
@@ -225,9 +236,9 @@ from remhos_torch.parallel import launch
 from remhos_torch.tools import kernelbench, microbench, run_goldens
 from remhos_torch.utils import fom
 from remhos_torch.utils import trace as trc
-from remhos_torch.utils.cost import (bound, gather_nbr_cost,
-                                     gather_nbr_index, geom_conv_cost,
-                                     gl_cg_cost, stage_cost,
+from remhos_torch.utils.cost import (bound, fa_assemble_cost,
+                                     gather_nbr_cost, gather_nbr_index,
+                                     geom_conv_cost, gl_cg_cost, stage_cost,
                                      stage_ho_nodes_cost, wdet_cost)
 
 # kernel against plain version, relative to max|du|: f64 round-off; f32
@@ -312,6 +323,15 @@ FA_GOLDEN_ROWS = ("remap-cube3d-m5", "remap-cube3d-m1", "remap-cube3d-m2",
                   "product-remap-idp3", "product-remap-idp2",
                   "product-remap-fe-fct", "transport-cube-m5",
                   "transport-cube-m1")
+# the assembled stage's kernel: 3D meshes of N^3 elements (24 as the other
+# checks, 64 as the benchmark's assembled cell), p=2 (the cell's order),
+# the nodes moved to t = FA_T; limits relative to each tensor's largest
+# entry (f32: against the plain chain evaluated in f64)
+FA_SIZES = (24, 64)
+FA_P = 2
+FA_T = 0.3
+FA_LIMITS = {torch.float64: 1e-13, torch.float32: 1e-5}
+FA_OUTPUTS = ("detJ", "M", "ml", "K_elem", "bdrInt")
 # steps of the main path's phase ablation and trace (the measurement step)
 MEASURE_STEPS = 10
 GOLDEN_ROWS = ("remap-cube3d-m3pa", "remap-cube3d-m4pa")
@@ -825,6 +845,85 @@ def check_wdet_face(label, adv, traced=False):
     return res
 
 
+def fa_moving_mesh(n, device):
+    """The assembled stage kernel's inputs, f64: the tables' discretization
+    of an n^3 unit cube (mesh order 2, p = FA_P), its nodes curved, a
+    smooth nodal velocity v and the nodes moved to t = FA_T."""
+    mesh = make_cartesian_mesh(3, (n,) * 3, (0.0,) * 3, (1.0,) * 3,
+                               (False,) * 3)
+    disc = build_discretization(mesh, FA_P)
+    x = torch.as_tensor(mesh.x, dtype=torch.float64, device=device)
+    x0 = x + 0.03 * torch.sin(3.0 * x.flip(-1))
+    v = 0.1 * torch.sin(2.0 * np.pi * x.flip(-1))
+    return disc, (x0 + FA_T * v).contiguous(), v.contiguous()
+
+
+def fa_plain(xs, v, tb):
+    """fa_assemble's plain chain on the nodes taken relative to each
+    element's first node: the element data do not change under a
+    translation, and the dense sums of O(1) coordinates cost the plain chain
+    ~1.5e-13 of det J's largest entry in f64 at 64^3 (h^3 = 3.8e-6), beside
+    the kernel's relative coordinates."""
+    return fa.fa_assemble_reference(
+        xs - xs[:, :1, :], tb, 1, geo.interp_nodes(v, tb["Bm"]),
+        geo.face_velocity(v, tb["Bmf"]))
+
+
+def check_fa_assemble(n, dtype, disc, xs64, v64):
+    """fa_assemble vs its plain chain (`fa_plain`) on the inputs of
+    `fa_moving_mesh` (`hold`: in f32 the plain chain evaluated in f64 on
+    the same f32 inputs): every output at FA_LIMITS; its ms by CUDA events
+    and from a trace of 3 calls, the plain chain's ms as the operator runs
+    it (absolute nodes, the mesh velocity at the points made once) and the
+    bound."""
+    tb = fa.fa_assemble_tables(disc, dtype, xs64.device)
+    if not tb["engaged"]:
+        raise RuntimeError(f"fa_assemble does not engage at N={n}")
+    xs, v = xs64.to(dtype).contiguous(), v64.to(dtype).contiguous()
+    prec = "f32" if dtype == torch.float32 else "f64"
+    label = f"fa_assemble 3d N={n} p={FA_P} {prec}"
+    got = fa.fa_assemble(xs, v, tb)
+    ref = fa_plain(xs, v, tb)
+    ref64 = [None] * len(FA_OUTPUTS)
+    if dtype == torch.float32:
+        tb64 = fa.fa_assemble_tables(disc, torch.float64, xs64.device)
+        ref64 = fa_plain(*f64_inputs(xs, v), tb64)
+    v_pts = (geo.interp_nodes(v, tb["Bm"]), geo.face_velocity(v, tb["Bmf"]))
+    torch.cuda.synchronize()
+    errs = {k: hold(label, k, g, r, r64, FA_LIMITS[dtype])
+            for k, g, r, r64 in zip(FA_OUTPUTS, got, ref, ref64)}
+    del got, ref, ref64
+    torch.cuda.empty_cache()
+
+    def launch():
+        fa.fa_assemble(xs, v, tb)
+
+    res = dict(check=label, kernel="fa_assemble", E=xs.shape[0],
+               Q1=tb["Q1"], D=tb["D"],
+               max_abs_err=max(e[0] for e in errs.values()),
+               rel_err={k: e[1] for k, e in errs.items()},
+               plain_f32_rel_err={k: e[2] for k, e in errs.items()},
+               limit=FA_LIMITS[dtype], ms=time_ms(launch, 10),
+               plain_ms=time_ms(
+                   lambda: fa.fa_assemble_reference(xs, tb, 1, *v_pts), 3),
+               trace_ms=traced_ms(launch, "fa_assemble", n=3))
+    res.update(bound(*fa_assemble_cost(xs, tb), dtype))
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def fa_assemble_checks(device):
+    """check_fa_assemble at FA_SIZES, f64 and f32: {"<N>_<prec>": record}."""
+    out = {}
+    for n in FA_SIZES:
+        disc, xs64, v64 = fa_moving_mesh(n, device)
+        for dtype, prec in ((torch.float64, "f64"), (torch.float32, "f32")):
+            out[f"{n}_{prec}"] = check_fa_assemble(n, dtype, disc, xs64, v64)
+        del xs64, v64
+        torch.cuda.empty_cache()
+    return out
+
+
 def nonfused_operator(base):
     """A non-fused operator (-lo 3) on the mesh, nodes and velocity of the
     fused operator `base`: it makes geom_conv's tables."""
@@ -1243,6 +1342,12 @@ def nonfused_launches(attempts, fields):
                 geom_conv=(fields + 1) * stages)
 
 
+def fa_launches(attempts, fields):
+    """Launches of an assembled remap run: fa_assemble once a stage and for
+    each of the two mass reports."""
+    return dict(fa_assemble=bench.STAGES * attempts + 2)
+
+
 def run_driver_path(path, cfg_kw, limits, device, launches=fused_launches):
     """One driver.run with its launch counts and gates; returns the
     record."""
@@ -1321,14 +1426,14 @@ def run_path_f(device):
 
 def run_path_g(device):
     """Path G: the assembled path at full width in f64, then the sharpening
-    configuration; no kernel launches. Returns the two records."""
+    configuration; no kernel launches but fa_assemble's. Returns the two
+    records."""
     torch.cuda.reset_peak_memory_stats(device)
-    rec = run_driver_path("G", PATH_G, G_LIMITS, device,
-                          lambda a, f: {})
+    rec = run_driver_path("G", PATH_G, G_LIMITS, device, fa_launches)
     rec["max_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     torch.cuda.empty_cache()
     rec_s = run_driver_path("G sharpen", PATH_G_SHARPEN, G_SHARPEN_LIMITS,
-                            device, lambda a, f: {})
+                            device, fa_launches)
     print(json.dumps(dict(path="G", max_memory_gib=rec["max_memory_gib"])),
           flush=True)
     return rec, rec_s
@@ -1368,14 +1473,18 @@ def split_fa_stage(device):
 
 def run_fa_goldens(device):
     """The assembled path's golden rows (FA_GOLDEN_ROWS) in f64 on the card
-    through the golden runner; no kernel launches."""
+    through the golden runner; no kernel launches but fa_assemble's (the
+    remap rows)."""
     buf = io.StringIO()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = run_goldens.main(["--device", str(device), "--only",
                                *FA_GOLDEN_ROWS])
-    n = expect_counts("FA golden rows", {})
+    n = expect_counts("FA golden rows",
+                      dict(fa_assemble=ops.launch_counts()["fa_assemble"]))
+    if n["fa_assemble"] == 0:
+        raise RuntimeError("FA golden rows: fa_assemble never launched")
     lines = buf.getvalue().splitlines()
     for line in lines:
         if line.startswith(("PASS", "FAIL")):
@@ -1465,8 +1574,8 @@ _PER_DOF = re.compile(
     r"mega_stage_kernel(<[^,()]*, \d+, \d+, \d+, true\b|I.*Lb1ELb[01]EE)")
 
 
-def trace_seven_kernels(case, rng):
-    """One launch of each of the seven kernels, and of kernel 1's per-dof
+def trace_each_kernel(case, rng):
+    """One launch of each kernel (`ops.KERNELS`), and of kernel 1's per-dof
     variant, at N=24 f32, under the profiler: the trace must hold one
     device event of each (two of kernel 1; the kernels are launched through
     ctypes, outside any aten op). Returns the events and each kernel's
@@ -1480,12 +1589,13 @@ def trace_seven_kernels(case, rng):
     P, tb = adv._poly, adv._stage_tables
     nf_adv = nonfused_operator(adv)
     tbn = shn.stage_ho_nodes_tables(adv.disc, adv.dtype, adv.device)
+    tbf = fa.fa_assemble_tables(adv.disc, adv.dtype, adv.device)
     xs = (adv.x0_nodes + 0.3 * adv.v_nodes).contiguous()
     v = adv.v_nodes
     lay = gn.GatherLayout(adv.shape, adv.periodic,
                           adv.disc.dofmaps.nbr_dof_local, adv.device)
 
-    def seven():
+    def each():
         ms.mega_stage(0.1, case.dt, u, unbr, smin, smax, P, tb)
         ms.mega_stage(0.1, case.dt, u, unbr, xmin, xmax, P, tb,
                       bounds="dof")
@@ -1495,18 +1605,19 @@ def trace_seven_kernels(case, rng):
         shn.stage_ho_nodes(xs, v, u, unbr, tbn, mode=1.0)
         cg.gl_cg(u, wdet, tb)
         gn.gather_nbr(u, lay)
+        fa.fa_assemble(xs, v, tbf)
 
-    seven()                                   # built and warm
-    tr, launches = trc.capture_counted(seven)
-    events = trc.check_kernel_events(tr, launches, "seven kernels")
+    each()                                    # built and warm
+    tr, launches = trc.capture_counted(each)
+    events = trc.check_kernel_events(tr, launches, "each kernel")
     if events != dict(dict.fromkeys(ops.KERNELS, 1), mega_stage=2):
-        raise RuntimeError(f"seven kernels: trace events {events}")
+        raise RuntimeError(f"each kernel: trace events {events}")
     by_name = trc.loop_report(tr, 1, 1)["kernel_s_per_stage_by_name"]
     out = {k: 1e3 * v for k, v in by_name.items()}
     k1 = [o for o in trc.device_ops(tr) if o["kernel"] == "mega_stage"]
     dof = [o for o in k1 if _PER_DOF.search(o["name"])]
     if len(dof) != 1:
-        raise RuntimeError("seven kernels: the per-dof variant is not one "
+        raise RuntimeError("each kernel: the per-dof variant is not one "
                            f"of kernel 1's events {[o['name'] for o in k1]}")
     out["mega_stage_dof"] = 1e-3 * dof[0]["dur"]
     out["mega_stage"] = 1e-3 * sum(o["dur"] for o in k1 if o not in dof)
@@ -1579,9 +1690,9 @@ def measurement_phase(device, rng):
     tools = dict(check="microbench and kernelbench, 3d N=%d f32, ms" % N_MAIN,
                  microbench=mb, kernelbench=kb, launches=ops.launch_counts())
     print(json.dumps(tools), flush=True)
-    seven, tools["trace_ms"] = trace_seven_kernels(case, rng)
+    events, tools["trace_ms"] = trace_each_kernel(case, rng)
     print(json.dumps(dict(check="one traced launch of each kernel",
-                          trace_kernel_events=seven,
+                          trace_kernel_events=events,
                           trace_ms=tools["trace_ms"])), flush=True)
     return main, nonfused, tools
 
@@ -2340,6 +2451,7 @@ def main():
     for k, recs in check_mesh_orders(
             dev, np.random.default_rng(SEED + 3)).items():
         order_recs.setdefault(k, {}).update(recs)
+    fa_checks = fa_assemble_checks(dev)
     done("kernel checks")
 
     # 4. the main path, counted
@@ -2381,7 +2493,7 @@ def main():
     torch.cuda.empty_cache()
     done("paths C and D")
     # 7a. path G: the assembled path at full width, its stage split
-    run_path_g(dev)
+    rec_g, _ = run_path_g(dev)
     split_fa_stage(dev)
     torch.cuda.empty_cache()
     done("path G")
@@ -2611,6 +2723,15 @@ def main():
                                  "bound_ms", "bound_by")},
         checks=[{k: c[k] for k in ("check", "max_abs_err", "rel_err",
                                    "limit")} for c in face_checks.values()]))
+    kernels.append(row(
+        "fa_assemble", "remhos_torch/ops/csrc/fa_assemble.cu + mesh_geom.cuh",
+        "none: the assembled stage's element assembly in XLA ops "
+        "(remhos_tpu/operator.py:270-319)", rec_g["launches"]["fa_assemble"],
+        fa_checks["24_f32"], fa_checks["24_f64"], fa_checks,
+        check_trace_ms=fa_checks["24_f32"]["trace_ms"],
+        at_64={k: {f: fa_checks[f"64_{k}"][f] for f in (
+            "max_abs_err", "ms", "trace_ms", "plain_ms", "bound_ms",
+            "bound_by")} for k in ("f32", "f64")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -24,6 +24,16 @@ def interp_nodes(x, Bt):
     return (A @ Bt.T).reshape(E, dim, -1).transpose(1, 2)
 
 
+def face_velocity(v, Bmf):
+    """The nodal velocity v at the face points [E, nf, Qf, dim], from the
+    mesh basis there, Bmf[nf, Qf, nm]. In remap it does not depend on time,
+    so the operator makes it once (the reference reassembles it every
+    stage, remhos.cpp:1612-1643)."""
+    nf, Qf, nm = Bmf.shape
+    return interp_nodes(v, Bmf.reshape(nf * Qf, nm)).reshape(
+        v.shape[0], nf, Qf, -1)
+
+
 def jacobian_planes(x, Gm):
     """Jacobian planes J[d][b] -> [E, Q] from nodes x and Gm[Q, nm, dim]."""
     A, E, dim = _nodes_matrix(x)

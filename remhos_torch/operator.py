@@ -42,16 +42,18 @@ geometry made once, at construction (the mesh stands still), with
 routes it (operator.py:291-293, 331-336).
 
 Full assembly (no `-pa`, remhos_tpu/operator.py:270-319). Per stage the
-element matrices are assembled as dense batches (`assembly.py`): the
-volume and face geometry at the moved nodes, K_elem, bdrInt, M and ml;
-the Cholesky factors of M for `-ho 3` and every FCT; D for `-lo 1|2`; the
-subcell weights for `-lo 4`. Transport assembles them once. The solvers
-are `ho.py` (`-ho 1|2|3`), `lo.py` (`-lo 1|2|3|4|5`), `fct.py` (`-fct 2|4`),
-`fct_flux.py` (`-fct 1`), `fct_penalty.py` (`-fct 3`, with `-si` its
-sharpened bounds) and the monolithic `mono.py` (`-mono 1|2`, which replaces
-the HO solution and reads M, K_elem and bdrInt): batched dense products and
-factorizations in plain PyTorch, as the JAX package runs them through XLA
-with no Pallas kernel. No product runs in TF32. The smoothness indicator
+element data are assembled as dense batches: det J, K_elem, bdrInt, M and
+ml at the moved nodes, in remap on the card (mesh order 2, p = 2..4) by one
+launch of `ops/fa_assemble`, elsewhere by its plain chain (`assembly.py`
+on the volume and face geometry); the Cholesky factors of M for `-ho 3`
+and every FCT; D for `-lo 1|2`; the subcell weights for `-lo 4`.
+Transport assembles them once. The solvers are `ho.py` (`-ho 1|2|3`),
+`lo.py` (`-lo 1|2|3|4|5`), `fct.py` (`-fct 2|4`), `fct_flux.py` (`-fct
+1`), `fct_penalty.py` (`-fct 3`, with `-si` its sharpened bounds) and the
+monolithic `mono.py` (`-mono 1|2`, which replaces the HO solution and
+reads M, K_elem and bdrInt): batched dense products and factorizations in
+plain PyTorch, as the JAX package runs them through XLA with no Pallas
+kernel. No product runs in TF32. The smoothness indicator
 (`si.py`, `-si 1|2`) is built once from the initial mesh.
 
 1D meshes never reach the stage kernels, as in the JAX package: the driver
@@ -102,6 +104,7 @@ from . import sync as syncm
 from . import verify as vfy
 from .discretization import Discretization
 from .si import SmoothnessIndicator
+from .ops import fa_assemble as fam
 from .ops import tables as tbl
 from .ops.geom_conv import geom_conv, geom_conv_tables
 from .ops.mega_stage import mega_stage
@@ -322,7 +325,7 @@ class Advection:
             self._q1_grads = T(subm.q1_center_grads(disc.dim))
             self._subcell_nodes = subm.subcell_node_setup(self)
         if not self.cfg.pa:
-            self._init_assembled(T)
+            self._init_assembled()
             return
         self.Bgl, self.A_gl2b = T(disc.Bgl), T(disc.A_gl2b)
         if self.cfg.exec_mode == 0:
@@ -331,7 +334,7 @@ class Advection:
             self._transport_geom = self._transport_geometry(T)
             return
         if not self._face_wvn:
-            self._v_fq_static = self._face_velocity(T)
+            self._v_fq_static = geo.face_velocity(self.v_nodes, T(disc.Bmf))
         if disc.dim == 1:
             # kernels 3 and 4 are compiled for 2D and 3D: in 1D the stage
             # geometry is volume_detj_va's and the convection action
@@ -342,15 +345,6 @@ class Advection:
             self._v_q_static = geo.interp_nodes(self.v_nodes, T(disc.Bm))
             return
         self._gc_tables = geom_conv_tables(disc, self.dtype, dev)
-
-    def _face_velocity(self, T):
-        """The remap mesh velocity at the face points [E, nf, Qf, dim]. It
-        does not depend on time, so it is made once (the reference
-        reassembles it every stage, remhos.cpp:1612-1643)."""
-        nf, Qf, nm = self.disc.Bmf.shape
-        return geo.interp_nodes(
-            self.v_nodes, T(self.disc.Bmf.reshape(nf * Qf, nm))).reshape(
-                self.v_nodes.shape[0], nf, Qf, -1)
 
     def _face_normals(self, x):
         """The scaled outward face normals [E, nf, Qf, dim] at the nodes x:
@@ -371,18 +365,20 @@ class Advection:
         return prob.velocity_function(self.cfg.problem, pts.double(),
                                       self.bb_min, self.bb_max).to(self.dtype)
 
-    def _init_assembled(self, T):
-        """Static tables of the assembled stage: the volume and face bases
-        and, in remap, the mesh velocity at the volume and face points; in
-        transport the whole stage geometry, assembled once."""
-        disc = self.disc
-        self.Gu, self.Bm, self.Gm = T(disc.Gu), T(disc.Bm), T(disc.Gm)
-        self.Bmf = T(disc.Bmf)
-        if self.cfg.exec_mode == 1:
-            self._v_q_static = geo.interp_nodes(self.v_nodes, self.Bm)
-            self._v_fq_static = self._face_velocity(T)
-        else:
+    def _init_assembled(self):
+        """Static tables of the assembled stage (`ops/fa_assemble`'s: the
+        volume and face bases and, where the kernel engages, its 1D tables)
+        and, in remap on the plain chain, the mesh velocity at the volume
+        and face points; in transport the whole stage geometry, assembled
+        once."""
+        self._fa_tables = fam.fa_assemble_tables(
+            self.disc, self.dtype, self.device, self.cfg.exec_mode)
+        if self.cfg.exec_mode == 0:
             self._assembled_geom = self._assemble(0.0)
+        elif not self._fa_tables["engaged"]:
+            tb = self._fa_tables
+            self._v_q_static = geo.interp_nodes(self.v_nodes, tb["Bm"])
+            self._v_fq_static = geo.face_velocity(self.v_nodes, tb["Bmf"])
 
     def _transport_geometry(self, T):
         """The transport stage's geometry (remhos_tpu/operator.py:270-302),
@@ -479,7 +475,9 @@ class Advection:
     def _assemble(self, t):
         """The assembled stage geometry at time t (remhos.cpp:1598-1676;
         remhos_tpu/operator.py:270-319): detJ, K_elem, bdrInt, M, ml (span
-        `remhos.assemble`); chol_L for -ho 3 (`remhos.factor`); D for -lo
+        `remhos.assemble`: one launch of `ops/fa_assemble` where it engages,
+        in remap on the card at mesh order 2, else its plain chain);
+        chol_L for -ho 3 (`remhos.factor`); D for -lo
         1|2 (`remhos.upwind`); sub_w for -lo 4 and -mono 2. M is made for
         every configuration (the monolithic solver reads it). The JAX
         package also factors M for every FCT and -mono, where nothing reads
@@ -489,25 +487,19 @@ class Advection:
         Cholesky turns into NaN factors that nothing reads)."""
         cfg = self.cfg
         with span("remhos.assemble"):
-            if cfg.exec_mode == 1:
-                x = self.x0_nodes + t * self.v_nodes
-            else:
-                x = self.x0_nodes
-            vol = geo.volume_geometry(x, self.Bm, self.Gm)
-            x_fq, nor = self._face_points_normals(x, self.Bmf)
+            tb = self._fa_tables
             if cfg.exec_mode == 0:
-                v_q, v_fq = self._velocity(vol["x_q"]), self._velocity(x_fq)
-                sign = -1.0
+                mats = fam.fa_assemble_reference(self.x0_nodes, tb, 0,
+                                                 velocity=self._velocity)
+            elif tb["engaged"]:
+                mats = fam.fa_assemble(self.x0_nodes + t * self.v_nodes,
+                                       self.v_nodes, tb)
             else:
-                v_q, v_fq = self._v_q_static, self._v_fq_static
-                sign = 1.0
-            K_elem = asm.element_convection(v_q, vol["adjJ"], self.Bu,
-                                            self.Gu, self.w_q, sign)
-            bdrInt = asm.face_upwind_matrices(v_fq, nor, self.w_fq,
-                                              self.Bface, cfg.exec_mode)
-            M = asm.element_mass(vol["detJ"], self.Bu, self.w_q)
-            geom = dict(detJ=vol["detJ"], K_elem=K_elem, bdrInt=bdrInt, M=M,
-                        ml=asm.lumped_mass(M))
+                mats = fam.fa_assemble_reference(
+                    self.x0_nodes + t * self.v_nodes, tb, 1,
+                    self._v_q_static, self._v_fq_static)
+            detJ, M, ml, K_elem, bdrInt = mats
+            geom = dict(detJ=detJ, K_elem=K_elem, bdrInt=bdrInt, M=M, ml=ml)
         if cfg.ho == 3:
             with span("remhos.factor"):
                 geom["chol_L"] = hom.mass_cholesky(M)

@@ -36,6 +36,7 @@ LIBRARIES = {
                        ("mesh_geom.cuh", "stage_core.cuh")),
     "gl_cg": (("gl_cg.cu",), ("stage_core.cuh",)),
     "gather_nbr": (("gather_nbr.cu",), ()),
+    "fa_assemble": (("fa_assemble.cu",), ("mesh_geom.cuh", "stage_core.cuh")),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

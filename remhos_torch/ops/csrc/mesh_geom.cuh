@@ -88,8 +88,11 @@ constexpr int FACE_DESC = 5;
 
 // VEL: with the velocity and va (kernels 4 and 5); without, J and w_q det J
 // alone (kernel 3). FACE: also vn at the face points, from the staged nodes
-// and velocity (kernel 5, with VEL; kernel 3's face variant, without).
-template <typename T, int DIM, int MT, int QT, bool VEL, bool FACE = false>
+// and velocity (kernel 5, with VEL; kernel 3's face variant, without). DET:
+// also det J itself into s_dj (the element assembly, fa_assemble.cu, with
+// VEL and FACE).
+template <typename T, int DIM, int MT, int QT, bool VEL, bool FACE = false,
+          bool DET = false>
 struct MeshGeom {
   static constexpr int MM = MT ? MT : DMAX;    // register extents
   static constexpr int QM = QT ? QT : QMAX;
@@ -110,6 +113,7 @@ struct MeshGeom {
   T* s_wd;         // [te][Qv]
   T* s_scr;        // [te][sx] scratch
   T* s_vn;         // [te][nf Qf] (FACE)
+  T* s_dj;         // [te][Qv] det J (DET)
 
   __device__ __forceinline__ int m1() const { return MT ? MT : m1_; }
   __device__ __forceinline__ int Q1() const { return QT ? QT : Q1_; }
@@ -312,6 +316,7 @@ struct MeshGeom {
             }
           }
           if (with_det) wd_e[qp] = __ldg(w_q + qp) * det;
+          if constexpr (DET) s_dj[e * Qv + qp] = det;
         }
     }
   }

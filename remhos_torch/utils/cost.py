@@ -209,6 +209,42 @@ def stage_ho_nodes_cost(xs, u, tb, n_cg, with_face=True):
     return nbytes, E * (2 * mac + pointwise)
 
 
+def matrix_macs(n, q, dim):
+    """Multiply-adds of one element matrix sum_q W(q) prod_a T_a(q_a, i_a,
+    j_a) on a tensor rule of q^dim points with n^dim dofs, contracted one
+    rule axis at a time: q^dim n^2 + q^(dim-1) n^4 + ... + q n^(2 dim)."""
+    return sum(q ** (dim - k + 1) * n ** (2 * k) for k in range(1, dim + 1))
+
+
+def fa_assemble_cost(xs, tables):
+    """(bytes, flops) of the assembled stage's kernel: xs and v and the
+    kernel's tables (the packed 1D mesh and Bernstein tables, w_q, the face
+    descriptors, w_fq) read once, det J, M, ml, K and the face blocks
+    written once. Operations, as perfbench/yardstick_fa.py counts the
+    assembly (its parts geometry, faces and matrices): J and v at the
+    volume points and 55 operations a point (cofactors, det J, w adj(J) v);
+    at each face's points the tangents and v and 17 operations a point
+    (the normal, v . n, w max(0, v . n)); M, the dim parts of K and each
+    face block as `matrix_macs`, and ml as one tensor contraction."""
+    E, nm, dim = xs.shape
+    m1, q1, n1 = tables["m1"], tables["Q1"], tables["D"]
+    Q, Qf = q1 ** dim, q1 ** (dim - 1)
+    nd, nf, fd = n1 ** dim, tables["fdesc"].shape[0], n1 ** (dim - 1)
+    assert m1 ** dim == nm, "the nodes are not the tables' mesh order"
+    nbytes = ((2 * xs.numel() + E * (Q + 2 * nd * nd + nd + nf * fd * fd))
+              * xs.element_size()
+              + _nbytes(tables[k] for k in ("msf", "bsf", "w_q", "fdesc",
+                                            "w_fq")))
+    geometry = (2 * dim * (gradient_macs(m1, q1, dim)
+                           + tensor_macs(m1, q1, dim)) + 55 * Q)
+    faces = nf * (2 * dim * (gradient_macs(m1, q1, dim - 1)
+                             + tensor_macs(m1, q1, dim - 1)) + 17 * Qf)
+    matrices = 2 * ((1 + dim) * matrix_macs(n1, q1, dim)
+                    + nf * matrix_macs(n1, q1, dim - 1)
+                    + tensor_macs(n1, q1, dim))
+    return nbytes, E * (geometry + faces + matrices)
+
+
 def gl_cg_cost(rhs, wdet, tables, iterations):
     """(bytes, flops) of kernel 6: rhs and wdet read once, the result
     written once, the 1D tables sf read once; per element b = rhs A, the

@@ -7,8 +7,8 @@ CPU and CUDA activities. A trace of the real loop gives
   measured by the device (CUPTI), not by the host clock;
 - for each of them the `aten::` op that launched it: the innermost CPU op
   around the runtime call whose correlation id the device event carries.
-  The port's seven kernels are launched through ctypes outside any aten op
-  and are counted by their symbol names (`<name>_kernel`);
+  The port's kernels (`ops.KERNELS`) are launched through ctypes outside
+  any aten op and are counted by their symbol names (`<name>_kernel`);
 - the device's busy time (the union of the device events' intervals) and
   its idle share over the traced window.
 

@@ -76,7 +76,7 @@ def test_main_record():
     assert rec["hbm_gb_per_s_model"] is None
     assert set(rec["kernels"]) == {"mega_stage", "stage_ho", "wdet",
                                    "geom_conv", "stage_ho_nodes", "gl_cg",
-                                   "gather_nbr"}
+                                   "gather_nbr", "fa_assemble"}
 
 
 @pytest.mark.parametrize("closure", ["full", "0", "1"])

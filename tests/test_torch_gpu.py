@@ -14,13 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from remhos_torch import bench, bounds, driver, structured
+from remhos_torch import bench, bounds, driver, geometry, structured
 from remhos_torch import problems as prob
 from remhos_torch.config import RunConfig
 from remhos_torch.discretization import build_discretization
 from remhos_torch.mesh import make_cartesian_mesh
 from remhos_torch.operator import Advection, SolverConfig
 from remhos_torch import ops
+from remhos_torch.ops import fa_assemble as fa
 from remhos_torch.ops import gather_nbr as gn
 from remhos_torch.ops import geom_conv as gc
 from remhos_torch.ops import gl_cg as cg
@@ -563,10 +564,11 @@ def test_trace_counts_equal_launch_counters():
                                           pa=True), adv.x0_nodes,
                    adv.v_nodes, dtype=torch.float32, device="cuda")
     tbn = shn.stage_ho_nodes_tables(adv.disc, torch.float32, "cuda")
+    tbf = fa.fa_assemble_tables(adv.disc, torch.float32, "cuda")
     lay = gn.GatherLayout(adv.shape, adv.periodic,
                           adv.disc.dofmaps.nbr_dof_local, "cuda")
 
-    def seven():
+    def every_kernel():
         for _ in range(2):
             ms.mega_stage(0.1, DT, u, unbr, smin, smax, adv._poly,
                           adv._stage_tables)
@@ -576,13 +578,15 @@ def test_trace_counts_equal_launch_counters():
         shn.stage_ho_nodes(xs, adv.v_nodes, u, unbr, tbn, mode=1.0)
         cg.gl_cg(u, wdet, adv._stage_tables)
         gn.gather_nbr(u, lay)
+        fa.fa_assemble(xs, adv.v_nodes, tbf)
 
-    seven()
-    tr, launches = trc.capture_counted(seven)
+    every_kernel()
+    tr, launches = trc.capture_counted(every_kernel)
     events = trc.check_kernel_events(tr, launches, "test")
     assert events == dict(dict.fromkeys(ops.KERNELS, 1), mega_stage=2)
     rep = trc.loop_report(tr, 1, 1)
-    assert rep["kernel_calls"] == 8 and 0.0 <= rep["idle_share"] < 1.0
+    assert rep["kernel_calls"] == len(ops.KERNELS) + 1
+    assert 0.0 <= rep["idle_share"] < 1.0
 
 
 def _f64(*tensors):
@@ -761,16 +765,19 @@ def test_short_path_f_runs_the_per_dof_variant():
 @pytest.mark.gpu
 def test_fa_path_runs_on_the_card_without_kernels():
     """The assembled path on a CUDA operator: its tensors on the card, no
-    kernel launched, the same run as on the CPU to 1e-12 in f64."""
+    kernel launched but `fa_assemble`, once an assembly (3 stages a step
+    and the two mass reports), the same run as on the CPU to 1e-12 in
+    f64."""
     _cuda()
     kw = dict(mesh="cube01_hex", problem=10, rs_levels=0, order=2, dt=0.02,
               t_final=0.7, max_tsteps=4, ho=3, lo=1, fct=1, verbose=False)
-    ops.reset_launch_counts()
     adv, _ = driver.build_operator(RunConfig(device="cuda", **kw))
     assert adv.geometry(0.1)["K_elem"].device.type == "cuda"
+    ops.reset_launch_counts()
     rc = driver.run(RunConfig(device="cuda", **kw))
     rh = driver.run(RunConfig(device="cpu", **kw))
-    assert set(ops.launch_counts().values()) == {0}
+    assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
+                                       fa_assemble=3 * rc.steps_total + 2)
     assert abs(rc.final_mass_u - rh.final_mass_u) <= 1e-12 * rh.final_mass_u
     assert abs(rc.max_u - rh.max_u) <= 1e-12 * rh.max_u
 
@@ -796,9 +803,58 @@ def test_fa_stage_matches_the_cpu(t):
     for dev in ("cpu", "cuda"):
         adv = Advection(disc, cfg, x0.to(dev), v.to(dev),
                         dtype=torch.float64, device=dev)
+        before = fa.fa_assemble.launches
         du[dev] = adv.stage_function()(t, 0.01, u.to(dev))[0].cpu()
+        # the card's stage takes its element matrices from one launch
+        assert fa.fa_assemble.launches == before + (dev == "cuda")
     ref = du["cpu"]
     assert (du["cuda"] - ref).abs().max() <= 1e-12 * ref.abs().max()
+
+
+def _fa_moving_mesh(dim, p, dtype, t):
+    """A curved mesh of 3^3 (5^2) elements, mesh order 2, moved to
+    pseudo-time t by a random nodal velocity: (tables, tables in f64, xs,
+    v, xs in f64, v in f64), on the card."""
+    n = 3 if dim == 3 else 5
+    mesh = make_cartesian_mesh(dim, (n,) * dim, (0.0,) * dim, (1.0,) * dim,
+                               (False,) * dim)
+    disc = build_discretization(mesh, p)
+    rng = np.random.default_rng(10 * dim + p)
+    x0 = mesh.x + 0.03 * np.sin(3.0 * mesh.x[..., ::-1])
+    v = 0.3 * rng.standard_normal(mesh.x.shape)
+    xs64 = torch.as_tensor(x0 + t * v, dtype=torch.float64, device="cuda")
+    v64 = torch.as_tensor(v, dtype=torch.float64, device="cuda")
+    return (fa.fa_assemble_tables(disc, dtype, "cuda"),
+            fa.fa_assemble_tables(disc, torch.float64, "cuda"),
+            xs64.to(dtype).contiguous(), v64.to(dtype).contiguous(), xs64,
+            v64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [0.0, 0.5])
+@pytest.mark.parametrize("p", [2, 3, 4])
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 1e-5)])
+def test_fa_assemble_matches_reference(dim, p, dtype, tol, t):
+    """The assembled stage's kernel on a moving curved mesh (27 or 25
+    elements: a ragged last tile) against its plain chain evaluated in f64:
+    det J, M, ml, K and the face blocks, each to `tol` of its largest
+    entry; one launch counted."""
+    _cuda()
+    tb, tb64, xs, v, xs64, v64 = _fa_moving_mesh(dim, p, dtype, t)
+    assert tb["engaged"]
+    before = fa.fa_assemble.launches
+    got = fa.fa_assemble(xs, v, tb)
+    torch.cuda.synchronize()
+    assert fa.fa_assemble.launches == before + 1
+    ref = fa.fa_assemble_reference(xs64, tb64, 1,
+                                   geometry.interp_nodes(v64, tb64["Bm"]),
+                                   geometry.face_velocity(v64, tb64["Bmf"]))
+    for name, g, r in zip(("detJ", "M", "ml", "K", "bdrInt"), got, ref):
+        assert g.shape == r.shape and g.dtype == dtype, name
+        err = (g.to(torch.float64) - r).abs().max().item()
+        assert err <= tol * r.abs().max().item(), name
 
 
 @pytest.mark.gpu
