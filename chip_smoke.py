@@ -107,13 +107,14 @@ It builds the CUDA kernels from the sources on first use, then:
    product remap, IDP, dt control; FA_GOLDEN_ROWS; 5e-10, no kernel but
    fa_assemble on the remap rows);
    then the entry points of the port:
-   a. the benchmark record, `bench.main_dual` in this process at full width
-      (N=24, p=3, 320 steps, best of 4 windows, with the p=4 leg, the f64
-      leg, the 40-step f32-vs-f64 cross check, the sweep (24|32) x (3|4)
-      and its peak, and the phase FOMs): it must be verified, every leg
-      must have run (`legs_skipped` empty; the one-shard `shardmap` leg
-      verified) and kernel 1 must have launched 3 x 320 x 4 times over the
-      timed windows;
+   a. the benchmark record, `bench.main` in this process at full width
+      (N=24, p=3, 320 steps, best of 4 windows, the 2-step f32-vs-f64
+      cross check, the trace and the phase FOMs): it must be verified and
+      kernel 1 must have launched 3 x 320 x 4 times over the timed
+      windows; then its sharded loop over a group of one
+      (BENCH_SHARDED=1, NCCL in this process, one window, no closure):
+      verified against the open-mode drift budget, kernel 1 launched
+      3 x 320 times;
    b. path E, transport at full width through driver.run: periodic-cube
       refined to 24^3, p=3, problem 0, `-ho 3 -lo 5 -fct 2 -pa` in f32 with
       the Kahan combine and the full closure (the mesh is all periodic),
@@ -336,11 +337,13 @@ FA_OUTPUTS = ("detJ", "M", "ml", "K_elem", "bdrInt")
 MEASURE_STEPS = 10
 GOLDEN_ROWS = ("remap-cube3d-m3pa", "remap-cube3d-m4pa")
 GOLDEN_TOL = 5e-10       # the baseline prints 10 significant digits
-# step 9a: the record's knobs (bench.py's defaults, named); its budget leaves
-# the script inside its time limit
+# step 9a: the record's knobs (bench.py's defaults, named)
 RECORD_ENV = dict(BENCH_N=str(N_MAIN), BENCH_P=str(ORDER),
-                  BENCH_STEPS=str(STEPS), BENCH_REPS="4",
-                  BENCH_BUDGET_S="600")
+                  BENCH_STEPS=str(STEPS), BENCH_REPS="4")
+# then the same loop sharded over a group of one (NCCL, in this process),
+# one timed window
+SHARDED_RECORD_ENV = dict(RECORD_ENV, BENCH_SHARDED="1", BENCH_REPS="1",
+                          BENCH_TRACE="0", BENCH_PHASES="0")
 # path E: transport at full width, f32, closure on (all periodic)
 PATH_E = dict(mesh="periodic-cube", rs_levels=3, order=ORDER, problem=0,
               ho=3, lo=5, fct=2, pa=True, dtype="float32", dt=0.0025,
@@ -439,8 +442,8 @@ def k_drift(n_steps, dt):
 # the bf16 P16 stream: the record's f32 leg with BENCH_POLY_BF16=1 (kernel
 # 1), then path A with poly_bf16 for 40 steps (kernel 2: two fields), gates
 # as path A's
-P16_RECORD_ENV = dict(RECORD_ENV, BENCH_POLY_BF16="1", BENCH_DUAL="0",
-                      BENCH_TRACE="0", BENCH_PHASES="0")
+P16_RECORD_ENV = dict(RECORD_ENV, BENCH_POLY_BF16="1", BENCH_TRACE="0",
+                      BENCH_PHASES="0")
 PATH_A16 = dict(PATH_A, poly_bf16=True, max_tsteps=40)
 A16_LIMITS = dict(A_LIMITS, min_steps=40)
 # the orders kernels 1, 2 and 5 are also held at (p=3: step 3's checks);
@@ -1704,31 +1707,24 @@ def golden_rows():
 
 
 def run_record(device):
-    """Step 9a: the benchmark record at full width, in this process."""
-    ops.reset_launch_counts()
-    rec = bench.main_dual(device=device, env=RECORD_ENV)
-    steps, reps = int(RECORD_ENV["BENCH_STEPS"]), int(RECORD_ENV["BENCH_REPS"])
-    print(json.dumps(rec), flush=True)
-    want = bench.STAGES * steps * reps
-    problems = []
-    if rec["verified"] is not True:
-        problems.append("not verified")
-    if rec["legs_skipped"] != []:
-        problems.append(f"legs skipped: {rec['legs_skipped']}")
-    if rec.get("shardmap_verified") is not True or not \
-            rec.get("shardmap_value", 0) > 0:
-        problems.append("the shardmap leg did not run verified")
-    if rec["kernels"]["mega_stage"] != want:
-        problems.append(f"kernel 1 launched {rec['kernels']['mega_stage']} "
-                        f"times over the windows, expected {want}")
-    if not isinstance(rec.get("f32_vs_f64_40step_rel"), float):
-        problems.append("no 40-step cross check")
-    if len(rec.get("sweep", ())) != 4 or "fom" not in rec or \
-            rec.get("p4_value") is None or rec.get("f64_value") is None:
-        problems.append("a leg is missing from the record")
-    if problems:
-        raise RuntimeError(f"benchmark record: {'; '.join(problems)}")
-    return rec
+    """Step 9a: the benchmark record at full width, in this process, then
+    its sharded loop over a group of one. Returns the unsharded record."""
+    recs = []
+    for label, env in (("benchmark record", RECORD_ENV),
+                       ("sharded benchmark record", SHARDED_RECORD_ENV)):
+        ops.reset_launch_counts()
+        rec = bench.main(device=device, env=env)
+        want = bench.STAGES * int(env["BENCH_STEPS"]) * int(env["BENCH_REPS"])
+        problems = []
+        if rec["verified"] is not True or not rec["value"] > 0:
+            problems.append("not verified")
+        if rec["kernels"]["mega_stage"] != want:
+            problems.append(f"kernel 1 launched {rec['kernels']['mega_stage']}"
+                            f" times over the windows, expected {want}")
+        if problems:
+            raise RuntimeError(f"{label}: {'; '.join(problems)}")
+        recs.append(rec)
+    return recs[0]
 
 
 def run_transport_path(path, cfg_kw, limits, device):
@@ -1775,8 +1771,7 @@ def run_transport_goldens(device):
     if rc != 0 or sorted(rec["matched"]) != sorted(TRANSPORT_ROWS):
         raise RuntimeError(f"transport golden rows: {rec['matched']} "
                            f"matched, {rec['failed']} failed")
-    return dict(matched=rec["matched"], not_ported=len(rec["not_ported"]),
-                launches=n)
+    return dict(matched=rec["matched"], launches=n)
 
 
 def run_cli():
@@ -1934,7 +1929,6 @@ def run_slice10_goldens(device):
             raise RuntimeError(f"golden rows {tag}: {rec['matched']} "
                                f"matched, {rec['failed']} failed")
         out[tag] = dict(matched=rec["matched"], launches=n,
-                        not_ported=len(rec["not_ported"]),
                         wall_s=time.perf_counter() - t0)
     print(json.dumps(dict(check="tenth slice golden rows", **out)),
           flush=True)

@@ -11,12 +11,10 @@ tolerances unchanged:
 - `verify`: mass conservation of the closed state, the closure's injected
   mass against its drift budget, and no overshoot or undershoot;
 - `cross_precision_check`: the f32 state after 2 steps against 2 f64 steps,
-  which catches a silently degenerate f32 hot path; the dual record adds
-  the same check after BENCH_STEPS_F64 (40) steps.
+  which catches a silently degenerate f32 hot path.
 
 A check that did not run is recorded as skipped and leaves `verified` not
-true: bench.py drops its 40-step check without a word when a leg is
-missing (bench.py:762); here it is recorded.
+true.
 
 The figure of merit keeps the reference's stage counting (remhos.cpp:
 1340-1347): MDOF * RK-stages / s, over the best of BENCH_REPS windows after
@@ -26,22 +24,18 @@ host drives, one launch at a time: bench.py's argument for its window (one
 `lax.scan` dispatch amortizes a fixed latency) does not carry over, and the
 window's wall includes the host's work.
 
-    python -m remhos_torch.bench          (main_dual unless BENCH_DUAL=0)
+    python -m remhos_torch.bench          (`main`: one leg, verified)
 
 Knobs, read by `knobs()` with bench.py's names and defaults: BENCH_N (24),
 BENCH_P (3), BENCH_STEPS (320), BENCH_DT (0.2/steps), BENCH_REPS (4),
-BENCH_DUAL, BENCH_P4, BENCH_CROSSCHECK, BENCH_VERIFY, BENCH_DTYPE
-(float32), BENCH_CLOSURE (1|full|0), BENCH_PHASES, BENCH_TRACE,
-BENCH_BUDGET_S (1100), BENCH_SWEEP, BENCH_SWEEP_FULL, BENCH_PEAK_VERIFY,
-BENCH_STEPS_F64 (40), BENCH_STEPS_SWEEP (80), BENCH_CROSSDUMP,
-BENCH_POLY_BF16 (0: 1 streams va and vn in bf16, f32 only; the closure's
-injection budget and the cross checks are its gates), BENCH_SHARDED (0: n
-runs the same production loop sharded over a process group of n,
-`sharded_record`) and BENCH_SHARDED_LEG (1: the dual record's one-shard
-leg). The TPU's BENCH_PALLAS=0 (the plain version on the device, which the
-port does not offer on the card) raises ValueError. The legs of the dual
-record take their sizes as function arguments; nothing here writes
-os.environ.
+BENCH_CROSSCHECK, BENCH_VERIFY, BENCH_DTYPE (float32), BENCH_CLOSURE
+(1|full|0), BENCH_PHASES, BENCH_TRACE, BENCH_CROSSDUMP, BENCH_POLY_BF16 (0:
+1 streams va and vn in bf16, f32 only; the closure's injection budget and
+the cross check are its gates) and BENCH_SHARDED (0: n runs the same
+production loop sharded over a process group of n, `sharded_record`). The
+TPU's BENCH_PALLAS=0 (the plain version on the device, which the port does
+not offer on the card) raises ValueError. Nothing here writes os.environ;
+`python -m remhos_torch.tools.sweep` runs one process a (N, p) point.
 
 The sharded loop (bench.py:441-490) is the production loop in a process
 group: each rank runs its block through `parallel.sharded`'s step with the
@@ -54,13 +48,11 @@ rank 0's record returned.
 from __future__ import annotations
 
 import dataclasses
-import gc
 import json
 import os
 import subprocess
 import sys
 import time
-import traceback
 
 import numpy as np
 import torch
@@ -83,14 +75,6 @@ PROBLEM = 10
 # (remhos_tests.cpp:53-58: 2.56M dofs, 5 steps, RK3, 5.537 s):
 # 2.56 * 5 * 3 / 5.537 = 6.935 MDOF*stages/s. Not a TPU or GPU number.
 BASELINE_FOM = 6.935
-# bench.py's sweep grid (N, p); BENCH_SWEEP_FULL adds (48, 3)
-SWEEP_POINTS = ((24, 3), (32, 3), (24, 4), (32, 4))
-# seconds a dual-record leg may take at the default sizes, from its build
-# through its checks: a leg is skipped (and listed in `legs_skipped`) when
-# less of BENCH_BUDGET_S is left. These are estimates with margin; the
-# record's `leg_wall_s` gives each leg's measured seconds.
-LEG_COST_S = dict(p4=60.0, float64=40.0, sweep=60.0, peak=60.0,
-                  phases=150.0, shardmap=60.0)
 
 
 def _env_on(env, name, default="1"):
@@ -118,21 +102,13 @@ def knobs(env=None) -> dict:
         steps=steps, dt=float(env.get("BENCH_DT") or 0.2 / steps),
         reps=max(1, int(env.get("BENCH_REPS", "4"))),
         dtype=dtype, closure=closure,
-        dual=_env_on(env, "BENCH_DUAL"), p4=_env_on(env, "BENCH_P4"),
         crosscheck=_env_on(env, "BENCH_CROSSCHECK"),
         verify=_env_on(env, "BENCH_VERIFY"),
         phases=_env_on(env, "BENCH_PHASES"),
         trace=_env_on(env, "BENCH_TRACE"),
-        budget_s=float(env.get("BENCH_BUDGET_S", "1100")),
-        sweep=_env_on(env, "BENCH_SWEEP"),
-        sweep_full=_env_on(env, "BENCH_SWEEP_FULL", "0"),
-        peak_verify=_env_on(env, "BENCH_PEAK_VERIFY"),
-        steps_f64=int(env.get("BENCH_STEPS_F64", "40")),
-        steps_sweep=int(env.get("BENCH_STEPS_SWEEP", "80")),
         crossdump=env.get("BENCH_CROSSDUMP", ""),
         poly_bf16=_env_on(env, "BENCH_POLY_BF16", "0"),
-        sharded=int(env.get("BENCH_SHARDED", "0")),
-        sharded_leg=_env_on(env, "BENCH_SHARDED_LEG"))
+        sharded=int(env.get("BENCH_SHARDED", "0")))
 
 
 def device_line(device) -> str:
@@ -528,14 +504,12 @@ def _sharded_leg(n, p, steps, dt, dtype, reps, verify_state, device,
     return sharded_record(case, n_shards, reps, verify_state)
 
 
-def leg(n, p, steps, dt=None, dtype=torch.float32, reps=4, closure="1",
-        verify_state=True, crosscheck=True, trace=False, phases=False,
-        device=None, keep_steps=0, shards=0, poly_bf16=False):
+def leg(n, p, steps, dt, dtype, reps, closure, verify_state, crosscheck,
+        trace, phases, device, shards, poly_bf16):
     """One leg of a record: build the case at (n, p), time it and verify
-    it (`run`). Returns (record, u after keep_steps steps of the same loop
-    from the initial state or None, u after the last timed window). With
+    it (`run`). Returns (record, u after the last timed window). With
     `shards` > 0 the leg is the sharded loop (`sharded_record`): in this
-    process for one shard, in spawned ranks for more; its kept state is
+    process for one shard, in spawned ranks for more; its final state is
     None."""
     if shards:
         from .parallel import launch
@@ -548,15 +522,14 @@ def leg(n, p, steps, dt=None, dtype=torch.float32, reps=4, closure="1",
                 rec = _sharded_leg(*args)
         else:
             rec = launch.spawn(_sharded_leg, shards, device, *args)
-        return rec, None, None
+        return rec, None
     case = build_case(n, p, dtype, device, n_steps=steps, dt=dt,
                       closure=closure, poly_bf16=poly_bf16)
     rec = run(case, reps=reps, warmup=True, verify_state=verify_state,
               crosscheck=crosscheck, trace=trace, phases=phases)
     if poly_bf16:
         rec["poly_bf16"] = True
-    kept = run_steps(case, keep_steps)[0] if keep_steps else None
-    return rec, kept, case.u_final
+    return rec, case.u_final
 
 
 def main(device=None, env=None) -> dict:
@@ -564,7 +537,7 @@ def main(device=None, env=None) -> dict:
     of `env` (os.environ); prints its JSON record and returns it."""
     k = knobs(env)
     dtype = torch.float32 if k["dtype"] == "float32" else torch.float64
-    rec, _, u_final = leg(
+    rec, u_final = leg(
         k["n"], k["p"], k["steps"], dt=k["dt"], dtype=dtype, reps=k["reps"],
         closure=k["closure"], verify_state=k["verify"],
         crosscheck=k["crosscheck"], trace=k["trace"], phases=k["phases"],
@@ -575,180 +548,6 @@ def main(device=None, env=None) -> dict:
     print(f"# {rec['ndofs']} dofs, {k['steps']} steps, {rec['wall_s']:.3f} s"
           f" on {rec['device']}", file=sys.stderr)
     return rec
-
-
-def main_dual(device=None, env=None) -> dict:
-    """bench.py's main_dual (bench.py:637-853): the f32 headline with the
-    p=4 leg, the f64 leg, the f32-vs-f64 cross check after BENCH_STEPS_F64
-    steps, the N x p sweep (SWEEP_POINTS) with its peak verified on the
-    headline's trajectory, and the phase FOMs, in one JSON
-    record under a wall-clock budget (BENCH_BUDGET_S). Every finished leg
-    re-prints the accumulated record, so the last JSON line printed is the
-    most complete. An optional leg is skipped, and listed in
-    `legs_skipped`, when less of the budget is left than its `LEG_COST_S`;
-    one that fails is listed as "<tag>:failed" with its traceback on
-    stderr. With BENCH_SHARDED_LEG (default on), the headline's loop also
-    runs sharded over a process group of one (`sharded_record`), after the
-    cross check: `shardmap_value`, `shardmap_mass_rel_loss` and
-    `shardmap_overhead_vs_unsharded` (bench.py:775-790). BENCH_POLY_BF16=1
-    runs the f32 legs with the bf16 va/vn stream. `leg_wall_s` gives the
-    seconds of each leg that ran. Each leg's tensors are freed before the
-    next leg."""
-    k = knobs(env)
-    dev = resolve_device(device)
-    t_start = time.perf_counter()
-    f32, f64 = torch.float32, torch.float64
-    skipped = []
-
-    def remaining():
-        return k["budget_s"] - (time.perf_counter() - t_start)
-
-    leg_wall = {}
-
-    def run_leg(tag, cost_s, required=False, **kw):
-        """`leg`'s (record, kept state, final state) of one leg, ({}, None,
-        None) if it did not run."""
-        if not required and remaining() < cost_s:
-            skipped.append(tag)
-            print(f"({tag} leg skipped: {remaining():.0f} s left < "
-                  f"{cost_s:.0f} s estimate)", file=sys.stderr)
-            return {}, None, None
-        kw = dict(dict(reps=k["reps"], closure=k["closure"],
-                       verify_state=k["verify"], crosscheck=k["crosscheck"],
-                       device=dev, poly_bf16=k["poly_bf16"]), **kw)
-        t0 = time.perf_counter()
-        try:
-            return leg(**kw)
-        except Exception:
-            if required:
-                raise
-            traceback.print_exc()
-            print(f"({tag} leg failed)", file=sys.stderr)
-            skipped.append(f"{tag}:failed")
-            return {}, None, None
-        finally:
-            leg_wall[tag] = time.perf_counter() - t0
-            gc.collect()
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-
-    n, p, steps, dt = k["n"], k["p"], k["steps"], k["dt"]
-    n_x = k["steps_f64"]
-    # 1. the f32 headline, and its own f32 loop over the cross check's steps
-    head, u32, _ = run_leg("float32", 0.0, required=True, n=n, p=p,
-                           steps=steps, dt=dt, trace=k["trace"],
-                           keep_steps=n_x if k["crosscheck"] else 0)
-    result = dict(head)
-    result["baseline_fom"] = BASELINE_FOM
-
-    def flush():
-        result["record_wall_s"] = time.perf_counter() - t_start
-        result["legs_skipped"] = sorted(set(skipped))
-        result["leg_wall_s"] = dict(leg_wall)
-        print(json.dumps(result), flush=True)
-
-    flush()
-    # 2. the p=4 leg
-    p4 = {}
-    if k["p4"]:
-        p4, _, _ = run_leg("p4", LEG_COST_S["p4"], n=n, p=4, steps=steps,
-                           dt=dt)
-        if p4:
-            result.update(p4_value=p4["value"], p4_ndofs=p4["ndofs"],
-                          p4_mass_rel_loss=p4["mass_rel_loss"],
-                          p4_hbm_util=p4["hbm_util_model"],
-                          p4_verified=p4["verified"])
-            flush()
-    # 3. the f64 leg at the f32 leg's dt, BENCH_STEPS_F64 steps, 2 windows:
-    # its last window's state is the f64 state after the cross check's steps
-    f64rec, _, u64 = run_leg("float64", LEG_COST_S["float64"], n=n, p=p,
-                             steps=n_x, dt=dt, dtype=f64, reps=2)
-    result.update(f64_value=f64rec.get("value"),
-                  f64_vs_baseline=f64rec.get("vs_baseline"),
-                  f64_mass_rel_loss=f64rec.get("mass_rel_loss"))
-    # 4. the f32 state against the f64 state after the same steps
-    if u32 is not None and u64 is not None:
-        a, b = u32.double(), u64.double()
-        rel = float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
-        result["f32_vs_f64_40step_rel"] = rel
-        # the guarded failure modes sit at 0.3 (bf16 products) and O(1)
-        result["crosscheck_40step"] = "passed" if rel <= 1e-2 else "failed"
-    else:
-        result["f32_vs_f64_40step_rel"] = None
-        result["crosscheck_40step"] = "skipped"
-    result["crosscheck_steps"] = n_x
-    result["verified"] = bool(head["verified"]
-                              and result["crosscheck_40step"] == "passed")
-    del u32, u64
-    flush()
-    # 4a. the headline's loop sharded over a group of one: the overhead of
-    # the halo plumbing against the unsharded number (bench.py:775-790)
-    if k["sharded_leg"]:
-        sh, _, _ = run_leg("shardmap", LEG_COST_S["shardmap"], n=n, p=p,
-                           steps=steps, dt=dt, reps=1, shards=1)
-        if sh:
-            result.update(
-                shardmap_value=sh["value"],
-                shardmap_mass_rel_loss=sh["mass_rel_loss"],
-                shardmap_verified=sh["verified"],
-                shardmap_kernels=sh["kernels"],
-                shardmap_overhead_vs_unsharded=1.0 - sh["value"]
-                / head["value"])
-            flush()
-    # 5. the N x p sweep, reusing the legs already run
-    if k["sweep"]:
-        pts = list(SWEEP_POINTS)
-        if k["sweep_full"]:
-            pts.insert(2, (48, 3))
-        sweep = []
-        for (N, P) in pts:
-            if (N, P) == (n, p):
-                src = head
-            elif (N, P) == (n, 4) and p4:
-                src = p4
-            else:
-                src, _, _ = run_leg(f"sweep N={N} p={P}",
-                                    LEG_COST_S["sweep"], n=N, p=P,
-                                    steps=k["steps_sweep"])
-                if not src:
-                    continue
-            sweep.append({"N": N, "p": P, "ndofs": src["ndofs"],
-                          "steps": src["steps"], "value": src["value"],
-                          "verified": src["verified"],
-                          "hbm_util": src["hbm_util_model"]})
-            result["sweep"] = sweep
-            flush()
-        if sweep:
-            best = max(sweep, key=lambda r: r["value"])
-            result["sweep_peak"] = {"N": best["N"], "p": best["p"],
-                                    "value": best["value"]}
-            # 6. the peak on the headline's trajectory (its steps and dt; a
-            # headline leg already ran there)
-            pk = {}
-            if (best["N"], best["p"]) == (n, p):
-                pk = head
-            elif (best["N"], best["p"]) == (n, 4) and p4:
-                pk = p4
-            elif k["peak_verify"]:
-                pk, _, _ = run_leg(f"sweep_peak_{steps}", LEG_COST_S["peak"],
-                                   n=best["N"], p=best["p"], steps=steps,
-                                   dt=dt)
-            if pk:
-                result["sweep_peak_verified"] = {
-                    "N": best["N"], "p": best["p"], "steps": pk["steps"],
-                    "value": pk["value"], "verified": pk["verified"],
-                    "mass_rel_loss": pk["mass_rel_loss"]}
-                flush()
-    # 7. the phase FOMs, last
-    if k["phases"]:
-        ph, _, _ = run_leg("phases", LEG_COST_S["phases"], n=n, p=p,
-                           steps=steps, dt=dt, reps=1, verify_state=False,
-                           crosscheck=False, phases=True)
-        for key, v in ph.items():
-            if key.startswith("fom") or key == "dispatch_ms_per_call":
-                result[key] = v
-    flush()
-    return result
 
 
 def _trace_record(case, tr_steps) -> dict:
@@ -790,7 +589,4 @@ def _trace_record(case, tr_steps) -> dict:
 
 
 if __name__ == "__main__":
-    if knobs()["dual"]:
-        main_dual()
-    else:
-        main()
+    main()

@@ -184,14 +184,6 @@ def _solver_config(cfg: RunConfig, dim: int) -> SolverConfig:
                         use_masks=cfg.use_masks, poly_bf16=cfg.poly_bf16)
 
 
-def unported(cfg: RunConfig):
-    """What of `cfg` is not ported yet, naming its ROADMAP.md item, or None
-    when the port runs it (every option of the JAX package's driver is
-    ported). Decided from the configuration alone: no mesh or table is
-    built."""
-    return None
-
-
 def build_operator(cfg: RunConfig):
     """(adv, dt): the operator of a run on its mesh (in remap with the mesh
     velocity in `adv.v_nodes`, in transport with the inflow values of
@@ -209,10 +201,6 @@ def _setup(cfg: RunConfig) -> dict:
     discretization, the initial dt, the nodes x0 and (remap) the mesh
     velocity v in the working dtype, the inflow values of problems 6 and 7
     (None elsewhere), the device and the dtype."""
-    why = unported(cfg)
-    if why is not None:
-        raise NotImplementedError(
-            f"remhos_torch.driver.run: {why} is not ported yet (ROADMAP.md)")
     device = resolve_device(cfg.device)
     dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
     f64 = torch.float64
@@ -265,12 +253,6 @@ def l1_error_parts(adv, u, problem, x):
     err = (u_q - ex_q).abs()
     return torch.stack([(wdet * err).sum(), (wdet * err ** 2).sum(),
                         err.max()]).to(torch.float64)
-
-
-def l1_errors(adv, u, problem, x):
-    """(L1, L2, Linf) of u[E, nd] (`l1_error_parts`)."""
-    p = l1_error_parts(adv, u, problem, x).tolist()
-    return p[0], math.sqrt(p[1]), p[2]
 
 
 class _Local:

@@ -75,8 +75,7 @@ same inputs as on a grid: each element's nodes in its own lexicographic
 frame and the neighbour values at its own face dofs.
 
 A configuration the JAX package rejects raises ValueError as it does
-(`solver_rejected`); one that is not ported yet raises NotImplementedError
-naming its ROADMAP.md item (`solver_unported`).
+(`solver_rejected`).
 """
 
 from __future__ import annotations
@@ -142,13 +141,6 @@ class SolverConfig:
         return prob.exec_mode_of(self.problem)
 
 
-def solver_unported(cfg: SolverConfig):
-    """What of a solver configuration is not ported yet, naming its
-    ROADMAP.md item, or None when the port runs it (every configuration
-    of the JAX package is ported)."""
-    return None
-
-
 def solver_rejected(cfg: SolverConfig):
     """The message of a solver combination the JAX package rejects, or
     None. The JAX package raises these at its first stage: ValueError for
@@ -195,10 +187,6 @@ class Advection:
         """v_nodes: the remap mesh velocity (None in transport mode);
         inflow[E, nd]: the inflow values of the transport problems 6 and 7
         (None elsewhere)."""
-        why = solver_unported(cfg)
-        if why is not None:
-            raise NotImplementedError(
-                f"remhos_torch: {why} is not ported yet (ROADMAP.md)")
         why = solver_rejected(cfg)
         if why is not None:
             raise ValueError(why)

@@ -33,15 +33,6 @@ import torch
 import torch.distributed as dist
 
 
-def ring_perms(n: int):
-    """(forward, backward) source -> destination pairs of a ring of n: the
-    forward pairs carry `top` to the next rank, the backward pairs `bot` to
-    the previous one."""
-    fwd = [(i, (i + 1) % n) for i in range(n)]
-    bwd = [(i, (i - 1) % n) for i in range(n)]
-    return fwd, bwd
-
-
 class ShardComm:
     """One rank of a shard grid. `dev_shape` lists the device axes outer
     first (n of each); `group` is the process group (None: the default

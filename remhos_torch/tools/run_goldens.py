@@ -7,13 +7,11 @@ Every row of goldens/reference_goldens.json is handed to
 baseline at the baseline's print precision (10 significant digits: 5e-10
 relative), with the JAX runner's per-row tolerances and its `--f32` tier
 (which also holds the mass the f32 closure put back to CLOSURE_BUDGET).
-A row that needs unported code (`driver.unported`, from its configuration
-alone) is listed by name with the ROADMAP.md item it needs, and a row whose
-mesh file is absent (the reference's `.mesh` files are not in the
-repository; `mesh.find_mesh_file` looks for them by path, then under
-$REMHOS_REF_DATA) as "needs <name>.mesh, absent", whatever `--only` and
-`--skip` select. Any exception and any mismatch of a row that runs fails
-the run.
+A row whose mesh file is absent (the reference's `.mesh` files are not in
+the repository; `mesh.find_mesh_file` looks for them by path, then under
+$REMHOS_REF_DATA) is listed by name as "needs <name>.mesh, absent",
+whatever `--only` and `--skip` select. Any exception and any mismatch of a
+row that runs fails the run.
 
     python -m remhos_torch.tools.run_goldens [--device cpu] [--f32]
         [--only NAME ...] [--skip NAME ...]
@@ -26,13 +24,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import sys
 import time
 from pathlib import Path
 
 from ..config import RunConfig
-from ..driver import run, unported
+from ..driver import run
 from ..mesh import find_mesh_file, registry_dim
 
 GOLDENS = Path(__file__).resolve().parents[2] / "goldens" / \
@@ -42,7 +39,6 @@ TOL = 5e-10             # the baseline prints 10 significant digits
 # initial mass (chip_smoke.py's closure_injected_rel limit): the closure
 # pins the mass, so a loss of the scheme shows here, not in the mass
 CLOSURE_BUDGET = 1e-4
-_ITEM = re.compile(r"Queue (\d+), item (\d+)")
 
 
 def rel_close(a, b, tol):
@@ -103,17 +99,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     rows = json.loads(GOLDENS.read_text())["runs"]
-    matched, failed, listed, absent = [], [], {}, {}
+    matched, failed, absent = [], [], {}
     for row in rows:
         name = row["name"]
         cfg = RunConfig(verbose=False, device=args.device, **row["cfg"],
                         **({"dtype": "float32"} if args.f32 else {}))
-        why = unported(cfg)
-        if why is not None:
-            m = _ITEM.search(why)
-            listed[name] = f"Queue {m.group(1)}, item {m.group(2)}"
-            print(f"NOT PORTED {name:28s} {listed[name]}: {why}")
-            continue
         mesh = cfg.mesh
         if (mesh != "default" and registry_dim(mesh) is None
                 and find_mesh_file(mesh) is None):
@@ -133,10 +123,10 @@ def main(argv=None) -> int:
               f"mass={r.final_mass_u:.10g} max={r.max_u:.10g} "
               f"steps={r.steps} {inj}[{time.perf_counter() - t0:.1f}s] "
               f"{'; '.join(msgs)}", flush=True)
-    print(f"\n{len(matched)} matched, {len(failed)} failed, {len(listed)} "
-          f"listed as not ported, {len(absent)} without their mesh file")
+    print(f"\n{len(matched)} matched, {len(failed)} failed, {len(absent)} "
+          "without their mesh file")
     print(json.dumps({"matched": matched, "failed": failed,
-                      "not_ported": listed, "absent": absent}))
+                      "absent": absent}))
     return 1 if failed or not matched else 0
 
 

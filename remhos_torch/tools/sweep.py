@@ -1,11 +1,11 @@
 """Size and order sweep of the benchmark record: the port of tools/sweep.py.
 
-Runs `python -m remhos_torch.bench` (BENCH_DUAL=0) once per (N, p) point of
-GRID, each in a subprocess with this process's environment plus the point's
-knobs (f32, mass and bounds verified; the f32-vs-f64 cross check at the
-headline point only, so the other points record it as skipped and are not
-`verified`), collects each point's JSON line and writes one sweep record
-with the best point and the smallest size within 10% of it.
+Runs `python -m remhos_torch.bench` once per (N, p) point of GRID, each in
+a subprocess with this process's environment plus the point's knobs (f32,
+mass and bounds verified; the f32-vs-f64 cross check at the headline point
+only, so the other points record it as skipped and are not `verified`),
+collects each point's JSON line and writes one sweep record with the best
+point and the smallest size within 10% of it.
 
     python -m remhos_torch.tools.sweep [out.json]     (on the card)
 """
@@ -25,8 +25,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 def run_point(n, p, crosscheck):
     """The JSON record of one point, or None if its run printed none."""
     env = dict(os.environ)
-    env.update(BENCH_N=str(n), BENCH_P=str(p), BENCH_DUAL="0",
-               BENCH_PHASES="0", BENCH_P4="0",
+    env.update(BENCH_N=str(n), BENCH_P=str(p), BENCH_PHASES="0",
                BENCH_CROSSCHECK="1" if crosscheck else "0")
     out = subprocess.run([sys.executable, "-m", "remhos_torch.bench"],
                          env=env, cwd=REPO, capture_output=True, text=True)

@@ -257,10 +257,6 @@ def load_h1_nodes_mesh(path: str, order: int, rs_levels: int = 0
     return from_arrays(corners, cp, order, x_nodes=x).refine(rs_levels)
 
 
-def load_h1_quadratic_mesh(path: str, rs_levels: int = 0) -> GeneralMesh:
-    return load_h1_nodes_mesh(path, 2, rs_levels)
-
-
 def _lattice_corner_ids(n1: int, dim: int):
     """The lex lattice indices of an element's 2^dim corners, lex order."""
     c2 = [0, n1 - 1, n1 * (n1 - 1), n1 * n1 - 1]

@@ -1,24 +1,19 @@
-"""The benchmark record of the port (`remhos_torch.bench.main`, `main_dual`
-and `tools/sweep.py`) on the CPU at N=4, p=2, 6 steps.
+"""The benchmark record of the port (`remhos_torch.bench.main` and
+`tools/sweep.py`) on the CPU at N=4, p=2, 6 steps.
 
-The sizes are cut so that every leg runs in seconds: dt = 0.001 for the
-headline, p=4 and f64 legs (at the default 0.2/6 the p=4 leg's closure
-injection exceeds bench.py's drift budget on so coarse a mesh), the cross
-check after 4 steps and a sweep of (4|5) x (2|4) at 40 steps. Checked:
+The sizes are cut so that every leg runs in seconds: dt = 0.001 (at the
+default 0.2/6 the p=4 leg's closure injection exceeds bench.py's drift
+budget on so coarse a mesh). Checked:
 
-- `main` and `main_dual` records carry bench.py's keys and the port's
-  `kernels` and `device`, with `verified` true; the dual record's sweep has
-  four points, every leg ran, the one-shard `shardmap` leg among them
-  (bench.py:775-790), and `legs_skipped` is empty;
+- `main`'s record carries bench.py's keys and the port's `kernels` and
+  `device`, with `verified` true, at the default leg and at the legs it
+  runs alone under one knob each: BENCH_P=4, BENCH_DTYPE=float64 (no
+  closure, and the f32-vs-f64 cross check does not apply) and BENCH_N=5;
 - the three BENCH_CLOSURE modes verify, and the final state the record
   was taken on is that of bench.py's loop in the same mode on the JAX side
   (tests/torch_jax_bench.py): 2e-3 of max|u| (f32; bf16x3 products on the
   JAX side against true f32 products);
-- a failing optional leg is listed as "<tag>:failed" and the record is not
-  verified when the failed leg is the cross check's;
-- a leg the budget skips lands in `legs_skipped`;
-- a skipped cross check leaves `verified` not true, in `main` and in
-  `main_dual`;
+- a skipped cross check leaves `verified` not true;
 - BENCH_PALLAS=0 (the plain version on the device) raises ValueError;
   BENCH_POLY_BF16=1 (the bf16 va/vn stream; at dt = 1e-4 here) and
   BENCH_SHARDED=1|2 (the sharded loop in this process, in 2 spawned ranks)
@@ -45,32 +40,54 @@ from torch_jax_bench import jax_loop, jax_run
 from torch_threads import one_torch_thread  # noqa: F401
 
 ENV = dict(BENCH_N="4", BENCH_P="2", BENCH_STEPS="6", BENCH_REPS="2",
-           BENCH_DT="0.001", BENCH_STEPS_F64="4", BENCH_STEPS_SWEEP="40")
-SWEEP = ((4, 2), (5, 2), (4, 4), (5, 4))
-MAIN_KEYS = ("metric", "ndofs", "value", "unit", "vs_baseline", "verified",
-             "mass_rel_loss", "mass_closure_injected_rel",
-             "f32_vs_f64_2step_rel", "hbm_bytes_per_stage_model",
-             "hbm_gb_per_s_model", "hbm_util_model", "kernel_us_per_stage",
-             "glue_us_per_stage", "glue_breakdown_us", "idle_share", "fom",
-             "fom_rhs", "fom_inv", "fom_lo", "fom_fct",
-             "dispatch_ms_per_call", "kernels", "device")
-DUAL_KEYS = ("p4_value", "p4_ndofs", "f64_value", "f64_vs_baseline",
-             "f32_vs_f64_40step_rel", "sweep", "sweep_peak",
-             "sweep_peak_verified", "legs_skipped", "baseline_fom",
-             "record_wall_s")
+           BENCH_DT="0.001")
+RECORD_KEYS = ("metric", "ndofs", "value", "unit", "vs_baseline",
+               "verified", "mass_rel_loss", "mass_closure_injected_rel",
+               "f32_vs_f64_2step_rel", "cross_check",
+               "hbm_bytes_per_stage_model", "hbm_gb_per_s_model",
+               "hbm_util_model", "kernels", "device")
+# the keys of BENCH_TRACE and BENCH_PHASES
+MEASURE_KEYS = ("kernel_us_per_stage", "glue_us_per_stage",
+                "glue_breakdown_us", "idle_share", "fom", "fom_rhs",
+                "fom_inv", "fom_lo", "fom_fct", "dispatch_ms_per_call")
+# the legs `main` runs under one knob each: (knobs, metric, ndofs)
+LEGS = {
+    "default": ({}, "fom_total_p2_3d_remap_pa_f32", 64 * 27),
+    "p4": (dict(BENCH_P="4"), "fom_total_p4_3d_remap_pa_f32", 64 * 125),
+    "float64": (dict(BENCH_DTYPE="float64"), "fom_total_p2_3d_remap_pa_f64",
+                64 * 27),
+    "n5": (dict(BENCH_N="5"), "fom_total_p2_3d_remap_pa_f32", 125 * 27),
+}
 
 
 def _env(**kw):
     return dict(ENV, **kw)
 
 
-def test_main_record():
-    rec = bench.main(device="cpu", env=_env())
-    for key in MAIN_KEYS:
+@pytest.mark.parametrize("leg", LEGS)
+def test_main_record(leg):
+    """One leg of `main`, verified. The default leg runs the trace and the
+    phases and is checked for every key; the others run without them."""
+    knob, metric, ndofs = LEGS[leg]
+    env = _env(**knob) if leg == "default" else _env(
+        BENCH_TRACE="0", BENCH_PHASES="0", **knob)
+    rec = bench.main(device="cpu", env=env)
+    for key in RECORD_KEYS + (MEASURE_KEYS if leg == "default" else ()):
         assert key in rec, key
-    assert rec["metric"] == "fom_total_p2_3d_remap_pa_f32"
-    assert rec["verified"] is True and rec["ndofs"] == 64 * 27
+    assert rec["metric"] == metric and rec["ndofs"] == ndofs
+    assert rec["verified"] is True and rec["value"] > 0
+    assert 0 <= rec["mass_rel_loss"] < 1e-6
     assert rec["windows"] == 2 and rec["device"] == "cpu"
+    if leg == "float64":
+        # no closure in f64, and the f32-vs-f64 cross check does not apply
+        assert rec["mass_closure_injected_rel"] is None
+        assert rec["cross_check"] == {"status": "skipped",
+                                      "reason": "float64 case"}
+        assert rec["f32_vs_f64_2step_rel"] is None
+    else:
+        assert 0 <= rec["mass_closure_injected_rel"] < 1e-6
+        assert rec["cross_check"]["status"] == "ran"
+        assert 0 < rec["f32_vs_f64_2step_rel"] < 1e-2
     # measured on the CPU: no device rate
     assert rec["hbm_bytes_per_stage_model"] > 0
     assert rec["hbm_gb_per_s_model"] is None
@@ -98,77 +115,11 @@ def test_main_closure_modes(closure, tmp_path):
     assert np.abs(got - uj).max() <= 2e-3 * np.abs(uj).max()
 
 
-@pytest.fixture
-def small_sweep(monkeypatch):
-    monkeypatch.setattr(bench, "SWEEP_POINTS", SWEEP)
-
-
-def test_main_dual_record(capsys, small_sweep):
-    rec = bench.main_dual(device="cpu", env=_env())
-    for key in MAIN_KEYS + DUAL_KEYS:
-        assert key in rec, key
-    assert rec["verified"] is True
-    assert rec["legs_skipped"] == []
-    # the peak gets a leg of its own unless the headline or p4 leg ran it
-    peak = (rec["sweep_peak"]["N"], rec["sweep_peak"]["p"])
-    assert set(rec["leg_wall_s"]) == {
-        "float32", "p4", "float64", "shardmap", "sweep N=5 p=2",
-        "sweep N=5 p=4", "phases"} | (
-            {"sweep_peak_6"} if peak[0] == 5 else set())
-    assert rec["shardmap_verified"] is True
-    assert rec["shardmap_value"] > 0 and rec["shardmap_mass_rel_loss"] < 1e-6
-    assert rec["shardmap_overhead_vs_unsharded"] == pytest.approx(
-        1.0 - rec["shardmap_value"] / rec["value"])
-    assert 0 < rec["f32_vs_f64_40step_rel"] < 1e-2
-    assert rec["crosscheck_40step"] == "passed"
-    assert [(p["N"], p["p"]) for p in rec["sweep"]] == list(SWEEP)
-    assert all(p["verified"] for p in rec["sweep"])
-    assert rec["sweep_peak_verified"]["verified"] is True
-    assert rec["sweep_peak_verified"]["steps"] == 6
-    # the last JSON line printed is the whole record
-    last = [line for line in capsys.readouterr().out.splitlines()
-            if line.startswith("{")][-1]
-    assert json.loads(last) == json.loads(json.dumps(rec))
-
-
-def test_failing_leg_is_recorded(monkeypatch):
-    real = bench.build_case
-
-    def build_case(n, order, dtype, *a, **kw):
-        if dtype == bench.torch.float64:
-            raise RuntimeError("injected failure")
-        return real(n, order, dtype, *a, **kw)
-
-    monkeypatch.setattr(bench, "build_case", build_case)
-    rec = bench.main_dual(device="cpu", env=_env(
-        BENCH_P4="0", BENCH_SWEEP="0", BENCH_PHASES="0", BENCH_TRACE="0"))
-    assert "float64:failed" in rec["legs_skipped"]
-    assert rec["f64_value"] is None
-    assert rec["crosscheck_40step"] == "skipped"
-    assert rec["verified"] is False
-
-
-def test_budget_skips_are_recorded(small_sweep):
-    rec = bench.main_dual(device="cpu", env=_env(
-        BENCH_BUDGET_S="0", BENCH_TRACE="0"))
-    assert set(rec["legs_skipped"]) == {
-        "shardmap", "p4", "float64", "sweep N=5 p=2",
-        "sweep N=4 p=4", "sweep N=5 p=4", "phases"}
-    assert rec["verified"] is False and rec["crosscheck_40step"] == "skipped"
-    assert [(p["N"], p["p"]) for p in rec["sweep"]] == [(4, 2)]
-
-
 def test_skipped_cross_check_is_not_verified():
     rec = bench.main(device="cpu", env=_env(
         BENCH_CROSSCHECK="0", BENCH_TRACE="0", BENCH_PHASES="0"))
     assert rec["cross_check"]["status"] == "skipped"
     assert rec["verified"] is False and rec["mass_rel_loss"] is not None
-    rec = bench.main_dual(device="cpu", env=_env(
-        BENCH_CROSSCHECK="0", BENCH_P4="0", BENCH_SWEEP="0",
-        BENCH_PHASES="0", BENCH_TRACE="0"))
-    assert rec["crosscheck_40step"] == "skipped"
-    assert rec["f32_vs_f64_40step_rel"] is None
-    assert rec["verified"] is False and rec["f64_value"] > 0
 
 
 @pytest.mark.parametrize("knob", [dict(BENCH_PALLAS="0"),
@@ -182,7 +133,7 @@ def test_tpu_only_knobs_raise(knob):
         with pytest.raises(ValueError, match="ROADMAP"):
             bench.knobs(_env(**knob))
         with pytest.raises(ValueError, match="ROADMAP"):
-            bench.main_dual(device="cpu", env=_env(**knob))
+            bench.main(device="cpu", env=_env(**knob))
         return
     env = _env(BENCH_TRACE="0", BENCH_PHASES="0", **knob)
     if "BENCH_POLY_BF16" in knob:
@@ -245,7 +196,7 @@ def test_sweep_tool(monkeypatch, tmp_path):
     assert [(c[1]["BENCH_N"], c[1]["BENCH_CROSSCHECK"]) for c in calls] == [
         ("16", "0"), ("24", "1"), ("32", "0"), ("16", "0"), ("24", "0"),
         ("32", "0")]
-    assert all(c[1]["BENCH_DUAL"] == "0" for c in calls)
+    assert all(c[1]["BENCH_PHASES"] == "0" for c in calls)
     rec = json.loads(out.read_text())
     assert rec["best"] == {"n": 32, "p": 4, "ndofs": 32 ** 3 * 125,
                            "value": 128.0}

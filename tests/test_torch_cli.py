@@ -147,7 +147,6 @@ def test_run_goldens_lists_the_rest(capsys):
     assert rec["matched"] == ["transport-cube-m3pa"] and not rec["failed"]
     rows = json.loads(run_goldens.GOLDENS.read_text())["runs"]
     assert len(rows) == 53 and len(rec["absent"]) == 15
-    assert not rec["not_ported"]
     supported = {r["name"] for r in rows} - set(rec["absent"])
     kinds = ("remap-cube3d", "remap-pacman", "transport-ballsjacks",
              "transport-cube")

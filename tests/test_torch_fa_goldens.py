@@ -34,7 +34,7 @@ def test_golden_row(name):
     row = next(r for r in json.loads(GOLDENS.read_text())["runs"]
                if r["name"] == name)
     cfg = row["cfg"]
-    assert not cfg.get("pa") and driver.unported(RunConfig(**cfg)) is None
+    assert not cfg.get("pa")
     res = driver.run(RunConfig(verbose=False, device="cpu", **cfg))
     assert check_row(row, res, False) == []
     assert _rel_close(res.final_mass_u, row["mass"], 5e-10)

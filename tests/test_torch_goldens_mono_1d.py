@@ -26,7 +26,6 @@ def test_golden_row(name):
     row = next(r for r in json.loads(GOLDENS.read_text())["runs"]
                if r["name"] == name)
     cfg = row["cfg"]
-    assert driver.unported(RunConfig(**cfg)) is None
     res = driver.run(RunConfig(verbose=False, device="cpu", **cfg))
     assert check_row(row, res, False) == []
     assert abs(res.final_mass_u - row["mass"]) <= 5e-10 * row["mass"]

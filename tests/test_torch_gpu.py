@@ -83,16 +83,22 @@ def test_short_main_path():
 
 
 @pytest.mark.gpu
-def test_bench_record_on_the_card():
+@pytest.mark.parametrize("sharded", ["0", "1"])
+def test_bench_record_on_the_card(sharded):
     """bench.main at 6^3: best of 2 windows after a warm-up, verified, the
-    kernel launched 3 times a step in each timed window, the card named."""
+    kernel launched 3 times a step in each timed window, the card named;
+    also the sharded loop over a group of one (NCCL, in this process)."""
     _cuda()
     rec = bench.main(env=dict(BENCH_N="6", BENCH_STEPS="8", BENCH_REPS="2",
                               BENCH_DT=str(DT), BENCH_PHASES="0",
-                              BENCH_TRACE="0"))
+                              BENCH_TRACE="0", BENCH_SHARDED=sharded))
     assert rec["verified"] is True and rec["windows"] == 2
     assert rec["kernels"]["mega_stage"] == 3 * 8 * 2
-    assert rec["device"] != "cpu" and rec["hbm_util_model"] > 0
+    assert rec["device"] != "cpu"
+    if sharded == "1":
+        assert rec["shards"] == 1 and rec["mass_rel_loss"] is not None
+    else:
+        assert rec["hbm_util_model"] > 0
 
 
 @pytest.mark.gpu
