@@ -48,7 +48,13 @@ It builds the CUDA kernels from the sources on first use, then:
    blocks against the plain chain on nodes relative to each element's
    first node (in f32 evaluated in f64 on the same inputs) to 1e-13 (f64)
    and 1e-5 (f32) of each tensor's largest entry, its ms by CUDA events
-   and from a trace, the plain chain's ms and the bound.
+   and from a trace, the plain chain's ms and the bound. The assembled
+   stage's flux-based FCT kernel (fa_fct) on one stage of path G's
+   configuration at p=2 (the assembled cell's) at N=24 and N=64, f64 and
+   f32, one and two sweeps: du against the plain chain to 1e-13 of max|du|
+   (f32: against the plain chain evaluated in f64 on the same inputs, no
+   farther than twice the f32 plain chain lies), its ms by CUDA events and
+   from a trace, the plain chain's ms and the bound.
    The f32 stage kernels (1, 2, 5) are held to the plain version evaluated
    in f64 on the same inputs with the kernel's one Jacobi sweep (the plain
    version's own f32 result carries its own rounding, amplified by the
@@ -87,7 +93,8 @@ It builds the CUDA kernels from the sources on first use, then:
    assembled (FA) path at full width in f64: -ho 3 -lo 1 -fct 1 for 20
    steps and -ho 3 -lo 5 -fct 4 -bt 1 -dtc 1 for 20 attempts, no kernel
    launched but fa_assemble, once an assembly (three a step attempt and
-   the two mass reports), gates as path D's; its peak device memory, and
+   the two mass reports), and with -fct 1 fa_fct once a stage; gates as
+   path D's; its peak device memory, and
    one stage split
    by CUDA events into the geometry and assembly, the HO solve, the LO
    solution, the bounds and the FCT;
@@ -105,7 +112,7 @@ It builds the CUDA kernels from the sources on first use, then:
    then the assembled path's golden rows in f64 through the golden runner
    (one or more of each family: `-ho 1|3`, `-lo 1|2|4|5`, `-fct 1|2|4`,
    product remap, IDP, dt control; FA_GOLDEN_ROWS; 5e-10, no kernel but
-   fa_assemble on the remap rows);
+   fa_assemble on the remap rows and fa_fct on the `-fct 1` rows);
    then the entry points of the port:
    a. the benchmark record, `bench.main` in this process at full width
       (N=24, p=3, 320 steps, best of 4 windows, the 2-step f32-vs-f64
@@ -223,6 +230,7 @@ from remhos_torch.mesh import load_mesh, make_cartesian_mesh
 from remhos_torch.operator import Advection, SolverConfig
 from remhos_torch.ops import build
 from remhos_torch.ops import fa_assemble as fa
+from remhos_torch.ops import fa_fct as ff
 from remhos_torch.ops import gather_nbr as gn
 from remhos_torch.ops import geom_conv as gc
 from remhos_torch.ops import gl_cg as cg
@@ -237,7 +245,7 @@ from remhos_torch.parallel import launch
 from remhos_torch.tools import kernelbench, microbench, run_goldens
 from remhos_torch.utils import fom
 from remhos_torch.utils import trace as trc
-from remhos_torch.utils.cost import (bound, fa_assemble_cost,
+from remhos_torch.utils.cost import (bound, fa_assemble_cost, fa_fct_cost,
                                      gather_nbr_cost, gather_nbr_index,
                                      geom_conv_cost, gl_cg_cost, stage_cost,
                                      stage_ho_nodes_cost, wdet_cost)
@@ -333,6 +341,14 @@ FA_P = 2
 FA_T = 0.3
 FA_LIMITS = {torch.float64: 1e-13, torch.float32: 1e-5}
 FA_OUTPUTS = ("detJ", "M", "ml", "K_elem", "bdrInt")
+# the assembled stage's flux-based FCT kernel on one stage of path G's
+# configuration at p = FA_P, N in FA_SIZES: du within FA_FCT_LIMIT of
+# max|du| from the plain chain in f64 (the sums over a row run in another
+# order); in f32 no farther from the plain chain evaluated in f64 than
+# FA_FCT_F32_FACTOR times the f32 plain chain lies (both round alike but
+# for that order, so either may lie the nearer)
+FA_FCT_LIMIT = 1e-13
+FA_FCT_F32_FACTOR = 2.0
 # steps of the main path's phase ablation and trace (the measurement step)
 MEASURE_STEPS = 10
 GOLDEN_ROWS = ("remap-cube3d-m3pa", "remap-cube3d-m4pa")
@@ -927,6 +943,94 @@ def fa_assemble_checks(device):
     return out
 
 
+def fa_fct_stage(n, device):
+    """One limited stage's inputs to fa_fct on path G's configuration at
+    p = FA_P on n^3 elements (the assembled cell's), f64, at its CFL dt:
+    the element data at t = FA_T, the initial u, du_HO, du_LO and the dof
+    bounds. Returns (adv, geom, (u, du_HO, du_LO, u_min, u_max), dt)."""
+    cfg = RunConfig(device=str(device), **dict(
+        PATH_G, elem_per_shard=n ** 3, order=FA_P, dt=-1.0))
+    adv, dt = driver.build_operator(cfg)
+    mesh = adv.disc.mesh
+    u, _ = driver.project_bernstein(
+        adv.x0_nodes, adv.disc.Bm_at_unodes,
+        lambda x: prob.u0_function(cfg.problem, x, mesh.bb_min, mesh.bb_max))
+    geom = adv.geometry(FA_T)
+    du_ho = adv.ho_solution(geom, u)
+    du_lo = adv.lo_solution(geom, u, du_HO=du_ho, dt=dt)
+    u_min, u_max = adv.compute_bounds(*bounds.elements_min_max(u))
+    return adv, geom, (u, du_ho, du_lo, u_min.contiguous(),
+                       u_max.contiguous()), dt
+
+
+def check_fa_fct(n, dtype, adv, geom, vectors, dt):
+    """fa_fct against its plain chain (`fa_fct_reference`) on the stage of
+    `fa_fct_stage` cast to dtype, one and two sweeps, one launch counted
+    each (`hold`: in f32 against the plain chain evaluated in f64 on the
+    same f32 inputs); its ms by CUDA events and from a trace of 3 calls,
+    the plain chain's ms and the bound, one sweep as the operator runs
+    it."""
+    prec = "f32" if dtype == torch.float32 else "f64"
+    label = f"fa_fct 3d N={n} p={FA_P} {prec}"
+    keys = ("K_elem", "M", "bdrInt", "ml")
+    g = {k: geom[k].to(dtype).contiguous() for k in keys}
+    vec = [x.to(dtype).contiguous() for x in vectors]
+    tb, bd = adv.fa_fct_tables, adv.bdr_dofs
+    errs = {}
+    for iters in (1, 2):
+        before = ff.fa_fct.launches
+        got = ff.fa_fct(g, *vec, dt, tb, iters)
+        if ff.fa_fct.launches != before + 1:
+            raise RuntimeError(f"{label}: fa_fct did not count one launch")
+        ref = ff.fa_fct_reference(g, *vec, dt, bd, iters)
+        ref64, limit = None, FA_FCT_LIMIT
+        if dtype == torch.float32:
+            ref64 = ff.fa_fct_reference(
+                {k: x.to(torch.float64) for k, x in g.items()},
+                *f64_inputs(*vec), dt, bd, iters)
+            limit = FA_FCT_F32_FACTOR * float(
+                (ref.to(torch.float64) - ref64).abs().max()
+                / ref64.abs().max())
+        torch.cuda.synchronize()
+        errs[iters] = (*hold(label, f"du, {iters} sweeps", got, ref, ref64,
+                             limit), limit,
+                       float((ref - vec[2]).abs().max() / ref.abs().max()))
+        del got, ref, ref64
+    torch.cuda.empty_cache()
+
+    def launch():
+        ff.fa_fct(g, *vec, dt, tb)
+
+    res = dict(check=label, kernel="fa_fct", E=vec[0].shape[0],
+               nd=vec[0].shape[1], dt=dt,
+               max_abs_err=max(e[0] for e in errs.values()),
+               rel_err={f"sweeps_{k}": e[1] for k, e in errs.items()},
+               plain_f32_rel_err={f"sweeps_{k}": e[2]
+                                  for k, e in errs.items()},
+               limit={f"sweeps_{k}": e[3] for k, e in errs.items()},
+               flux_share={f"sweeps_{k}": e[4] for k, e in errs.items()},
+               ms=time_ms(launch, 10),
+               plain_ms=time_ms(
+                   lambda: ff.fa_fct_reference(g, *vec, dt, bd), 3),
+               trace_ms=traced_ms(launch, "fa_fct", n=3))
+    res.update(bound(*fa_fct_cost(vec[0], tb), dtype))
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def fa_fct_checks(device):
+    """check_fa_fct at FA_SIZES, f64 and f32: {"<N>_<prec>": record}."""
+    out = {}
+    for n in FA_SIZES:
+        adv, geom, vectors, dt = fa_fct_stage(n, device)
+        for dtype, prec in ((torch.float64, "f64"), (torch.float32, "f32")):
+            out[f"{n}_{prec}"] = check_fa_fct(n, dtype, adv, geom, vectors,
+                                              dt)
+        del adv, geom, vectors
+        torch.cuda.empty_cache()
+    return out
+
+
 def nonfused_operator(base):
     """A non-fused operator (-lo 3) on the mesh, nodes and velocity of the
     fused operator `base`: it makes geom_conv's tables."""
@@ -1346,8 +1450,15 @@ def nonfused_launches(attempts, fields):
 
 
 def fa_launches(attempts, fields):
-    """Launches of an assembled remap run: fa_assemble once a stage and for
-    each of the two mass reports."""
+    """Launches of an assembled remap run with -fct 1: fa_assemble once a
+    stage and for each of the two mass reports, fa_fct once a stage."""
+    stages = bench.STAGES * attempts
+    return dict(fa_assemble=stages + 2, fa_fct=stages)
+
+
+def fa_sharpen_launches(attempts, fields):
+    """Launches of an assembled remap run with another FCT: fa_assemble
+    once a stage and for each of the two mass reports."""
     return dict(fa_assemble=bench.STAGES * attempts + 2)
 
 
@@ -1429,14 +1540,14 @@ def run_path_f(device):
 
 def run_path_g(device):
     """Path G: the assembled path at full width in f64, then the sharpening
-    configuration; no kernel launches but fa_assemble's. Returns the two
-    records."""
+    configuration; no kernel launches but fa_assemble's and, with -fct 1,
+    fa_fct's. Returns the two records."""
     torch.cuda.reset_peak_memory_stats(device)
     rec = run_driver_path("G", PATH_G, G_LIMITS, device, fa_launches)
     rec["max_memory_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     torch.cuda.empty_cache()
     rec_s = run_driver_path("G sharpen", PATH_G_SHARPEN, G_SHARPEN_LIMITS,
-                            device, fa_launches)
+                            device, fa_sharpen_launches)
     print(json.dumps(dict(path="G", max_memory_gib=rec["max_memory_gib"])),
           flush=True)
     return rec, rec_s
@@ -1477,17 +1588,18 @@ def split_fa_stage(device):
 def run_fa_goldens(device):
     """The assembled path's golden rows (FA_GOLDEN_ROWS) in f64 on the card
     through the golden runner; no kernel launches but fa_assemble's (the
-    remap rows)."""
+    remap rows) and fa_fct's (the `-fct 1` rows)."""
     buf = io.StringIO()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = run_goldens.main(["--device", str(device), "--only",
                                *FA_GOLDEN_ROWS])
-    n = expect_counts("FA golden rows",
-                      dict(fa_assemble=ops.launch_counts()["fa_assemble"]))
-    if n["fa_assemble"] == 0:
-        raise RuntimeError("FA golden rows: fa_assemble never launched")
+    n = expect_counts("FA golden rows", {
+        k: ops.launch_counts()[k] for k in ("fa_assemble", "fa_fct")})
+    for k in ("fa_assemble", "fa_fct"):
+        if n[k] == 0:
+            raise RuntimeError(f"FA golden rows: {k} never launched")
     lines = buf.getvalue().splitlines()
     for line in lines:
         if line.startswith(("PASS", "FAIL")):
@@ -1597,6 +1709,10 @@ def trace_each_kernel(case, rng):
     v = adv.v_nodes
     lay = gn.GatherLayout(adv.shape, adv.periodic,
                           adv.disc.dofmaps.nbr_dof_local, adv.device)
+    _, M, ml, K, bdr = fa.fa_assemble(xs, v, tbf)
+    fgeom = dict(K_elem=K, M=M, bdrInt=bdr, ml=ml)
+    tbc = ff.fa_fct_tables(adv.disc.dofmaps.bdr_dofs, adv.disc.nd,
+                           adv.device)
 
     def each():
         ms.mega_stage(0.1, case.dt, u, unbr, smin, smax, P, tb)
@@ -1609,6 +1725,7 @@ def trace_each_kernel(case, rng):
         cg.gl_cg(u, wdet, tb)
         gn.gather_nbr(u, lay)
         fa.fa_assemble(xs, v, tbf)
+        ff.fa_fct(fgeom, u, u, u, u - 0.1, u + 0.1, case.dt, tbc)
 
     each()                                    # built and warm
     tr, launches = trc.capture_counted(each)
@@ -2446,6 +2563,7 @@ def main():
             dev, np.random.default_rng(SEED + 3)).items():
         order_recs.setdefault(k, {}).update(recs)
     fa_checks = fa_assemble_checks(dev)
+    fct_checks = fa_fct_checks(dev)
     done("kernel checks")
 
     # 4. the main path, counted
@@ -2724,6 +2842,15 @@ def main():
         fa_checks["24_f32"], fa_checks["24_f64"], fa_checks,
         check_trace_ms=fa_checks["24_f32"]["trace_ms"],
         at_64={k: {f: fa_checks[f"64_{k}"][f] for f in (
+            "max_abs_err", "ms", "trace_ms", "plain_ms", "bound_ms",
+            "bound_by")} for k in ("f32", "f64")}))
+    kernels.append(row(
+        "fa_fct", "remhos_torch/ops/csrc/fa_fct.cu",
+        "none: the assembled stage's flux-based FCT in XLA ops "
+        "(remhos_tpu/fct_flux.py:39-78)", rec_g["launches"]["fa_fct"],
+        fct_checks["24_f32"], fct_checks["24_f64"], fct_checks,
+        check_trace_ms=fct_checks["24_f32"]["trace_ms"],
+        at_64={k: {f: fct_checks[f"64_{k}"][f] for f in (
             "max_abs_err", "ms", "trace_ms", "plain_ms", "bound_ms",
             "bound_by")} for k in ("f32", "f64")}))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,8 +8,11 @@ of K_HO are >= 0 (phi >= 0 pointwise), so the cross-element d_ij vanish and
 M is block-diagonal: every surviving flux is intra-element and lives in a
 dense [E, nd, nd] block. The intra-element d_ij do include the own-own
 terms of the DG trace, which `k_ho_diag_blocks` adds to the convection
-blocks. The flux blocks are formed in a `remhos.flux` span; the Zalesak
-sweeps are their caller's (`remhos.fct`) own time.
+blocks. On the card, for the elements `ops/fa_fct.engages` takes,
+`flux_based_fct` is one launch of that kernel (in its caller's
+`remhos.fct` span), which keeps every [E, nd, nd] block on chip. Elsewhere
+the flux blocks are formed in a `remhos.flux` span and the Zalesak sweeps
+are their caller's own time.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from . import sync as syncm
+from .ops import fa_fct as ffm
 from .utils.trace import spanned
 
 
@@ -80,10 +84,16 @@ def _flux_blocks(geom, bdr_dofs, u, du_ho, dt):
 def flux_based_fct(adv, geom, u, du_ho, du_lo, u_min, u_max, dt,
                    iter_cnt=1):
     """CalcFCTSolution (remhos_fct.cpp:155-181), iter_cnt = 1 as the driver
-    sets it (remhos.cpp:1093)."""
-    F, _ = _flux_blocks(geom, adv.bdr_dofs, u, du_ho, dt)
-    return _fct_iterations(F, u, du_lo, geom["ml"], u_min, u_max, dt,
-                           iter_cnt)
+    sets it (remhos.cpp:1093): one launch of `ops/fa_fct` where it engages
+    (the bounds made contiguous: at -bt 1 they are expanded views), else
+    its plain chain."""
+    nf, fd = adv.bdr_dofs.shape
+    if ffm.engages(u.device, u.dtype, u.shape[1], nf, fd):
+        return ffm.fa_fct(geom, u, du_ho, du_lo, u_min.contiguous(),
+                          u_max.contiguous(), dt, adv.fa_fct_tables,
+                          iter_cnt)
+    return ffm.fa_fct_reference(geom, u, du_ho, du_lo, u_min, u_max, dt,
+                                adv.bdr_dofs, iter_cnt)
 
 
 def flux_based_fct_product(adv, geom, us, d_us_HO, d_us_LO, dus_lo_fct,

@@ -53,7 +53,8 @@ Transport assembles them once. The solvers are `ho.py` (`-ho 1|2|3`),
 monolithic `mono.py` (`-mono 1|2`, which replaces the HO solution and
 reads M, K_elem and bdrInt): batched dense products and factorizations in
 plain PyTorch, as the JAX package runs them through XLA with no Pallas
-kernel. No product runs in TF32. The smoothness indicator
+kernel, but for `-fct 1` on the card at p = 2..4 in 2D and 3D: one launch
+of `ops/fa_fct` a stage. No product runs in TF32. The smoothness indicator
 (`si.py`, `-si 1|2`) is built once from the initial mesh.
 
 1D meshes never reach the stage kernels, as in the JAX package: the driver
@@ -104,6 +105,7 @@ from . import verify as vfy
 from .discretization import Discretization
 from .si import SmoothnessIndicator
 from .ops import fa_assemble as fam
+from .ops import fa_fct as ffm
 from .ops import tables as tbl
 from .ops.geom_conv import geom_conv, geom_conv_tables
 from .ops.mega_stage import mega_stage
@@ -355,12 +357,14 @@ class Advection:
 
     def _init_assembled(self):
         """Static tables of the assembled stage (`ops/fa_assemble`'s: the
-        volume and face bases and, where the kernel engages, its 1D tables)
-        and, in remap on the plain chain, the mesh velocity at the volume
-        and face points; in transport the whole stage geometry, assembled
-        once."""
+        volume and face bases and, where the kernel engages, its 1D tables;
+        `ops/fa_fct`'s face pairs) and, in remap on the plain chain, the
+        mesh velocity at the volume and face points; in transport the whole
+        stage geometry, assembled once."""
         self._fa_tables = fam.fa_assemble_tables(
             self.disc, self.dtype, self.device, self.cfg.exec_mode)
+        self.fa_fct_tables = ffm.fa_fct_tables(self.bdr_dofs, self.disc.nd,
+                                               self.device)
         if self.cfg.exec_mode == 0:
             self._assembled_geom = self._assemble(0.0)
         elif not self._fa_tables["engaged"]:

@@ -37,6 +37,7 @@ LIBRARIES = {
     "gl_cg": (("gl_cg.cu",), ("stage_core.cuh",)),
     "gather_nbr": (("gather_nbr.cu",), ()),
     "fa_assemble": (("fa_assemble.cu",), ("mesh_geom.cuh", "stage_core.cuh")),
+    "fa_fct": (("fa_fct.cu",), ()),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

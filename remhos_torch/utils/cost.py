@@ -245,6 +245,22 @@ def fa_assemble_cost(xs, tables):
     return nbytes, E * (geometry + faces + matrices)
 
 
+def fa_fct_cost(u, tables, iters=1):
+    """(bytes, flops) of the assembled stage's flux-based FCT kernel on u
+    [E, nd]: K_elem, M [E, nd, nd], the face blocks [E, nf, fd, fd], u,
+    du_HO, du_LO, u_min, u_max and ml read once, du written once, and the
+    face-pair table. Operations, as perfbench/yardstick_fa.py counts its
+    `flux` and `sweep` parts: the own-own face terms (nf fd^2), d_ij (3 a
+    pair) and F_ij (7 a pair), and per sweep 9 a pair and 15 a dof."""
+    E, nd = u.shape
+    nf, fd = tables["nf"], tables["fd"]
+    nbytes = ((2 * nd * nd + nf * fd * fd + 7 * nd) * E * u.element_size()
+              + _nbytes([tables["pairs"]]))
+    flux = nf * fd * fd + 10 * nd * nd
+    sweep = 9 * nd * nd + 15 * nd
+    return nbytes, E * (flux + iters * sweep)
+
+
 def gl_cg_cost(rhs, wdet, tables, iterations):
     """(bytes, flops) of kernel 6: rhs and wdet read once, the result
     written once, the 1D tables sf read once; per element b = rhs A, the

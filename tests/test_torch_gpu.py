@@ -22,6 +22,7 @@ from remhos_torch.mesh import make_cartesian_mesh
 from remhos_torch.operator import Advection, SolverConfig
 from remhos_torch import ops
 from remhos_torch.ops import fa_assemble as fa
+from remhos_torch.ops import fa_fct as ff
 from remhos_torch.ops import gather_nbr as gn
 from remhos_torch.ops import geom_conv as gc
 from remhos_torch.ops import gl_cg as cg
@@ -573,6 +574,9 @@ def test_trace_counts_equal_launch_counters():
     tbf = fa.fa_assemble_tables(adv.disc, torch.float32, "cuda")
     lay = gn.GatherLayout(adv.shape, adv.periodic,
                           adv.disc.dofmaps.nbr_dof_local, "cuda")
+    _, M, ml, K, bdr = fa.fa_assemble(xs, adv.v_nodes, tbf)
+    fgeom = dict(K_elem=K, M=M, bdrInt=bdr, ml=ml)
+    tbc = ff.fa_fct_tables(adv.disc.dofmaps.bdr_dofs, adv.disc.nd, "cuda")
 
     def every_kernel():
         for _ in range(2):
@@ -585,6 +589,7 @@ def test_trace_counts_equal_launch_counters():
         cg.gl_cg(u, wdet, adv._stage_tables)
         gn.gather_nbr(u, lay)
         fa.fa_assemble(xs, adv.v_nodes, tbf)
+        ff.fa_fct(fgeom, u, u, u, u - 0.1, u + 0.1, DT, tbc)
 
     every_kernel()
     tr, launches = trc.capture_counted(every_kernel)
@@ -772,8 +777,8 @@ def test_short_path_f_runs_the_per_dof_variant():
 def test_fa_path_runs_on_the_card_without_kernels():
     """The assembled path on a CUDA operator: its tensors on the card, no
     kernel launched but `fa_assemble`, once an assembly (3 stages a step
-    and the two mass reports), the same run as on the CPU to 1e-12 in
-    f64."""
+    and the two mass reports), and `fa_fct` once a stage (`-fct 1`), the
+    same run as on the CPU to 1e-12 in f64."""
     _cuda()
     kw = dict(mesh="cube01_hex", problem=10, rs_levels=0, order=2, dt=0.02,
               t_final=0.7, max_tsteps=4, ho=3, lo=1, fct=1, verbose=False)
@@ -783,7 +788,8 @@ def test_fa_path_runs_on_the_card_without_kernels():
     rc = driver.run(RunConfig(device="cuda", **kw))
     rh = driver.run(RunConfig(device="cpu", **kw))
     assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
-                                       fa_assemble=3 * rc.steps_total + 2)
+                                       fa_assemble=3 * rc.steps_total + 2,
+                                       fa_fct=3 * rc.steps_total)
     assert abs(rc.final_mass_u - rh.final_mass_u) <= 1e-12 * rh.final_mass_u
     assert abs(rc.max_u - rh.max_u) <= 1e-12 * rh.max_u
 
@@ -861,6 +867,65 @@ def test_fa_assemble_matches_reference(dim, p, dtype, tol, t):
         assert g.shape == r.shape and g.dtype == dtype, name
         err = (g.to(torch.float64) - r).abs().max().item()
         assert err <= tol * r.abs().max().item(), name
+
+
+def _fa_fct_stage(n, dim=3, p=2):
+    """One limited stage of the assembled cell's configuration (`-ho 3 -lo
+    1 -fct 1`, f64; p=2 in 3D) on n^dim elements on the card, from a seeded
+    u: (adv, the element data, (u, du_HO, du_LO, u_min, u_max), dt)."""
+    mesh = make_cartesian_mesh(dim, (n,) * dim, (0.0,) * dim, (1.0,) * dim,
+                               (False,) * dim)
+    disc = build_discretization(mesh, p)
+    x0 = torch.as_tensor(mesh.x, dtype=torch.float64, device="cuda")
+    v = driver.integrate_mesh_velocity(x0, 10, mesh.bb_min, mesh.bb_max,
+                                       0.7, 0.01)
+    adv = Advection(disc, SolverConfig(problem=10, ho=3, lo=1, fct=1,
+                                       pa=False), x0, v,
+                    dtype=torch.float64, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    u = torch.rand((n ** dim, disc.nd), generator=g, dtype=torch.float64,
+                   device="cuda")
+    dt = 0.01
+    geom = adv.geometry(0.3)
+    du_ho = adv.ho_solution(geom, u)
+    du_lo = adv.lo_solution(geom, u, du_HO=du_ho, dt=dt)
+    u_min, u_max = adv.compute_bounds(*bounds.elements_min_max(u))
+    return adv, {k: geom[k] for k in ("K_elem", "M", "bdrInt", "ml")}, (
+        u, du_ho, du_lo, u_min.contiguous(), u_max.contiguous()), dt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("iters", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dim,n,p", [(3, 24, 2), (3, 5, 3), (3, 3, 4),
+                                     (2, 9, 2), (2, 7, 3), (2, 5, 4)])
+def test_fa_fct_matches_reference(dim, n, p, dtype, iters):
+    """The flux-based FCT kernel on one stage (24^3 at p=2, the cell's
+    element; the other compiled elements on small meshes with a ragged last
+    tile) against its plain chain, one launch counted: in f64 within 1e-13
+    of max|du| (the sums over a row run in another order); in f32 no
+    farther from the plain chain evaluated in f64 than twice the f32 plain
+    chain lies (both round alike but for that order, so either may be the
+    nearer)."""
+    _cuda()
+    adv, geom, vectors, dt = _fa_fct_stage(n, dim, p)
+    g = {k: x.to(dtype) for k, x in geom.items()}
+    vec = [x.to(dtype) for x in vectors]
+    before = ff.fa_fct.launches
+    got = ff.fa_fct(g, *vec, dt, adv.fa_fct_tables, iters)
+    torch.cuda.synchronize()
+    assert ff.fa_fct.launches == before + 1
+    assert got.dtype == dtype and got.shape == vec[0].shape
+    ref = ff.fa_fct_reference(g, *vec, dt, adv.bdr_dofs, iters)
+    assert not torch.equal(ref, vec[2])           # the fluxes act
+    if dtype == torch.float64:
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-13 * ref.abs().max().item()
+        return
+    ref64 = ff.fa_fct_reference({k: x.double() for k, x in g.items()},
+                                *_f64(*vec), dt, adv.bdr_dofs, iters)
+    plain = (ref.double() - ref64).abs().max().item()
+    assert (got.double() - ref64).abs().max().item() <= 2 * plain
 
 
 @pytest.mark.gpu
