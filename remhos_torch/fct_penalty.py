@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from .utils.trace import span
+
 
 def _sum_z(lam, w, fL):
     """(z[E, nd], sum_j z_j): z_j = lambda w_j while |fL_j| >= lambda |w_j|,
@@ -33,7 +35,8 @@ def nonlinear_penalty(adv, geom, u, du_ho, du_lo, u_min, u_max, dt,
                       n_bisect=110):
     m = geom["ml"]
     if adv.cfg.smth_ind:
-        si_dof = adv.smth.dof_values(adv.smth.compute(u))
+        with span("remhos.si"):
+            si_dof = adv.smth.dof_values(adv.smth.compute(u))
         u_min, u_max = adv.smth.update_bounds(u + dt * du_ho, u_min, u_max,
                                               si_dof)
     # the clipped HO update, from u at the old time (remhos_fct.cpp:796-799)

@@ -9,6 +9,13 @@ restores the consistent-mass accuracy (eqs. 27-29). It reads the assembled
 M, K_elem, bdrInt and ml, so it runs on the assembled stage only, as in the
 reference.
 
+Spans (`utils/trace.py`, only under a profiler): `remhos.mono` around a
+solution, and inside it `remhos.bounds` (the element extrema and the dof
+bounds), `remhos.si` (the indicator and its dof values), `remhos.lumping`
+(the face gathers, both nonlinear flux lumpings and their scatters) and
+`remhos.mono_loop` (the inner loop). `adv.mono_stats["explicit"]` counts
+the explicit passes; the indicator counts its own evaluations.
+
 The reference's inner loop walks each element on its own
 (remhos_mono.cpp:285-291). Here, as in the JAX package, one masked loop runs
 over all elements at once and an element freezes when its residual drops to
@@ -29,7 +36,7 @@ from . import basis as B
 from . import bounds as bnd
 from . import lo as lom
 from . import problems as prob
-from .utils.trace import host_wait
+from .utils.trace import host_wait, span, spanned
 
 EPS = 1.0e-15
 GAMMA = 10.0
@@ -84,10 +91,11 @@ def nonlin_flux_lumping(u_face, u_nbr, bdrInt, alpha_face):
     return lumped + _rescale(corr, sp, sn)
 
 
+@spanned("remhos.mono")
 def mono_rd_solution(adv, geom, u, dt):
     """MonoRDSolver::CalcSolution (remhos_mono.cpp:60-356), batched over
-    the elements. `adv.mono_stats` counts the inner loops, their iterations
-    and their read-backs."""
+    the elements. `adv.mono_stats` counts the explicit passes, the inner
+    loops, their iterations and their read-backs."""
     du, d_full, xi_min, xi_max, si_dof = explicit_part(adv, geom, u)
     m_it = torch.zeros_like(u)
     if adv.cfg.problem not in (6, 7):      # mass limiting, remhos.cpp:999
@@ -104,13 +112,16 @@ def explicit_part(adv, geom, u):
     without -si)."""
     cfg = adv.cfg
     K, bdrInt = geom["K_elem"], geom["bdrInt"]
+    adv.mono_stats["explicit"] += 1
 
-    el_min, el_max = bnd.elements_min_max(u)
-    xi_min, xi_max = adv.compute_bounds(el_min, el_max)
+    with span("remhos.bounds"):
+        el_min, el_max = bnd.elements_min_max(u)
+        xi_min, xi_max = adv.compute_bounds(el_min, el_max)
 
     si_dof = None
     if cfg.smth_ind:
-        si_dof = adv.smth.dof_values(adv.smth.compute(u))
+        with span("remhos.si"):
+            si_dof = adv.smth.dof_values(adv.smth.compute(u))
 
     z = asm.matvec(K, u)
     d_full = z
@@ -137,20 +148,49 @@ def explicit_part(adv, geom, u):
 
     # the face terms: nonlinear lumping with alpha (du) and alpha = 1 (d)
     bdr = adv.bdr_dofs
-    u_face = asm.gather_face(u, bdr)
-    u_nbr = adv.gather_nbr(u, adv.inflow_face)
-    alpha_face = alpha[:, bdr]
-    du = asm.scatter_face_add(
-        du, nonlin_flux_lumping(u_face, u_nbr, bdrInt, alpha_face), bdr)
-    d_full = asm.scatter_face_add(
-        d_full, nonlin_flux_lumping(u_face, u_nbr, bdrInt,
-                                    torch.ones_like(alpha_face)), bdr)
+    with span("remhos.lumping"):
+        u_face = asm.gather_face(u, bdr)
+        u_nbr = adv.gather_nbr(u, adv.inflow_face)
+        alpha_face = alpha[:, bdr]
+        du = asm.scatter_face_add(
+            du, nonlin_flux_lumping(u_face, u_nbr, bdrInt, alpha_face), bdr)
+        d_full = asm.scatter_face_add(
+            d_full, nonlin_flux_lumping(u_face, u_nbr, bdrInt,
+                                        torch.ones_like(alpha_face)), bdr)
 
     # the residual distribution of the unsplit part z
     du = du + _rd_weights(adv, geom, u, z)
     return du, d_full, xi_min, xi_max, si_dof
 
 
+def bound_preserving_dt(adv, geom):
+    """[E, nd]: a step under which `explicit_part`'s forward-Euler update,
+    and so each SSP RK stage, keeps every dof within its bounds: ml_i / c_i
+    (a sufficient condition, `-mono 1`). Each part of the update moves u_i
+    toward its bound by at most its coefficient times u_i's distance to it:
+
+    - the limited K u: alpha_i |z_i| <= BETA sum_j!=i |K_ij| (u_i - bound),
+      the u_j of the element lying within u_i's bounds;
+    - a face's lumped term: row_i, its own neighbour value within the
+      bounds; its correction: 3 BETA sum_j!=i |B_ij|, the face's and the
+      neighbour's values within them;
+    - the residual distribution: sum_k sum_j!=k |K_kj| over the element,
+      the share of u_i of the element's remainder at most (u_i - x_min) /
+      (x_max - x_min).
+
+    On an inflow face the neighbour values are the inflow's, which u_i's
+    bounds need not hold: there the correction's bound holds as far as
+    the inflow varies across the face less than u does."""
+    K, B, ml = geom["K_elem"], geom["bdrInt"], geom["ml"]
+    offK = K.abs().sum(2) - K.diagonal(dim1=1, dim2=2).abs()
+    row = B.sum(3)
+    offB = B.abs().sum(3) - B.diagonal(dim1=2, dim2=3).abs()
+    face = asm.scatter_face_add(torch.zeros_like(ml), row + 3.0 * BETA * offB,
+                                adv.bdr_dofs)
+    return ml / (BETA * offK + face + offK.sum(1, keepdim=True))
+
+
+@spanned("remhos.mono_loop")
 def consistent_mass_loop(adv, geom, u, du, d_full, xi_min, xi_max, si_dof):
     """The inner consistent-mass iteration (remhos_mono.cpp:262-348) over
     all elements at once, on `explicit_part`'s output; returns m_it[E,

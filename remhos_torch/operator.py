@@ -242,12 +242,15 @@ class Advection:
         # velocity scale, made once from the initial mesh
         self.smth = (None if not cfg.smth_ind else SmoothnessIndicator(
             cfg.smth_ind, disc, dtype, self.device))
-        self.mono_scale = (None if cfg.mono == 0 else T(
-            monom.velocity_scale(mesh, disc, cfg.problem)))
-        # the monolithic solver's inner loops: solves, iterations (their
-        # sum and the most in one solve) and read-backs of the exit test
-        self.mono_stats = dict(solves=0, iterations=0, max_iterations=0,
-                               readbacks=0)
+        # the inner loop's scale; problems 6 and 7 run no inner loop
+        self.mono_scale = (None if cfg.mono == 0 or cfg.problem in (6, 7)
+                           else T(monom.velocity_scale(mesh, disc,
+                                                       cfg.problem)))
+        # the monolithic solver's explicit passes, and its inner loops:
+        # solves, iterations (their sum and the most in one solve) and
+        # read-backs of the exit test
+        self.mono_stats = dict(explicit=0, solves=0, iterations=0,
+                               max_iterations=0, readbacks=0)
         # the tangent-only face-normal tables; None in 1D, where the
         # normals come from the full face Jacobians (`geometry.face_geometry`)
         ft = geo.face_tangent_tables(disc.Gmf, disc.n_ref)

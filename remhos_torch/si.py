@@ -8,8 +8,9 @@ and the `-si 1|2` formulas map it to [0, 1].
 
 The setup stays in host numpy, built once from the initial mesh as the
 reference does ("TODO assemble SI matrices every RK stage for remap",
-remhos_tools.cpp:34): the per-subcell Q1 mass and stiffness blocks, the
-domain-boundary face blocks and the lumped CG mass. The actions are torch.
+remhos_tools.cpp:34): the per-subcell Q1 mass and stiffness blocks (array
+code over all elements at once), the domain-boundary face blocks and the
+lumped CG mass. The actions are torch.
 On the structured fine grid the sparse CG matrices become per-subcell dense
 blocks applied as gather, elementwise product summed, and a sum onto the
 fine nodes. That sum runs in a fixed order: each fine node reads its at most
@@ -29,12 +30,19 @@ from .structured import _shift
 from .subcell import boundary_node_mask
 
 
+Q1_MASS = np.array([[1 / 3, 1 / 6], [1 / 6, 1 / 3]])
+Q1_STIFF = np.array([[1.0, -1.0], [-1.0, 1.0]])
+
+
 def _q1_1d_mass(h):
-    return h * np.array([[1 / 3, 1 / 6], [1 / 6, 1 / 3]])
+    """The 1D Q1 mass block of a cell of width h; h[k] gives [k, 2, 2]."""
+    return np.asarray(h)[..., None, None] * Q1_MASS
 
 
 def _q1_1d_stiff(h):
-    return (1 / h) * np.array([[1.0, -1.0], [-1.0, 1.0]])
+    """The 1D Q1 stiffness block of a cell of width h; h[k] gives [k, 2,
+    2]."""
+    return (1 / np.asarray(h))[..., None, None] * Q1_STIFF
 
 
 def fine_node_gather(corner_cg, n_cg):
@@ -55,6 +63,10 @@ def fine_node_gather(corner_cg, n_cg):
 
 class SmoothnessIndicator:
     """The static tables on one device, in one dtype, and the actions."""
+
+    # evaluations of `compute` (a program counter; the callers' span around
+    # an evaluation and its dof values is `remhos.si`)
+    evaluations = 0
 
     def __init__(self, si_type: int, disc, dtype=torch.float64,
                  device="cpu"):
@@ -93,8 +105,7 @@ class SmoothnessIndicator:
         Msub = np.ones((E, 1, 1))
         Lsub = np.zeros((E, 1, 1))
         for d in range(dim):
-            m1 = np.stack([_q1_1d_mass(h) for h in hs[:, d]])
-            k1 = np.stack([_q1_1d_stiff(h) for h in hs[:, d]])
+            m1, k1 = _q1_1d_mass(hs[:, d]), _q1_1d_stiff(hs[:, d])
             # lex tensor (axis d slower than the previous): kron(new, old)
             n2 = (E, 2 * Msub.shape[1], 2 * Msub.shape[2])
             Msub_new = np.einsum("eab,eij->eaibj", m1, Msub).reshape(n2)
@@ -108,10 +119,11 @@ class SmoothnessIndicator:
         Lop = Lop + self._boundary_face_blocks(mesh, hs, eidx, p, dim)
 
         # lumped CG mass: row sums of the Q1 mass, assembled on the fine grid
-        lumped = np.zeros(self.n_cg)
-        np.add.at(lumped, corner_cg.reshape(-1),
-                  np.repeat(Msub.sum(axis=2)[:, None, :], nsub,
-                            axis=1).reshape(-1))
+        # (bincount adds in input order, as np.add.at does)
+        lumped = np.bincount(corner_cg.reshape(-1),
+                             np.repeat(Msub.sum(axis=2)[:, None, :], nsub,
+                                       axis=1).reshape(-1),
+                             minlength=self.n_cg)
 
         self.Msub, self.Lop, self.lumped = T(Msub), T(Lop), T(lumped)
         self.sub2ind, self.cg_idx = L(sub2ind), L(cg_idx)
@@ -204,6 +216,7 @@ class SmoothnessIndicator:
 
     def compute(self, u):
         """The indicator on the fine CG grid: [n_cg]."""
+        self.evaluations += 1
         u_eval = u @ self.ShapeEval.T                    # values at nodes
         vals = u_eval[:, self.sub2ind]                   # [E, nsub, 2^d]
         rhs = self._to_nodes((self.Msub[:, None]

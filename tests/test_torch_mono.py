@@ -106,8 +106,8 @@ def test_exit_test_interval_does_not_change_the_result(monkeypatch):
     outs, stats = [], []
     for k in (1, 3, mono.CHECK_EVERY, mono.MAX_ITER + 5):
         monkeypatch.setattr(mono, "CHECK_EVERY", k)
-        tadv.mono_stats = dict(solves=0, iterations=0, max_iterations=0,
-                               readbacks=0)
+        tadv.mono_stats = dict(explicit=0, solves=0, iterations=0,
+                               max_iterations=0, readbacks=0)
         outs.append(mono.mono_rd_solution(tadv, geom, ut, 0.005))
         stats.append(dict(tadv.mono_stats, k=k))
     for o in outs[1:]:
