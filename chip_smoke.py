@@ -54,7 +54,15 @@ It builds the CUDA kernels from the sources on first use, then:
    f32, one and two sweeps: du against the plain chain to 1e-13 of max|du|
    (f32: against the plain chain evaluated in f64 on the same inputs, no
    farther than twice the f32 plain chain lies), its ms by CUDA events and
-   from a trace, the plain chain's ms and the bound.
+   from a trace, the plain chain's ms and the bound. The monolithic
+   solver's explicit-part kernel (mono_rd) on one explicit pass of the
+   benchmark's transport cell (2048^2 p=1, `-mono 1 -si 2`) from a seeded
+   random u, f64 and f32, as the cell runs it (the rate, no d_full) and
+   with d_full, and on one of path H1 (192^2 p=2, `-mono 1 -si 1`, with
+   d_full, as it runs): du and d_full against the plain chain to 1e-14 of
+   their largest entry (f32: against the plain chain evaluated in f64, no
+   farther than twice the f32 plain chain lies), its ms each way by CUDA
+   events and from a trace, the plain chain's ms and the bound.
    The f32 stage kernels (1, 2, 5) are held to the plain version evaluated
    in f64 on the same inputs with the kernel's one Jacobi sweep (the plain
    version's own f32 result carries its own rounding, amplified by the
@@ -153,8 +161,10 @@ It builds the CUDA kernels from the sources on first use, then:
    g. the seven golden rows paths H and I opened (`steady-mono1|2`,
       `transport-1d-m1`...`m5`) in f64 at 5e-10 through the golden runner,
       and `transport-ballsjacks-m2` in its f32 tier.
-   No kernel and no kernel variant may launch on e-g: the JAX package runs
-   -mono, -si and 1D through no Pallas kernel either;
+   No kernel and no kernel variant may launch on e-g but mono_rd, once
+   an explicit pass of every `-mono 1` run (2D p=1 and 2: path H's `-mono 1
+   -si 1` and `steady-mono1|2`): the JAX package runs -mono, -si and 1D
+   through no Pallas kernel;
    h. path J, general meshes read back by path from MFEM files that
       `vis.mfem_mesh_text` writes (a temporary directory): J1, the main
       path's 24^3 box (mesh order 2, p=3) with every element's corner frame
@@ -235,6 +245,7 @@ from remhos_torch.ops import gather_nbr as gn
 from remhos_torch.ops import geom_conv as gc
 from remhos_torch.ops import gl_cg as cg
 from remhos_torch.ops import mega_stage as ms
+from remhos_torch.ops import mono_rd as mr
 from remhos_torch.ops import stage_ho as sh
 from remhos_torch.ops import stage_core as core
 from remhos_torch.ops import stage_ho_nodes as shn
@@ -247,8 +258,9 @@ from remhos_torch.utils import fom
 from remhos_torch.utils import trace as trc
 from remhos_torch.utils.cost import (bound, fa_assemble_cost, fa_fct_cost,
                                      gather_nbr_cost, gather_nbr_index,
-                                     geom_conv_cost, gl_cg_cost, stage_cost,
-                                     stage_ho_nodes_cost, wdet_cost)
+                                     geom_conv_cost, gl_cg_cost, mono_rd_cost,
+                                     stage_cost, stage_ho_nodes_cost,
+                                     wdet_cost)
 
 # kernel against plain version, relative to max|du|: f64 round-off; f32
 # 10x above the ~2e-5 FMA-ordering difference
@@ -349,6 +361,18 @@ FA_OUTPUTS = ("detJ", "M", "ml", "K_elem", "bdrInt")
 # for that order, so either may lie the nearer)
 FA_FCT_LIMIT = 1e-13
 FA_FCT_F32_FACTOR = 2.0
+# the monolithic explicit-part kernel (mono_rd) on one explicit pass of the
+# benchmark's transport cell (`-m inline-quad -rs 9 -p 7 -o 1 -mono 1 -si
+# 2`, 2048^2 p=1 quads) and of path H1 (PATH_H1: 192^2 p=2 quads, -si 1,
+# problem 4, with d_full for the inner loop: the other instance that runs)
+# from a seeded random u: du (and d_full) within
+# MONO_RD_LIMIT of max|du| from the plain chain in f64 (K u by FMAs and the
+# sums in another order than ATen's); in f32 no farther from the plain
+# chain evaluated in f64 than FA_FCT_F32_FACTOR times the f32 plain chain
+MONO_RD_CELL = dict(mesh="inline-quad", problem=7, rs_levels=9, order=1,
+                    ho=0, lo=0, fct=0, mono=1, smth_ind=2, dt=1.5625e-4,
+                    verbose=False)
+MONO_RD_LIMIT = 1e-14
 # steps of the main path's phase ablation and trace (the measurement step)
 MEASURE_STEPS = 10
 GOLDEN_ROWS = ("remap-cube3d-m3pa", "remap-cube3d-m4pa")
@@ -377,8 +401,9 @@ CLI_ARGV = ("-m", "periodic-square", "-p", "5", "-rs", "3", "-dt", "0.004",
 # path H: the monolithic RD solver with the smoothness indicator at full
 # width, tests/test_driver.py::test_mono_subcell's case refined 16x
 # (periodic-square -rs 6: 192^2 = 36,864 elements, p=2) with dt cut 16x, f64,
-# 20 steps; then -mono 1 -si 1. The assembled path: no kernel (the JAX
-# package runs -mono and -si in XLA). Gates: that test's
+# 20 steps; then -mono 1 -si 1. The assembled path: no kernel but, with
+# -mono 1, mono_rd once an explicit pass (the JAX package runs -mono and
+# -si in XLA). Gates: that test's
 PATH_H = dict(mesh="periodic-square", problem=4, rs_levels=6, order=2, ho=0,
               lo=0, fct=0, mono=2, smth_ind=2, dtype="float64", dt=3e-4,
               t_final=1.0, max_tsteps=20, verbose=False)
@@ -1029,6 +1054,123 @@ def fa_fct_checks(device):
         del adv, geom, vectors
         torch.cuda.empty_cache()
     return out
+
+
+def mono_rd_stage(device, cfg, seed):
+    """One explicit pass's operands to mono_rd on the `-mono 1 -si`
+    operator of `cfg` (f64) from a seeded random u in [0, 1]: (adv, the
+    element data, [u, xi_min, xi_max, si_dof, u_nbr])."""
+    adv, _ = driver.build_operator(RunConfig(device=str(device), **cfg))
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.random((adv.disc.mesh.num_elements,
+                                    adv.disc.nd)), device=device)
+    xi_min, xi_max = adv.compute_bounds(*bounds.elements_min_max(u))
+    si_dof = adv.smth.dof_values(adv.smth.compute(u))
+    geom = adv.geometry(0.0)
+    return adv, {k: geom[k] for k in ("K_elem", "bdrInt", "ml")}, [
+        u, xi_min.contiguous(), xi_max.contiguous(), si_dof.contiguous(),
+        adv.gather_nbr(u, adv.inflow_face)]
+
+
+def check_mono_rd(dtype, adv, geom, vectors, name, finals):
+    """mono_rd against its plain chain (`mono_rd_reference`) on the
+    operands of `mono_rd_stage` cast to dtype, for each `final` of
+    `finals` (True: the rate, no d_full, as the transport cell runs it;
+    False: with d_full, as the inner loop's problems run it), one launch
+    counted each (`hold`; in f32 against the plain chain evaluated in f64
+    on the same f32 inputs); its ms by CUDA events and from a trace of 3
+    calls, the plain chain's ms and the bound, each way."""
+    prec = "f32" if dtype == torch.float32 else "f64"
+    E = vectors[0].shape[0]
+    label = f"mono_rd {name} {prec}"
+    g = {k: x.to(dtype).contiguous() for k, x in geom.items()}
+    vec = [x.to(dtype).contiguous() for x in vectors]
+    tb, bd = adv.mono_rd_tables, adv.bdr_dofs
+    res = dict(check=label, kernel="mono_rd", E=E, nd=vec[0].shape[1],
+               rel_err={}, plain_f32_rel_err={}, limit={}, ms={},
+               trace_ms={}, plain_ms={})
+    errs = []
+    for final in finals:
+        way = "final" if final else "d_full"
+        before = mr.mono_rd.launches
+        got = mr.mono_rd(g, *vec, tb, final)
+        if mr.mono_rd.launches != before + 1:
+            raise RuntimeError(f"{label}: mono_rd did not count one launch")
+        ref = mr.mono_rd_reference(g, *vec, bd, final)
+        ref64 = None
+        if dtype == torch.float32:
+            ref64 = mr.mono_rd_reference(
+                {k: x.to(torch.float64) for k, x in g.items()},
+                *f64_inputs(*vec), bd, final)
+        torch.cuda.synchronize()
+        for name, k in (("du", 0), ("d_full", 1)):
+            if ref[k] is None:
+                continue
+            limit = MONO_RD_LIMIT
+            if ref64 is not None:
+                limit = FA_FCT_F32_FACTOR * float(
+                    (ref[k].to(torch.float64) - ref64[k]).abs().max()
+                    / ref64[k].abs().max())
+            err = hold(label, f"{name}, {way}", got[k], ref[k],
+                       None if ref64 is None else ref64[k], limit)
+            errs.append(err[0])
+            res["rel_err"][f"{way}_{name}"] = err[1]
+            res["plain_f32_rel_err"][f"{way}_{name}"] = err[2]
+            res["limit"][f"{way}_{name}"] = limit
+        del got, ref, ref64
+
+        def launch():
+            mr.mono_rd(g, *vec, tb, final)
+
+        res["ms"][way] = time_ms(launch, 10)
+        res["trace_ms"][way] = traced_ms(launch, "mono_rd", n=3)
+        res["plain_ms"][way] = time_ms(
+            lambda: mr.mono_rd_reference(g, *vec, bd, final), 3)
+        res[f"bound_{way}"] = bound(*mono_rd_cost(
+            vec[0], tb, vec[3] is not None, final), dtype)
+    torch.cuda.empty_cache()
+    first = "final" if finals[0] else "d_full"
+    res.update(max_abs_err=max(errs), ms_first=res["ms"][first],
+               **res[f"bound_{first}"])
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def mono_rd_checks(device):
+    """check_mono_rd, f64 and f32, on the transport cell's operator (2D p=1,
+    -si 2; final, then with d_full) and on path H1's (2D p=2, -si 1; with
+    d_full, as it runs): {"<prec>": record, "h1_<prec>": record}."""
+    out = {}
+    for cfg, key, name, finals, seed in (
+            (MONO_RD_CELL, "", "2d 2048^2 p=1 -si 2", (True, False),
+             SEED + 9),
+            (PATH_H1, "h1_", "path H1 192^2 p=2 -si 1", (False,),
+             SEED + 11)):
+        adv, geom, vectors = mono_rd_stage(device, cfg, seed)
+        for dtype, prec in ((torch.float64, "f64"), (torch.float32, "f32")):
+            out[key + prec] = check_mono_rd(dtype, adv, geom, vectors, name,
+                                            finals)
+        del adv, geom, vectors
+        torch.cuda.empty_cache()
+    return out
+
+
+def mono_rd_operands(n, dtype, device):
+    """Operands of one mono_rd launch on n^2 p=1 quads of seeded random
+    values (the element data need not be a discretization's): ((geom, u,
+    xi_min, xi_max, si_dof, u_nbr), tables)."""
+    disc = build_discretization(make_cartesian_mesh(
+        2, (n, n), (0.0, 0.0), (1.0, 1.0), (False, False)), 1)
+    rng = np.random.default_rng(SEED + 10)
+
+    def r(*shape):
+        return torch.as_tensor(rng.random((n * n, *shape)), dtype=dtype,
+                               device=device)
+
+    u = r(4)
+    geom = dict(K_elem=r(4, 4) - 0.5, bdrInt=r(4, 2, 2), ml=r(4) + 0.5)
+    return ((geom, u, u - 0.1, u + 0.1, r(4), r(4, 2)),
+            mr.mono_rd_tables(disc.dofmaps.bdr_dofs, disc.nd, device))
 
 
 def nonfused_operator(base):
@@ -1713,6 +1855,7 @@ def trace_each_kernel(case, rng):
     fgeom = dict(K_elem=K, M=M, bdrInt=bdr, ml=ml)
     tbc = ff.fa_fct_tables(adv.disc.dofmaps.bdr_dofs, adv.disc.nd,
                            adv.device)
+    mono_in, tbm = mono_rd_operands(N_MAIN, adv.dtype, adv.device)
 
     def each():
         ms.mega_stage(0.1, case.dt, u, unbr, smin, smax, P, tb)
@@ -1726,6 +1869,7 @@ def trace_each_kernel(case, rng):
         gn.gather_nbr(u, lay)
         fa.fa_assemble(xs, v, tbf)
         ff.fa_fct(fgeom, u, u, u, u - 0.1, u + 0.1, case.dt, tbc)
+        mr.mono_rd(*mono_in, tbm, True)
 
     each()                                    # built and warm
     tr, launches = trc.capture_counted(each)
@@ -1928,17 +2072,21 @@ def expect_no_launch(path):
     return n
 
 
-def run_plain_path(path, cfg_kw, limits, device):
-    """Paths H and I: one driver.run of a path that launches no kernel,
-    with its gates (absolute mass loss and max u as the JAX package's tests
-    take them; the closure's injection relative to the initial mass), its
-    ms per step, its peak device memory and, for -mono, the inner loop's
-    iterations and read-backs per stage."""
+def run_plain_path(path, cfg_kw, limits, device, launches=None):
+    """Paths H and I: one driver.run of a path that launches no kernel (or,
+    with `launches`, the kernels `launches(res)` gives, as with -mono 1's
+    mono_rd), with its gates (absolute mass loss and max u as the JAX
+    package's tests take them; the closure's injection relative to the
+    initial mass), its ms per step, its peak device memory and, for -mono,
+    the inner loop's iterations and read-backs per stage."""
     cfg = RunConfig(device=str(device), **cfg_kw)
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(device)
     res = driver.run(cfg)
-    n = expect_no_launch(path)
+    if launches is None:
+        n = expect_no_launch(path)
+    else:
+        n = expect_counts(path, launches(res))
     rec = dict(path=path, dtype=cfg.dtype, mono=cfg.mono,
                smth_ind=cfg.smth_ind, ho=cfg.ho, lo=cfg.lo, fct=cfg.fct,
                elements=load_mesh(cfg.mesh, cfg.rs_levels).num_elements,
@@ -1965,6 +2113,12 @@ def run_plain_path(path, cfg_kw, limits, device):
     for name, limit in limits.items():
         gate(path, name, rec[name], limit)
     return rec
+
+
+def mono_launches(res):
+    """Launches of a -mono 1 run on a compiled element: mono_rd once an
+    explicit pass."""
+    return dict(mono_rd=res.mono_stats["explicit"])
 
 
 def mono_parts(adv, geom, u, dt):
@@ -2026,7 +2180,8 @@ def split_plain_stage(device, path, cfg_kw, parts_of):
 
 def run_slice10_goldens(device):
     """The tenth slice's golden rows in f64 and transport-ballsjacks-m2 in
-    the f32 tier, through the golden runner; no kernel launches."""
+    the f32 tier, through the golden runner; no kernel launches but
+    mono_rd's in the f64 rows (steady-mono1|2 run -mono 1 at 2D p=1)."""
     out = {}
     for tag, argv, rows in (("f64", [], SLICE10_ROWS),
                             ("f32", ["--f32"], F32_ROWS)):
@@ -2036,7 +2191,13 @@ def run_slice10_goldens(device):
         with contextlib.redirect_stdout(buf):
             rc = run_goldens.main(["--device", str(device), *argv, "--only",
                                    *rows])
-        n = expect_no_launch(f"golden rows {tag}")
+        n = ops.launch_counts()
+        others = {k: v for k, v in n.items() if k != "mono_rd"}
+        variants = ops.variant_counts()
+        if (any(others.values()) or (n["mono_rd"] > 0) != (tag == "f64")
+                or any(v for c in variants.values() for v in c.values())):
+            raise RuntimeError(f"golden rows {tag}: kernel launches {n}, "
+                               f"variants {variants}")
         lines = buf.getvalue().splitlines()
         for line in lines:
             if line.startswith(("PASS", "FAIL")):
@@ -2564,6 +2725,7 @@ def main():
         order_recs.setdefault(k, {}).update(recs)
     fa_checks = fa_assemble_checks(dev)
     fct_checks = fa_fct_checks(dev)
+    mono_checks = mono_rd_checks(dev)
     done("kernel checks")
 
     # 4. the main path, counted
@@ -2635,7 +2797,8 @@ def main():
     done("transport golden rows and the command line")
     # 9e. path H: -mono 2 -si 2, then -mono 1 -si 1, at 192^2, f64
     run_plain_path("H", PATH_H, H_LIMITS, dev)
-    run_plain_path("H -mono 1 -si 1", PATH_H1, H_LIMITS, dev)
+    rec_h1 = run_plain_path("H -mono 1 -si 1", PATH_H1, H_LIMITS, dev,
+                            mono_launches)
     split_plain_stage(dev, "H", PATH_H, mono_parts)
     torch.cuda.empty_cache()
     done("path H")
@@ -2853,6 +3016,20 @@ def main():
         at_64={k: {f: fct_checks[f"64_{k}"][f] for f in (
             "max_abs_err", "ms", "trace_ms", "plain_ms", "bound_ms",
             "bound_by")} for k in ("f32", "f64")}))
+    kernels.append(row(
+        "mono_rd", "remhos_torch/ops/csrc/mono_rd.cu",
+        "none: the monolithic solver's explicit part in XLA ops "
+        "(remhos_tpu/mono.py)", rec_h1["launches"]["mono_rd"],
+        mono_checks["f32"], mono_checks["f64"], mono_checks,
+        ms=mono_checks["f32"]["ms_first"],
+        check_trace_ms=mono_checks["f32"]["trace_ms"],
+        d_full={k: {f: mono_checks[k][f]["d_full"] for f in (
+            "ms", "trace_ms", "plain_ms")} for k in ("f32", "f64")},
+        launches_of="path H1 (192^2 p=2 -si 1, with d_full), checked "
+                    "under path_h1; the other fields: the cell's 2048^2 p=1",
+        path_h1={k: {f: mono_checks["h1_" + k][f] for f in (
+            "max_abs_err", "rel_err", "limit", "ms", "trace_ms", "plain_ms",
+            "bound_ms", "bound_by")} for k in ("f32", "f64")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -9,12 +9,18 @@ restores the consistent-mass accuracy (eqs. 27-29). It reads the assembled
 M, K_elem, bdrInt and ml, so it runs on the assembled stage only, as in the
 reference.
 
+On the card `-mono 1`'s explicit part past the bounds and the indicator
+(K u, the limiters, the alpha-weighted flux lumping, the RD weights) is one
+launch of `ops/mono_rd` (`mono_rd.engages` decides); `-mono 2`, other
+element sizes and the CPU run its plain chain, `mono_rd_reference`.
+
 Spans (`utils/trace.py`, only under a profiler): `remhos.mono` around a
-solution, and inside it `remhos.bounds` (the element extrema and the dof
-bounds), `remhos.si` (the indicator and its dof values), `remhos.lumping`
-(the face gathers, both nonlinear flux lumpings and their scatters) and
-`remhos.mono_loop` (the inner loop). `adv.mono_stats["explicit"]` counts
-the explicit passes; the indicator counts its own evaluations.
+solution (the explicit part, kernel or plain chain, in its self time), and
+inside it `remhos.bounds` (the element extrema and the dof bounds),
+`remhos.si` (the indicator and its dof values), `remhos.lumping` (the
+neighbour gather) and `remhos.mono_loop` (the inner loop).
+`adv.mono_stats["explicit"]` counts the explicit passes; the indicator
+counts its own evaluations.
 
 The reference's inner loop walks each element on its own
 (remhos_mono.cpp:285-291). Here, as in the JAX package, one masked loop runs
@@ -34,13 +40,11 @@ import torch
 from . import assembly as asm
 from . import basis as B
 from . import bounds as bnd
-from . import lo as lom
 from . import problems as prob
+from .mono_lumping import BETA, EPS, _rescale
+from .ops import mono_rd as mrm
 from .utils.trace import host_wait, span, spanned
 
-EPS = 1.0e-15
-GAMMA = 10.0
-BETA = 10.0
 TOL = 1.0e-8
 # the JAX package's while_loop runs while it <= 100: at most 101 iterations
 MAX_ITER = 101
@@ -66,52 +70,29 @@ def velocity_scale(mesh, disc, problem):
     return vmax / (2.0 * (np.sqrt(dim) * mesh.element_sizes() / p))
 
 
-def _rescale(c, sp, sn):
-    """The conservation rescaling of remhos_tools.cpp:945-968 and
-    remhos_mono.cpp:318-336: with positive and negative sums sp and sn, the
-    larger side is scaled down so that the parts cancel."""
-    tot = sp + sn
-    cp, cn = c.clamp(min=0.0), c.clamp(max=0.0)
-    return torch.where(
-        tot > EPS, cn - cp * (sn / torch.where(sp != 0, sp, 1.0)),
-        torch.where(tot < -EPS, cp - cn * (sp / torch.where(sn != 0, sn,
-                                                              1.0)), c))
-
-
-def nonlin_flux_lumping(u_face, u_nbr, bdrInt, alpha_face):
-    """NonlinFluxLumping (remhos_tools.cpp:915-973): the lumped face term
-    plus a per-face conservation-rescaled high-order correction,
-    [E, nf, fd]."""
-    xd = u_nbr - u_face
-    row = bdrInt.sum(dim=3)
-    lumped = row * xd
-    corr = ((bdrInt * xd[:, :, None, :]).sum(-1) - row * xd) * alpha_face
-    sp = corr.clamp(min=0.0).sum(dim=2, keepdim=True)
-    sn = corr.clamp(max=0.0).sum(dim=2, keepdim=True)
-    return lumped + _rescale(corr, sp, sn)
-
-
 @spanned("remhos.mono")
 def mono_rd_solution(adv, geom, u, dt):
     """MonoRDSolver::CalcSolution (remhos_mono.cpp:60-356), batched over
     the elements. `adv.mono_stats` counts the explicit passes, the inner
     loops, their iterations and their read-backs."""
-    du, d_full, xi_min, xi_max, si_dof = explicit_part(adv, geom, u)
-    m_it = torch.zeros_like(u)
-    if adv.cfg.problem not in (6, 7):      # mass limiting, remhos.cpp:999
-        m_it = consistent_mass_loop(adv, geom, u, du, d_full, xi_min,
-                                    xi_max, si_dof)
+    final = adv.cfg.problem in (6, 7)      # no mass limiting, remhos.cpp:999
+    du, d_full, xi_min, xi_max, si_dof = explicit_part(adv, geom, u, final)
+    if final:
+        return du
+    m_it = consistent_mass_loop(adv, geom, u, du, d_full, xi_min, xi_max,
+                                si_dof)
     return (du + m_it) / geom["ml"]
 
 
-def explicit_part(adv, geom, u):
+def explicit_part(adv, geom, u, final=False):
     """Everything of the solution but the inner loop (remhos_mono.cpp:
     60-260): (du, d_full, xi_min, xi_max, si_dof), du the limited
     fluctuations with the face terms and the RD weighting, d_full the
     unlimited ones, the dof bounds and the indicator at the dofs (None
-    without -si)."""
+    without -si). With `final` (no inner loop follows) du is the rate (du
+    + 0) / ml and d_full None. One launch of `ops/mono_rd` where it engages
+    (`-mono 1` on the card), else its plain chain."""
     cfg = adv.cfg
-    K, bdrInt = geom["K_elem"], geom["bdrInt"]
     adv.mono_stats["explicit"] += 1
 
     with span("remhos.bounds"):
@@ -123,43 +104,18 @@ def explicit_part(adv, geom, u):
         with span("remhos.si"):
             si_dof = adv.smth.dof_values(adv.smth.compute(u))
 
-    z = asm.matvec(K, u)
-    d_full = z
-
-    # the per-dof limiter alpha (remhos_mono.cpp:128-154)
-    up = xi_max - u
-    dn = u - xi_min
-    alpha = torch.clamp(BETA * torch.minimum(up, dn)
-                        / (torch.maximum(up, dn) + EPS), max=1.0)
-    if cfg.smth_ind:
-        t = si_dof
-        bndN = torch.clamp(t * (2. * u - xi_max) + (1. - t) * xi_min,
-                           min=0.0)
-        bndP = torch.clamp(t * (2. * u - xi_min) + (1. - t) * xi_max,
-                           max=1.0)
-        aN = torch.clamp(BETA * (u - bndN) / (xi_max - u + EPS), max=1.0)
-        aP = torch.clamp(BETA * (bndP - u) / (u - xi_min + EPS), max=1.0)
-        mid = xi_min + xi_max
-        alpha = torch.where(mid > 2. * u + EPS, aN,
-                            torch.where(mid < 2. * u - EPS, aP, alpha))
-
-    du = alpha * z
-    z = z - alpha * z
-
-    # the face terms: nonlinear lumping with alpha (du) and alpha = 1 (d)
-    bdr = adv.bdr_dofs
     with span("remhos.lumping"):
-        u_face = asm.gather_face(u, bdr)
         u_nbr = adv.gather_nbr(u, adv.inflow_face)
-        alpha_face = alpha[:, bdr]
-        du = asm.scatter_face_add(
-            du, nonlin_flux_lumping(u_face, u_nbr, bdrInt, alpha_face), bdr)
-        d_full = asm.scatter_face_add(
-            d_full, nonlin_flux_lumping(u_face, u_nbr, bdrInt,
-                                        torch.ones_like(alpha_face)), bdr)
-
-    # the residual distribution of the unsplit part z
-    du = du + _rd_weights(adv, geom, u, z)
+    if mrm.engages(u.device, u.dtype, adv.disc.dim, u.shape[1], cfg.mono):
+        xi_min, xi_max = xi_min.contiguous(), xi_max.contiguous()
+        if si_dof is not None:
+            si_dof = si_dof.contiguous()
+        du, d_full = mrm.mono_rd(geom, u, xi_min, xi_max, si_dof, u_nbr,
+                                 adv.mono_rd_tables, final)
+    else:
+        du, d_full = mrm.mono_rd_reference(
+            geom, u, xi_min, xi_max, si_dof, u_nbr, adv.bdr_dofs, final,
+            adv._sub2ind if cfg.mono == 2 else None)
     return du, d_full, xi_min, xi_max, si_dof
 
 
@@ -241,15 +197,3 @@ def consistent_mass_loop(adv, geom, u, du, d_full, xi_min, xi_max, si_dof):
     st["max_iterations"] = max(st["max_iterations"], it)
     st["readbacks"] += reads
     return m_it
-
-
-def _rd_weights(adv, geom, u, z):
-    """The RD weighting of the remaining fluctuation (remhos_mono.cpp:
-    168-260): `residual_distribution_core`'s formulas without its face
-    accumulator and ml division, with the subcell blending GAMMA."""
-    sub_kw = {}
-    if adv.cfg.mono == 2:
-        sub_kw = dict(subcell=True, subcell_weights=geom["sub_w"],
-                      sub2ind=adv._sub2ind, gamma=GAMMA)
-    return lom.residual_distribution_core(u, z, torch.zeros_like(u),
-                                          torch.ones_like(u), **sub_kw)

@@ -106,6 +106,7 @@ from .discretization import Discretization
 from .si import SmoothnessIndicator
 from .ops import fa_assemble as fam
 from .ops import fa_fct as ffm
+from .ops import mono_rd as mrm
 from .ops import tables as tbl
 from .ops.geom_conv import geom_conv, geom_conv_tables
 from .ops.mega_stage import mega_stage
@@ -361,13 +362,17 @@ class Advection:
     def _init_assembled(self):
         """Static tables of the assembled stage (`ops/fa_assemble`'s: the
         volume and face bases and, where the kernel engages, its 1D tables;
-        `ops/fa_fct`'s face pairs) and, in remap on the plain chain, the
-        mesh velocity at the volume and face points; in transport the whole
-        stage geometry, assembled once."""
+        `ops/fa_fct`'s face pairs; with -mono `ops/mono_rd`'s face slots)
+        and, in remap on the plain chain, the mesh velocity at the volume
+        and face points; in transport the whole stage geometry, assembled
+        once."""
         self._fa_tables = fam.fa_assemble_tables(
             self.disc, self.dtype, self.device, self.cfg.exec_mode)
         self.fa_fct_tables = ffm.fa_fct_tables(self.bdr_dofs, self.disc.nd,
                                                self.device)
+        self.mono_rd_tables = (None if self.cfg.mono == 0 else
+                               mrm.mono_rd_tables(self.bdr_dofs, self.disc.nd,
+                                                  self.device))
         if self.cfg.exec_mode == 0:
             self._assembled_geom = self._assemble(0.0)
         elif not self._fa_tables["engaged"]:

@@ -38,6 +38,7 @@ LIBRARIES = {
     "gather_nbr": (("gather_nbr.cu",), ()),
     "fa_assemble": (("fa_assemble.cu",), ("mesh_geom.cuh", "stage_core.cuh")),
     "fa_fct": (("fa_fct.cu",), ()),
+    "mono_rd": (("mono_rd.cu",), ()),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -261,6 +261,39 @@ def fa_fct_cost(u, tables, iters=1):
     return nbytes, E * (flux + iters * sweep)
 
 
+# per dof: the limiter (the distances to the bounds and alpha, 8), with -si
+# also the relaxed bounds, their two alphas and the choice (32), and alpha z
+# with (1 - alpha) z (3); per face dof of a nonlinear flux lumping beyond
+# B (u_nbr - u): the difference, the row sum's share, the lumped term, the
+# correction and its alpha, the signed sums, the rescaling and the add (16);
+# as perfbench/yardstick_mono.py counts them
+MONO_LIMITER_OPS = 11
+MONO_SI_OPS = 32
+MONO_LUMPING_OPS = 16
+
+
+def mono_rd_cost(u, tables, si=True, final=True):
+    """(bytes, flops) of the monolithic solver's explicit-part kernel on u
+    [E, nd]: K_elem [E, nd, nd], the face blocks [E, nf, fd, fd] and u_nbr
+    [E, nf, fd] read once, u, xi_min, xi_max, with -si the indicator's dof
+    values and with `final` ml read once, du (and without `final` d_full)
+    written once, and the slot and face tables. Operations: K u (2 nd^2),
+    the limiter, one nonlinear flux lumping (two without `final`: the
+    alpha = 1 one for d_full), the RD weights (15 a dof and 6 an element)
+    and with `final` the division by ml."""
+    E, nd = u.shape
+    nf, fd = tables["nf"], tables["fd"]
+    # u, xi_min, xi_max (si); then ml and du, or du and d_full
+    vectors = 3 + bool(si) + 2
+    nbytes = ((nd * nd + nf * fd * fd + nf * fd + vectors * nd) * E
+              * u.element_size()
+              + _nbytes([tables["slots"], tables["fdofs"]]))
+    lumping = nf * (2 * fd * fd + MONO_LUMPING_OPS * fd)
+    per_dof = MONO_LIMITER_OPS + (MONO_SI_OPS if si else 0) + 15 + bool(final)
+    flops = 2 * nd * nd + nd * per_dof + (1 if final else 2) * lumping + 6
+    return nbytes, E * flops
+
+
 def gl_cg_cost(rhs, wdet, tables, iterations):
     """(bytes, flops) of kernel 6: rhs and wdet read once, the result
     written once, the 1D tables sf read once; per element b = rhs A, the

@@ -33,8 +33,10 @@ The program's own spans live here too:
   assembled stage > `remhos.assemble`, `remhos.factor`, `remhos.upwind`),
   `remhos.gather`, `remhos.bounds`, `remhos.ho` > `remhos.cg`, `remhos.lo`,
   `remhos.fct` (> `remhos.flux` with `-fct 1`), `remhos.product`,
-  `remhos.mono` (the monolithic solution; > `remhos.bounds`, `remhos.si`,
-  `remhos.lumping`, `remhos.mono_loop`; `remhos.si` also in `-fct 3`) and
+  `remhos.mono` (the monolithic solution, with its explicit part,
+  `mono_rd`'s launch or the plain chain, in its self time; >
+  `remhos.bounds`, `remhos.si`, `remhos.lumping` (the neighbour gather),
+  `remhos.mono_loop`; `remhos.si` also in `-fct 3`) and
   `remhos.sync`. A span's parent is the span around it on the same
   thread; a layer's self time is its span less its child spans
   (`device_by_span` and `idle_by_span` charge each instant to the

@@ -93,7 +93,8 @@ def test_main_record(leg):
     assert rec["hbm_gb_per_s_model"] is None
     assert set(rec["kernels"]) == {"mega_stage", "stage_ho", "wdet",
                                    "geom_conv", "stage_ho_nodes", "gl_cg",
-                                   "gather_nbr", "fa_assemble", "fa_fct"}
+                                   "gather_nbr", "fa_assemble", "fa_fct",
+                                   "mono_rd"}
 
 
 @pytest.mark.parametrize("closure", ["full", "0", "1"])

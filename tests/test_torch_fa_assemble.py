@@ -273,7 +273,7 @@ def test_wrapper_on_the_cpu_is_the_plain_chain():
 def test_kernel_registry_counts_fa_assemble():
     """`ops.KERNELS`, `launch_counts` and `reset_launch_counts` include the
     eighth kernel."""
-    assert ops.KERNELS[7] == "fa_assemble" and len(ops.KERNELS) == 9
+    assert ops.KERNELS[7] == "fa_assemble" and len(ops.KERNELS) == 10
     assert ops.wrappers()["fa_assemble"] is fa.fa_assemble
     fa.fa_assemble.launches = 5
     assert ops.launch_counts()["fa_assemble"] == 5

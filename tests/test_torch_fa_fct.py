@@ -195,7 +195,7 @@ def test_wrapper_refuses_other_operands():
 def test_kernel_registry_counts_fa_fct():
     """`ops.KERNELS`, `launch_counts` and `reset_launch_counts` include the
     ninth kernel."""
-    assert ops.KERNELS[-1] == "fa_fct" and len(ops.KERNELS) == 9
+    assert ops.KERNELS[8] == "fa_fct" and len(ops.KERNELS) == 10
     assert ops.wrappers()["fa_fct"] is ff.fa_fct
     ff.fa_fct.launches = 4
     assert ops.launch_counts()["fa_fct"] == 4

@@ -27,6 +27,7 @@ from remhos_torch.ops import gather_nbr as gn
 from remhos_torch.ops import geom_conv as gc
 from remhos_torch.ops import gl_cg as cg
 from remhos_torch.ops import mega_stage as ms
+from remhos_torch.ops import mono_rd as mr
 from remhos_torch.ops import stage_core as core
 from remhos_torch.ops import stage_ho as sh
 from remhos_torch.ops import stage_ho_nodes as shn
@@ -577,6 +578,7 @@ def test_trace_counts_equal_launch_counters():
     _, M, ml, K, bdr = fa.fa_assemble(xs, adv.v_nodes, tbf)
     fgeom = dict(K_elem=K, M=M, bdrInt=bdr, ml=ml)
     tbc = ff.fa_fct_tables(adv.disc.dofmaps.bdr_dofs, adv.disc.nd, "cuda")
+    mono_in, tbm = _mono_rd_inputs(6, torch.float32)
 
     def every_kernel():
         for _ in range(2):
@@ -590,6 +592,7 @@ def test_trace_counts_equal_launch_counters():
         gn.gather_nbr(u, lay)
         fa.fa_assemble(xs, adv.v_nodes, tbf)
         ff.fa_fct(fgeom, u, u, u, u - 0.1, u + 0.1, DT, tbc)
+        mr.mono_rd(*mono_in, tbm, True)
 
     every_kernel()
     tr, launches = trc.capture_counted(every_kernel)
@@ -602,6 +605,25 @@ def test_trace_counts_equal_launch_counters():
 
 def _f64(*tensors):
     return [x.to(torch.float64) for x in tensors]
+
+
+def _mono_rd_inputs(n, dtype):
+    """Operands of one `mono_rd` launch on n^2 p=1 quads of seeded random
+    values on the card (the element data need not be a discretization's):
+    ((geom, u, xi_min, xi_max, si_dof, u_nbr), tables)."""
+    disc = build_discretization(make_cartesian_mesh(
+        2, (n, n), (0.0, 0.0), (1.0, 1.0), (False, False)), 1)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    E = n * n
+
+    def r(*shape):
+        return torch.rand((E, *shape), generator=g, dtype=dtype,
+                          device="cuda")
+
+    u = r(4)
+    geom = dict(K_elem=r(4, 4) - 0.5, bdrInt=r(4, 2, 2), ml=r(4) + 0.5)
+    return ((geom, u, u - 0.1, u + 0.1, r(4), r(4, 2)),
+            mr.mono_rd_tables(disc.dofmaps.bdr_dofs, disc.nd, "cuda"))
 
 
 @pytest.mark.gpu
@@ -959,9 +981,10 @@ def test_failed_build_raises(tmp_path, monkeypatch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mono,si", [(2, 2), (1, 1)])
 def test_short_path_h_matches_the_cpu(mono, si):
-    """Path H cut to a 24x24 mesh and 4 steps: -mono -si on the card, no
-    kernel launched, the same run as on the CPU to 1e-12 in f64, with
-    path H's gates."""
+    """Path H cut to a 24x24 mesh and 4 steps: -mono -si on the card, with
+    -mono 1 one `mono_rd` launch an explicit pass (which also writes
+    d_full for the inner loop) and no other kernel, with -mono 2 no kernel;
+    the same run as on the CPU to 1e-12 in f64, with path H's gates."""
     _cuda()
     kw = dict(mesh="periodic-square", problem=4, rs_levels=3, order=2,
               dt=0.005, t_final=0.03, max_tsteps=4, ho=0, lo=0, fct=0,
@@ -969,10 +992,130 @@ def test_short_path_h_matches_the_cpu(mono, si):
     ops.reset_launch_counts()
     rc = driver.run(RunConfig(device="cuda", **kw))
     rh = driver.run(RunConfig(device="cpu", **kw))
-    assert set(ops.launch_counts().values()) == {0}
+    # -mono 1 at p=2: one mono_rd launch an explicit pass; -mono 2 none
+    explicit = rc.mono_stats["explicit"]
+    assert explicit > 0
+    assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
+                                       mono_rd=explicit if mono == 1 else 0)
     assert abs(rc.final_mass_u - rh.final_mass_u) <= 1e-12 * rh.final_mass_u
     assert abs(rc.max_u - rh.max_u) <= 1e-12 * rh.max_u
     assert rc.mass_loss_u < 1e-11 and rc.max_u <= 1.0 + 1e-9
+
+
+# (mesh, problem, dim, p, refinements): every compiled element of mono_rd,
+# on the transport cell's mesh and on path H's
+MONO_RD_CASES = [("inline-quad", 7, 2, 1, 4), ("inline-quad", 7, 2, 2, 3),
+                 ("periodic-square", 4, 2, 2, 3)]
+
+
+def _mono_stage(mesh, problem, p, rs, si):
+    """One explicit pass's operands to mono_rd on the card, from a `-mono
+    1 -si <si>` operator (f64) and a seeded u: (adv, the element data, [u,
+    xi_min, xi_max, si_dof, u_nbr])."""
+    cfg = RunConfig(mesh=mesh, problem=problem, rs_levels=rs, order=p,
+                    dt=0.002, ho=0, lo=0, fct=0, mono=1, smth_ind=si,
+                    device="cuda", verbose=False)
+    adv, _ = driver.build_operator(cfg)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    u = torch.rand((adv.disc.mesh.num_elements, adv.disc.nd), generator=g,
+                   dtype=torch.float64, device="cuda")
+    xi_min, xi_max = adv.compute_bounds(*bounds.elements_min_max(u))
+    si_dof = adv.smth.dof_values(adv.smth.compute(u)) if si else None
+    geom = adv.geometry(0.0)
+    return adv, {k: geom[k] for k in ("K_elem", "bdrInt", "ml")}, [
+        u, xi_min, xi_max, si_dof, adv.gather_nbr(u, adv.inflow_face)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("final", [True, False])
+@pytest.mark.parametrize("si", [2, 0])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", MONO_RD_CASES, ids=str)
+def test_mono_rd_matches_reference(case, dtype, si, final):
+    """The monolithic explicit-part kernel on every compiled element, with
+    and without -si, with and without d_full, against its plain chain on
+    the same inputs, one launch counted: in f64 within 1e-14 of max|du|
+    (K u by FMAs, and the sums in another order than ATen's); in f32 no
+    farther from the plain chain evaluated in f64 than twice the f32 plain
+    chain lies (both round alike but for those, so either may be the
+    nearer)."""
+    _cuda()
+    mesh, problem, dim, p, rs = case
+    adv, geom, vectors = _mono_stage(mesh, problem, p, rs, si)
+    assert adv.disc.dim == dim and mr.engages("cuda", dtype, dim,
+                                              adv.disc.nd, 1)
+
+    def cast(x, t):
+        return None if x is None else x.to(t).contiguous()
+
+    g = {k: cast(x, dtype) for k, x in geom.items()}
+    vec = [cast(x, dtype) for x in vectors]
+    before = mr.mono_rd.launches
+    got = mr.mono_rd(g, *vec, adv.mono_rd_tables, final)
+    torch.cuda.synchronize()
+    assert mr.mono_rd.launches == before + 1
+    ref = mr.mono_rd_reference(g, *vec, adv.bdr_dofs, final)
+    ref64 = mr.mono_rd_reference(
+        {k: cast(x, torch.float64) for k, x in g.items()},
+        *[cast(x, torch.float64) for x in vec], adv.bdr_dofs, final)
+    assert (got[1] is None) is final
+    for k, r, r64 in zip(got, ref, ref64):
+        if r is None:
+            continue
+        assert k.dtype == dtype and k.shape == vec[0].shape
+        if dtype == torch.float64:
+            assert (k - r).abs().max().item() <= 1e-14 * r.abs().max().item()
+            continue
+        plain = (r.double() - r64).abs().max().item()
+        assert (k.double() - r64).abs().max().item() <= 2 * plain
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [("inline-quad", 7, 2, 3, 2),
+                                  ("periodic-cube", 4, 3, 1, 2),
+                                  ("periodic-cube", 4, 3, 2, 1)], ids=str)
+def test_mono_rd_leaves_other_elements_to_the_plain_chain(case):
+    """2D p=3 and 3D elements are not compiled: on the card
+    `mono.explicit_part` runs the plain chain there, launches nothing and
+    gives `mono_rd_reference`'s (du, d_full) on its own bounds and
+    indicator values to 1e-14 of their largest entry (the chain's index_add
+    adds a dof's face terms by atomics on the card, in no fixed order: in
+    3D two runs of it differ in the last bits)."""
+    _cuda()
+    from remhos_torch import mono
+    mesh, problem, dim, p, rs = case
+    adv, geom, vectors = _mono_stage(mesh, problem, p, rs, 2)
+    assert not mr.engages("cuda", torch.float64, dim, adv.disc.nd, 1)
+    u = vectors[0]
+    before = mr.mono_rd.launches
+    du, d_full, *vec = mono.explicit_part(adv, adv.geometry(0.0), u)
+    assert mr.mono_rd.launches == before
+    want = mr.mono_rd_reference(geom, u, *vec, vectors[4], adv.bdr_dofs,
+                                False)
+    for k, r in zip((du, d_full), want):
+        assert (k - r).abs().max().item() <= 1e-14 * r.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_short_transport_mono_launches_mono_rd():
+    """The transport cell's configuration (`-m inline-quad -p 7 -o 1 -mono
+    1 -si 2`) cut to 64^2 and 8 steps on the card: `mono_rd.launches`
+    equals the explicit passes, no other kernel runs, and the run is the
+    CPU's to 1e-12 in f64."""
+    _cuda()
+    kw = dict(mesh="inline-quad", problem=7, rs_levels=4, order=1,
+              dt=0.002, t_final=0.016, max_tsteps=8, ho=0, lo=0, fct=0,
+              mono=1, smth_ind=2, verbose=False)
+    ops.reset_launch_counts()
+    rc = driver.run(RunConfig(device="cuda", **kw))
+    explicit = rc.mono_stats["explicit"]
+    assert explicit == 3 * rc.steps
+    assert ops.launch_counts() == dict(dict.fromkeys(ops.KERNELS, 0),
+                                       mono_rd=explicit)
+    rh = driver.run(RunConfig(device="cpu", **kw))
+    assert abs(rc.final_mass_u - rh.final_mass_u) <= 1e-12 * abs(
+        rh.final_mass_u)
+    assert abs(rc.max_u - rh.max_u) <= 1e-12 * rh.max_u
 
 
 @pytest.mark.gpu
